@@ -1,0 +1,219 @@
+"""Block views over state leaves (paper's "pages", §3.1).
+
+A leaf tensor of any shape/dtype is reinterpreted as a 2-D int32 lane view
+``(n_blocks, lanes_per_block)`` — the unit over which checksums are
+computed and parity stripes are formed.  When the leaf fills its blocks
+exactly the view aliases the leaf's memory (no copy); a multi-GiB heap is
+never duplicated.  Sub-word dtypes pack little-endian into each word.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Tuple
+
+import torch
+
+from . import bits
+
+DEFAULT_LANES_PER_BLOCK = 16384  # 64 KiB blocks
+DEFAULT_STRIPE_DATA_BLOCKS = 4   # paper: 4 data pages + 1 parity page
+
+_DTYPES = {
+    "float32": torch.float32, "float16": torch.float16,
+    "bfloat16": torch.bfloat16, "int32": torch.int32, "int16": torch.int16,
+    "int8": torch.int8, "uint8": torch.uint8, "uint16": torch.uint16,
+    "uint32": torch.uint32,
+}
+_NAMES = {v: k for k, v in _DTYPES.items()}
+
+
+def dtype_name(dtype: torch.dtype) -> str:
+    if dtype not in _NAMES:
+        raise ValueError(f"unsupported leaf dtype: {dtype}")
+    return _NAMES[dtype]
+
+
+def _elems_per_word(dtype: torch.dtype) -> int:
+    isz = dtype.itemsize
+    if isz > 4:
+        raise ValueError(f"dtypes wider than 4 bytes unsupported: {dtype}")
+    if 4 % isz:
+        raise ValueError(f"itemsize must divide 4: {dtype}")
+    return 4 // isz
+
+
+@dataclasses.dataclass(frozen=True)
+class BlockMeta:
+    """Static geometry of a leaf's block view."""
+    shape: Tuple[int, ...]
+    dtype: str
+    lanes_per_block: int
+    stripe_data_blocks: int
+
+    @property
+    def torch_dtype(self) -> torch.dtype:
+        return _DTYPES[self.dtype]
+
+    @property
+    def n_elems(self) -> int:
+        return math.prod(self.shape) if self.shape else 1
+
+    @property
+    def elems_per_word(self) -> int:
+        return _elems_per_word(self.torch_dtype)
+
+    @property
+    def n_lanes(self) -> int:
+        """Total uint32 lanes (before block padding)."""
+        return -(-self.n_elems // self.elems_per_word)
+
+    @property
+    def n_blocks(self) -> int:
+        return max(1, -(-self.n_lanes // self.lanes_per_block))
+
+    @property
+    def n_stripes(self) -> int:
+        return -(-self.n_blocks // self.stripe_data_blocks)
+
+    @property
+    def n_dirty_words(self) -> int:
+        return bits.n_words(self.n_blocks)
+
+    @property
+    def padded_lanes(self) -> int:
+        return self.n_blocks * self.lanes_per_block
+
+    @property
+    def padded_blocks(self) -> int:
+        return self.n_stripes * self.stripe_data_blocks
+
+    @property
+    def bytes_per_block(self) -> int:
+        return self.lanes_per_block * 4
+
+    @property
+    def data_bytes(self) -> int:
+        return self.n_elems * self.torch_dtype.itemsize
+
+
+def make_meta(
+    leaf,
+    lanes_per_block: int = DEFAULT_LANES_PER_BLOCK,
+    stripe_data_blocks: int = DEFAULT_STRIPE_DATA_BLOCKS,
+) -> BlockMeta:
+    """Geometry of ``leaf`` (anything with ``.shape`` and a torch ``.dtype``)."""
+    n_lanes = -(-(math.prod(leaf.shape) or 1) // _elems_per_word(leaf.dtype))
+    # Small leaves get a single (possibly shorter) block, padded to a
+    # multiple of 128 lanes like the reference geometry.
+    lpb = min(lanes_per_block, max(128, -(-n_lanes // 128) * 128))
+    return BlockMeta(
+        shape=tuple(leaf.shape),
+        dtype=dtype_name(leaf.dtype),
+        lanes_per_block=lpb,
+        stripe_data_blocks=stripe_data_blocks,
+    )
+
+
+def to_lanes(x: torch.Tensor, meta: BlockMeta) -> torch.Tensor:
+    """int32 ``(n_blocks, lanes_per_block)`` view of a leaf.
+
+    A view of the leaf's own memory when the leaf fills its blocks exactly
+    (writes through it land in the leaf); a zero-padded copy otherwise.
+    """
+    flat = x.contiguous().reshape(-1)
+    epw = meta.elems_per_word
+    if meta.n_elems == meta.padded_lanes * epw:
+        return flat.view(torch.int32).view(meta.n_blocks, meta.lanes_per_block)
+    out = torch.zeros((meta.padded_lanes * epw,), dtype=x.dtype, device=x.device)
+    out[: meta.n_elems] = flat
+    return out.view(torch.int32).view(meta.n_blocks, meta.lanes_per_block)
+
+
+def from_lanes(lanes: torch.Tensor, meta: BlockMeta) -> torch.Tensor:
+    """Inverse of :func:`to_lanes` (a view of ``lanes`` where it can be)."""
+    flat = lanes.reshape(-1)[: meta.n_lanes].view(meta.torch_dtype)
+    return flat[: meta.n_elems].reshape(meta.shape)
+
+
+def stripe_dirty_mask(meta: BlockMeta, block_dirty: torch.Tensor) -> torch.Tensor:
+    """bool[n_stripes] of stripes containing at least one dirty block."""
+    padded = torch.zeros((meta.padded_blocks,), dtype=torch.bool,
+                         device=block_dirty.device)
+    padded[: meta.n_blocks] = block_dirty
+    return padded.view(meta.n_stripes, meta.stripe_data_blocks).any(dim=1)
+
+
+def _row_geometry(meta: BlockMeta, row_dims: int):
+    """(row_lanes, blocks_per_row) for rows over the first ``row_dims`` axes."""
+    row_elems = (math.prod(meta.shape[row_dims:])
+                 if len(meta.shape) > row_dims else 1)
+    row_lanes = -(-row_elems // meta.elems_per_word)
+    blocks_per_row = max(
+        1, -(-row_elems // (meta.lanes_per_block * meta.elems_per_word)) + 1)
+    return row_lanes, blocks_per_row
+
+
+def _mask_from_ids(meta: BlockMeta, ids: torch.Tensor) -> torch.Tensor:
+    """bool[n_blocks] with ``ids`` set; ids == n_blocks are dropped.
+
+    Torch has no ``mode="drop"`` scatter: the sentinel lands in one extra
+    slot that is sliced away, so nothing synchronises with the host.
+    """
+    mask = torch.zeros((meta.n_blocks + 1,), dtype=torch.bool, device=ids.device)
+    mask[ids.reshape(-1)] = True
+    return mask[: meta.n_blocks]
+
+
+def row_block_mask(meta: BlockMeta, row_ids: torch.Tensor,
+                   row_dims: int = 1) -> torch.Tensor:
+    """bool[n_blocks] mask of all blocks touched by the given rows (ids < 0
+    ignored); handles rows straddling several blocks.  Offsets are int64:
+    flat lane offsets reach 2^31 on multi-GiB leaves."""
+    if not meta.shape:
+        return torch.ones((meta.n_blocks,), dtype=torch.bool, device=row_ids.device)
+    row_lanes, blocks_per_row = _row_geometry(meta, row_dims)
+    valid = row_ids >= 0
+    first_lane = torch.where(valid, row_ids, 0).to(torch.int64) * row_lanes
+    first_block = first_lane // meta.lanes_per_block
+    offs = torch.arange(blocks_per_row, dtype=torch.int64, device=row_ids.device)
+    ids = first_block[:, None] + offs[None, :]
+    last_block = (first_lane + row_lanes - 1) // meta.lanes_per_block
+    live = (ids <= last_block[:, None]) & valid[:, None]
+    return _mask_from_ids(meta, torch.where(live, ids, meta.n_blocks))
+
+
+def row_mask_block_mask(meta: BlockMeta, row_mask: torch.Tensor,
+                        row_dims: int = 1) -> torch.Tensor:
+    """bool[n_blocks] of blocks touched by set rows of a bool row mask.
+
+    When rows pack evenly into blocks the translation is a reshape-any
+    reduction; otherwise it is a masked scatter over the row range — cost
+    tracks the event shape, never the leaf size.
+    """
+    if not meta.shape:
+        return row_mask.any().expand(meta.n_blocks).clone()
+    row_mask = row_mask.reshape(-1)
+    nb, L = meta.n_blocks, meta.lanes_per_block
+    row_lanes, blocks_per_row = _row_geometry(meta, row_dims)
+    R = row_mask.shape[0]
+    dev = row_mask.device
+    if row_lanes <= L and L % row_lanes == 0:
+        # Rows never straddle a block boundary: block b = row // rows_per_block.
+        rpb = L // row_lanes
+        n_pb = -(-R // rpb)
+        padded = torch.zeros((n_pb * rpb,), dtype=torch.bool, device=dev)
+        padded[:R] = row_mask
+        per_block = padded.view(n_pb, rpb).any(dim=1)
+        if n_pb >= nb:
+            return per_block[:nb]
+        out = torch.zeros((nb,), dtype=torch.bool, device=dev)
+        out[:n_pb] = per_block
+        return out
+    first_lane = torch.arange(R, dtype=torch.int64, device=dev) * row_lanes
+    first_block = first_lane // L
+    last_block = (first_lane + row_lanes - 1) // L
+    offs = torch.arange(blocks_per_row, dtype=torch.int64, device=dev)
+    ids = first_block[:, None] + offs[None, :]
+    live = (ids <= last_block[:, None]) & row_mask[:, None]
+    return _mask_from_ids(meta, torch.where(live, ids, nb))

@@ -1,0 +1,323 @@
+"""RedundancyEngine — the paper's contribution over torch tensors.
+
+Modes (Table 1 of the paper):
+  * ``none``   — No-Redundancy baseline.
+  * ``sync``   — Pangolin-analogue: checksum+parity updated inside the step,
+                 incrementally from the old/new value diff.
+  * ``vilamb`` — the paper: dirty bits accumulate during steps; a periodic
+                 ``redundancy_step`` (Algorithm 1) amortizes the update.
+
+Machine-local: one engine owns the redundancy of a named set of leaves on
+one device, the GPU unless the caller passes ``device="cpu"``; a leaf on
+another device is refused.  On a CUDA device the Algorithm-1 update
+always runs the fused work-queue kernel (``kernels/redundancy``), so there
+is no host-side queue fit check; on the CPU the plain work queue or full
+recompute of ``workqueue.py`` runs, exactly as in the reference.  The
+results are bitwise identical either way.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Mapping, Tuple, Union
+
+import torch
+
+from ..common.device import DeviceLike, resolve_device
+from ..kernels.common import xor_fold
+from ..kernels.redundancy import ops as _fused
+from . import bits, blocks, checksum, parity, workqueue
+from .blocks import BlockMeta, DEFAULT_LANES_PER_BLOCK, DEFAULT_STRIPE_DATA_BLOCKS
+from .state import LeafRedundancy, RedundancyState
+
+# Dirty-event sentinel: "every block of this leaf was (potentially) written".
+ALL = "__all__"
+DirtyEvent = Union[str, torch.Tensor]  # ALL or bool row-mask over leading axis
+
+
+@dataclasses.dataclass(frozen=True)
+class RedundancyConfig:
+    mode: str = "vilamb"                 # none | sync | vilamb
+    lanes_per_block: int = DEFAULT_LANES_PER_BLOCK
+    stripe_data_blocks: int = DEFAULT_STRIPE_DATA_BLOCKS
+    # CPU work-queue capacity as a fraction of each leaf's stripe count
+    # (<= 0 disables; overflow falls back to the full masked recompute).
+    work_queue_frac: float = workqueue.DEFAULT_QUEUE_FRAC
+
+    def __post_init__(self):
+        if self.mode not in ("none", "sync", "vilamb"):
+            raise ValueError(f"unknown redundancy mode {self.mode!r}")
+
+
+class RedundancyEngine:
+    """Redundancy operations for a named dict of leaves on one device."""
+
+    def __init__(self, leaf_structs: Mapping[str, Any],
+                 config: RedundancyConfig = RedundancyConfig(),
+                 device: DeviceLike = None):
+        self.config = config
+        self.device = resolve_device(device, "RedundancyEngine")
+        self.use_kernels = self.device.type == "cuda"
+        self.metas: Dict[str, BlockMeta] = {
+            name: blocks.make_meta(leaf, config.lanes_per_block,
+                                   config.stripe_data_blocks)
+            for name, leaf in leaf_structs.items()}
+        # Static per-leaf work-queue capacities (0 = full recompute).  The
+        # fused kernel reads only dirty stripes, so it needs no queue.
+        self._queue_caps = {
+            name: 0 if self.use_kernels else workqueue.queue_capacity(
+                meta.n_stripes, config.work_queue_frac)
+            for name, meta in self.metas.items()}
+
+    # ------------------------------------------------------------- primitives
+    def queue_capacity(self, name: str) -> int:
+        """Static work-queue capacity (stripes) for a leaf; 0 = no queue."""
+        return self._queue_caps[name]
+
+    @property
+    def has_queue(self) -> bool:
+        return any(self._queue_caps.values())
+
+    def _lanes(self, leaves: Mapping[str, torch.Tensor], name: str) -> torch.Tensor:
+        """The leaf's lane view.  Raises if the leaf lies off the engine's
+        device, so a CUDA leaf never reaches the CPU work queue."""
+        leaf = leaves[name]
+        if leaf.device != self.device:
+            raise ValueError(f"leaf {name!r} lies on {leaf.device}, the engine "
+                             f"on {self.device}")
+        return blocks.to_lanes(leaf, self.metas[name])
+
+    def _stripe_dirty(self, meta: BlockMeta, bdirty: torch.Tensor) -> torch.Tensor:
+        return blocks.stripe_dirty_mask(meta, bdirty)
+
+    def queue_fits(self, red: RedundancyState) -> bool:
+        """Host-side overflow check: do all live dirty stripes fit the queues?"""
+        if not self.has_queue:
+            return False
+        for name, meta in self.metas.items():
+            cap = self._queue_caps[name]
+            if not cap:
+                continue
+            r = red[name]
+            bd = bits.unpack(r.dirty | r.shadow, meta.n_blocks)
+            if not bool(workqueue.stripe_fits(self._stripe_dirty(meta, bd), cap)):
+                return False
+        return True
+
+    def _update_leaf(self, name: str, meta: BlockMeta, lanes: torch.Tensor,
+                     old: LeafRedundancy, bdirty: torch.Tensor,
+                     sdirty: torch.Tensor, queued: bool):
+        """Masked checksum+parity+meta refresh (Alg. 1 lines 7-22).
+
+        On the card: the fused kernel, in place on ``old.checksums`` and
+        ``old.parity``, then a full meta-checksum.  On the CPU: the work
+        queue (caller guarantees the fit) or the full masked recompute.
+        """
+        if self.use_kernels:
+            cks, par = _fused.fused_update(lanes, old.checksums, old.parity,
+                                           bdirty, sdirty, meta.stripe_data_blocks)
+            return cks, par, checksum.meta_checksum(cks)
+        cap = self._queue_caps[name]
+        if queued and cap:
+            ids, _, _ = workqueue.compact_stripe_ids(sdirty, cap)
+            return workqueue.queued_update(
+                lanes, old.checksums, old.parity, old.meta_ck, bdirty, ids,
+                meta.stripe_data_blocks)
+        return workqueue.full_update(lanes, old.checksums, old.parity, bdirty,
+                                     sdirty, meta.stripe_data_blocks)
+
+    # -------------------------------------------------------------------- init
+    def init(self, leaves: Mapping[str, torch.Tensor]) -> RedundancyState:
+        """Full redundancy computation (file-creation time in the paper)."""
+        out: RedundancyState = {}
+        for name, meta in self.metas.items():
+            lanes = self._lanes(leaves, name)
+            cks = checksum.block_checksums(lanes)
+            par = parity.stripe_parity(lanes, meta.stripe_data_blocks)
+            words = bits.zeros(meta.n_blocks, lanes.device)
+            out[name] = LeafRedundancy(
+                checksums=cks, parity=par, dirty=words,
+                shadow=torch.zeros_like(words),
+                meta_ck=checksum.meta_checksum(cks))
+        return out
+
+    # ----------------------------------------------------------------- marking
+    def mark_dirty(self, red: RedundancyState,
+                   events: Mapping[str, DirtyEvent]) -> RedundancyState:
+        """OR dirty events into the bitvectors.
+
+        Events are domain-space: ``ALL`` for dense leaves, or a bool
+        row-mask over the leaf's leading axes.
+        """
+        out = dict(red)
+        for name, ev in events.items():
+            meta = self.metas[name]
+            r = red[name]
+            if isinstance(ev, str):
+                if ev != ALL:
+                    raise ValueError(f"{name}: unknown dirty event {ev!r}")
+                mask = torch.ones((meta.n_blocks,), dtype=torch.bool,
+                                  device=r.dirty.device)
+            elif (ev.dim() == 1 and len(meta.shape) >= 1
+                  and ev.shape[0] == meta.shape[0]
+                  and meta.n_blocks == meta.shape[0]):
+                # Fast path: rows map 1:1 to blocks (4 KiB-page heaps).
+                mask = ev
+            else:
+                mask = blocks.row_mask_block_mask(meta, ev, row_dims=ev.dim())
+            out[name] = dataclasses.replace(r, dirty=bits.mark(r.dirty, mask))
+        return out
+
+    # ---------------------------------------------------- Algorithm 1 (vilamb)
+    def _alg1(self, leaves: Mapping[str, torch.Tensor], red: RedundancyState,
+              queued: bool) -> RedundancyState:
+        out: RedundancyState = {}
+        for name, meta in self.metas.items():
+            r = red[name]
+            # Lines 2-4: snapshot dirty | shadow (leftover shadow from a crash).
+            snapshot = r.dirty | r.shadow
+            bdirty = bits.unpack(snapshot, meta.n_blocks)
+            sdirty = self._stripe_dirty(meta, bdirty)
+            lanes = self._lanes(leaves, name)
+            cks, par, meta_ck = self._update_leaf(name, meta, lanes, r, bdirty,
+                                                  sdirty, queued)
+            # Lines 19-20: redundancy written, then shadow cleared.
+            out[name] = LeafRedundancy(
+                checksums=cks, parity=par, dirty=torch.zeros_like(snapshot),
+                shadow=torch.zeros_like(snapshot), meta_ck=meta_ck)
+        return out
+
+    def redundancy_step(self, leaves: Mapping[str, torch.Tensor],
+                        red: RedundancyState) -> RedundancyState:
+        """One invocation of the paper's background update thread.
+
+        Per leaf: snapshot dirty→shadow, clear dirty, recompute checksums of
+        dirty blocks and parity of stripes containing a dirty block, clear
+        shadow, refresh the meta-checksum.  On the card the checksum and
+        parity tensors of ``red`` are updated in place: adopt the result
+        and do not reuse ``red``.
+        """
+        return self._alg1(leaves, red, queued=False)
+
+    def redundancy_step_queued(self, leaves: Mapping[str, torch.Tensor],
+                               red: RedundancyState) -> RedundancyState:
+        """Work-queue Algorithm 1 (CPU cost ∝ dirty stripes).  Bitwise equal
+        to :meth:`redundancy_step` iff every leaf's dirty stripes fit its
+        queue — check :meth:`queue_fits` first."""
+        return self._alg1(leaves, red, queued=True)
+
+    flush = redundancy_step
+
+    # ------------------------------------------------------- sync (Pangolin)
+    def sync_update(self, old_leaves: Mapping[str, torch.Tensor],
+                    new_leaves: Mapping[str, torch.Tensor],
+                    red: RedundancyState) -> RedundancyState:
+        """Pangolin-analogue inline update from the old/new diff (valid only
+        when redundancy was current before the step)."""
+        out: RedundancyState = {}
+        for name, meta in self.metas.items():
+            r = red[name]
+            o = self._lanes(old_leaves, name)
+            n = self._lanes(new_leaves, name)
+            cks = r.checksums ^ checksum.checksum_diff(o, n)
+            par = r.parity ^ parity.parity_diff(o, n, meta.stripe_data_blocks)
+            out[name] = LeafRedundancy(
+                checksums=cks, parity=par, dirty=r.dirty, shadow=r.shadow,
+                meta_ck=checksum.meta_checksum(cks))
+        return out
+
+    def sync_update_rows(self, name: str, r: LeafRedundancy,
+                         rows: torch.Tensor, old_rows: torch.Tensor,
+                         new_rows: torch.Tensor) -> LeafRedundancy:
+        """Sparse Pangolin update when rows map 1:1 to blocks.
+
+        Cost is O(touched rows).  ``rows`` must be unique; rows sharing a
+        stripe XOR-accumulate their parity deltas.  The checksum and parity
+        tensors of ``r`` are updated in place.
+        """
+        meta = self.metas[name]
+        if not (len(meta.shape) >= 1 and meta.n_blocks == meta.shape[0]):
+            raise ValueError(f"{name}: rows do not map 1:1 to blocks")
+        S = meta.stripe_data_blocks
+        old_lanes = old_rows.contiguous().view(torch.int32).reshape(old_rows.shape[0], -1)
+        new_lanes = new_rows.contiguous().view(torch.int32).reshape(new_rows.shape[0], -1)
+        rows = rows.to(torch.int64)
+        lids = torch.arange(old_lanes.shape[1], dtype=torch.int32,
+                            device=rows.device)[None, :]
+        salt = checksum.lane_salt(rows[:, None], lids)
+        h = checksum.fmix32_(old_lanes ^ salt)
+        h ^= checksum.fmix32_(new_lanes ^ salt)
+        old_cks = r.checksums[rows]
+        new_cks = old_cks ^ xor_fold(h, 1)
+        r.checksums[rows] = new_cks
+        parity.scatter_xor_stripes(r.parity, rows // S, old_lanes ^ new_lanes)
+        meta_ck = r.meta_ck ^ checksum.meta_checksum_delta(old_cks, new_cks, rows)
+        return dataclasses.replace(r, meta_ck=meta_ck)
+
+    # -------------------------------------------------------------- scrubbing
+    def scrub(self, leaves: Mapping[str, torch.Tensor],
+              red: RedundancyState) -> Dict[str, torch.Tensor]:
+        """Per-leaf bool[n_blocks] masks of clean blocks whose fresh
+        checksum differs from the stored one (paper §3.4)."""
+        out: Dict[str, torch.Tensor] = {}
+        for name, meta in self.metas.items():
+            r = red[name]
+            clean = ~bits.unpack(r.dirty | r.shadow, meta.n_blocks)
+            fresh = checksum.block_checksums(self._lanes(leaves, name))
+            out[name] = clean & (fresh != r.checksums)
+        return out
+
+    def verify_meta(self, red: RedundancyState) -> Dict[str, torch.Tensor]:
+        """Check the checksum-of-checksums (detects corrupted checksum pages)."""
+        return {name: checksum.meta_checksum(r.checksums) == r.meta_ck
+                for name, r in red.items() if name in self.metas}
+
+    # --------------------------------------------------------------- recovery
+    def recover_block(self, leaf: torch.Tensor, r: LeafRedundancy, name: str,
+                      block_id: int) -> Tuple[torch.Tensor, bool]:
+        """Reconstruct one corrupted block from its stripe, **in place**.
+
+        Returns ``(leaf, ok)``: the repaired block is written into
+        ``leaf``'s own memory (the reference returns a new array; a copy of
+        a multi-GiB leaf is what this avoids), and ``leaf`` itself is
+        returned.  A leaf whose lane view is a padded copy is rebuilt into
+        a new tensor instead.  ``ok`` is False — and nothing is written —
+        when the stripe is vulnerable (any *other* member dirty or
+        shadow-set), the paper's §3.3 recoverability rule.
+        """
+        meta = self.metas[name]
+        block_id = int(block_id)
+        P = meta.stripe_data_blocks
+        sid = block_id // P
+        live = bits.unpack(r.dirty | r.shadow, meta.n_blocks)
+        members = [b for b in range(sid * P, (sid + 1) * P)
+                   if b < meta.n_blocks and b != block_id]
+        others_clean = not bool(live[members].any()) if members else True
+        if not others_clean:
+            return leaf, False
+        lanes = self._lanes({name: leaf}, name)
+        lanes[block_id] = parity.reconstruct_block(lanes, r.parity[sid], P,
+                                                   block_id, sid)
+        if lanes.data_ptr() != leaf.data_ptr():
+            leaf = blocks.from_lanes(lanes, meta).clone()
+        return leaf, True
+
+    # ------------------------------------------------------------- accounting
+    def vulnerable_masks(self, red: RedundancyState) -> Dict[str, torch.Tensor]:
+        """Per-leaf bool[n_blocks] of blocks inside the vulnerability window
+        (``dirty | shadow`` unpacked)."""
+        return {name: bits.unpack(red[name].dirty | red[name].shadow, meta.n_blocks)
+                for name, meta in self.metas.items()}
+
+    def dirty_stats(self, red: RedundancyState) -> Dict[str, Dict[str, Any]]:
+        """Dirty/vulnerable-stripe counts (feeds §4.7 battery + §4.8 MTTDL)."""
+        out = {}
+        for name, meta in self.metas.items():
+            bdirty = bits.unpack(red[name].dirty | red[name].shadow, meta.n_blocks)
+            out[name] = {
+                "dirty_blocks": bdirty.sum(dtype=torch.int32),
+                "vulnerable_stripes": self._stripe_dirty(meta, bdirty).sum(
+                    dtype=torch.int32),
+                "total_blocks": meta.n_blocks,
+                "total_stripes": meta.n_stripes,
+            }
+        return out
