@@ -17,7 +17,25 @@ Phases, each of which must pass or the script exits non-zero:
    on_write + tick, flush, one corrupted lane found by scrub, recover_block,
    a clean rescrub and verify_meta; the kernel launch counts of this run;
 5. each kernel at the main path's shapes against its plain version, timed,
-   then a chunked plain recompute of all checksums and parity, bitwise.
+   then a chunked plain recompute of all checksums and parity, bitwise;
+6. the flash-attention kernel against its plain version at small shapes
+   (S in {1, 17, 255, 1000}, hd in {64, 128}, H/KV in {1, 3, 4}, causal
+   and full, bf16), held to |got - want| <= 4e-3 + 1e-2 |want| and a
+   relative L2 error ||got - want|| / ||want|| <= 1e-2, with the mean
+   |want| printed beside each case's errors;
+7. serving: llama3.2-3b at full width and depth (random bf16 weights from
+   the seed) through ``Server.generate``: batch 8, 4,096-token prompts, 64
+   new tokens, the KV caches under a vilamb store (T=16, deadline 32, scrub
+   every 16).  Checked: the launch counts of this run (flash once per layer
+   of the prefill), tokens identical to a run with no store, a clean scrub,
+   one corrupted K-cache lane found by scrub and repaired bitwise, layer 0's
+   prefill attention against the plain version at S = 4,096, and a chunked
+   plain recompute of every cache checksum and parity row, bitwise;
+   Timed: every step of that run and of one with no store, four more
+   generate calls in turns (store, none, none, store), and a profiler trace
+   of four decode steps with and without the store;
+8. the flash kernel at the prefill's shapes against its plain version,
+   timed beside the plain version and torch's scaled_dot_product_attention.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 the per-kernel JSON record.  All data comes from ``--seed``.
@@ -35,12 +53,17 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
+from repro_torch.common import flatten_dict  # noqa: E402
+from repro_torch.configs import get_arch  # noqa: E402
 from repro_torch.core import LeafPolicy, ProtectedStore, RedundancyPolicy  # noqa: E402
 from repro_torch.core import blocks  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.checksum import ops as ck_ops, ref as ck_ref  # noqa: E402
+from repro_torch.kernels.flash_attn import ops as fa_ops, ref as fa_ref  # noqa: E402
 from repro_torch.kernels.parity import ops as par_ops, ref as par_ref  # noqa: E402
 from repro_torch.kernels.redundancy import ops as fu_ops, ref as fu_ref  # noqa: E402
+from repro_torch.models import attention, build_model, layers  # noqa: E402
+from repro_torch.serve import Server  # noqa: E402
 
 # H100 SXM peaks at 700 W: the HBM3 rate (NVIDIA data sheet), and the
 # INT32 rate for the kernels' integer operations: 132 SMs x 64 INT32
@@ -48,12 +71,22 @@ from repro_torch.kernels.redundancy import ops as fu_ops, ref as fu_ref  # noqa:
 # counts 128 FP32 lanes and an FMA as two operations.)
 HBM_BYTES_PER_SEC = 3.35e12
 ALU_OPS_PER_SEC = 132 * 64 * 1.98e9
+BF16_FLOPS_PER_SEC = 989e12             # dense bf16 tensor cores (data sheet)
 
 N_ROWS, ROW = 2_097_152, 1024           # 8 GiB of fp32, one 4 KiB block per row
 STRIPE, PERIOD, DEADLINE = 4, 16, 32
 STEPS, ROWS_PER_STEP = 64, 4096
-CHUNK = 65_536                          # blocks per chunk of the plain full check
+CHUNK_BYTES = 256 << 20                 # data per chunk of the plain full check
 DEVICE = "cuda"
+
+# Serving (phase 7): the KV caches of llama3.2-3b, 28 x 4,161 positions x
+# 8 x 8 x 128 bf16 each for k and v (3.8 GB), under vilamb.
+SERVE_ARCH, SERVE_BATCH, PROMPT, GEN, SCRUB_EVERY = "llama3.2-3b", 8, 4096, 64, 16
+# The flash kernel against its plain version: both round p to bf16 the same
+# way, so only summation order and the output's bf16 rounding (one ulp:
+# 2^-8 relative) separate them.  The relative L2 bound matters where the
+# outputs are small (long causal rows average thousands of keys).
+FLASH_ATOL, FLASH_RTOL, FLASH_REL_L2 = 4e-3, 1e-2, 1e-2
 
 SPECIALS = [0x7FC00000, 0x7F800000, 0xFF800000, 0x7F800001, 0x00000000, 0xFFFFFFFF]
 
@@ -264,8 +297,8 @@ def phase_update_profile(g, main: dict) -> None:
     })
 
 
-def bound(bytes_moved: float, ops: float):
-    t_bytes, t_ops = bytes_moved / HBM_BYTES_PER_SEC, ops / ALU_OPS_PER_SEC
+def bound(bytes_moved: float, ops: float, ops_per_sec: float = ALU_OPS_PER_SEC):
+    t_bytes, t_ops = bytes_moved / HBM_BYTES_PER_SEC, ops / ops_per_sec
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -334,21 +367,321 @@ def phase_kernel_times(g, main: dict, err: dict) -> list:
             for name, src, tpu, ms, pms, bms, by in rows]
 
 
-def phase_full_check(main: dict) -> None:
+def phase_full_check(store, state: dict, red: dict) -> None:
     """Chunked plain recompute of every checksum and parity row, bitwise."""
-    store, state, red = main["store"], main["state"], main["red"]
     for name, leaf in state.items():
         meta = store.metas[name]
         lanes = blocks.to_lanes(leaf, meta)
         r = red[name]
-        for s in range(0, meta.n_blocks, CHUNK):
-            e = min(meta.n_blocks, s + CHUNK)
+        chunk = max(1, CHUNK_BYTES // meta.bytes_per_block // STRIPE) * STRIPE
+        for s in range(0, meta.n_blocks, chunk):
+            e = min(meta.n_blocks, s + chunk)
             check(torch.equal(ck_ref.block_checksums(lanes[s:e], s), r.checksums[s:e]),
                   f"{name}: checksums of blocks {s}..{e} differ from a plain recompute")
             check(torch.equal(par_ref.stripe_parity(lanes[s:e], STRIPE),
                               r.parity[s // STRIPE: -(-e // STRIPE)]),
                   f"{name}: parity of blocks {s}..{e} differs from a plain recompute")
     check(all(bool(v) for v in store.verify_meta(red).values()), "final verify_meta")
+
+
+def flash_err(got: torch.Tensor, want: torch.Tensor, what: str) -> dict:
+    """The kernel's max abs and relative L2 error against its plain
+    version, beside the mean |want|; fails outside FLASH_ATOL + FLASH_RTOL
+    |want| anywhere, above FLASH_REL_L2, or on a non-finite output."""
+    g32, w32 = got.float(), want.float()
+    diff = g32 - w32
+    e = {"max_abs_err": float(diff.abs().max()),
+         "rel_l2_err": float(diff.norm() / w32.norm().clamp_min(1e-30)),
+         "mean_abs_want": float(w32.abs().mean())}
+    check(bool(torch.isfinite(g32).all())
+          and torch.allclose(g32, w32, rtol=FLASH_RTOL, atol=FLASH_ATOL)
+          and e["rel_l2_err"] <= FLASH_REL_L2, f"flash kernel != plain ({what}): {e}")
+    return e
+
+
+def phase_flash_small(g) -> list:
+    """The flash kernel against its plain version at small shapes, bf16;
+    one [S, hd, H/KV, causal, max abs err, rel L2 err, mean |want|] a case."""
+    cases, KV = [], 2
+    for S in (1, 17, 255, 1000):
+        for hd in (64, 128):
+            for group in (1, 3, 4):
+                for causal in (True, False):
+                    q, k, v = (torch.randn((2, S, n, hd), generator=g, device=DEVICE)
+                               .to(torch.bfloat16) for n in (KV * group, KV, KV))
+                    e = flash_err(fa_ops.flash_attention(q, k, v, causal=causal),
+                                  fa_ref.attention(q, k, v, causal=causal),
+                                  f"S={S} hd={hd} H/KV={group} causal={causal}")
+                    cases.append([S, hd, group, causal, *e.values()])
+    torch.cuda.synchronize()
+    return cases
+
+
+def instrument(srv: Server, store=None) -> dict:
+    """Time the server's prefill and decode steps and the store's ticks
+    (synchronised host clock around each).  Before each tick due by the
+    period, the dirty blocks it is about to refresh are counted."""
+    rec: dict = {"prefill_ms": [], "decode_ms": [], "ticks": []}
+
+    def wrap(fn, key):
+        def inner(*a, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            rec[key].append((time.perf_counter() - t) * 1e3)
+            return out
+        return inner
+
+    srv.prefill = wrap(srv.prefill, "prefill_ms")
+    srv.decode = wrap(srv.decode, "decode_ms")
+    if store is not None:
+        tick = store.tick
+
+        def timed_tick(leaves, red, step, **kw):
+            dirty = None
+            if step % PERIOD == 0:
+                dirty = sum(int(v["dirty_blocks"]) for v in store.dirty_stats(red).values())
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            red, report = tick(leaves, red, step, **kw)
+            torch.cuda.synchronize()
+            rec["ticks"].append({"step": step, "ms": (time.perf_counter() - t) * 1e3,
+                                 "updated": bool(report.updated),
+                                 "scrubbed": bool(report.scrubbed),
+                                 "dirty_blocks": dirty})
+            return red, report
+        store.tick = timed_tick
+    return rec
+
+
+def reset_launches() -> None:
+    ck_ops.LAUNCHES = par_ops.LAUNCHES = fu_ops.LAUNCHES = fa_ops.LAUNCHES = 0
+
+
+def read_launches() -> dict:
+    return {"checksum": ck_ops.LAUNCHES, "parity": par_ops.LAUNCHES,
+            "fused_update": fu_ops.LAUNCHES, "flash_attn": fa_ops.LAUNCHES}
+
+
+def generate(model, params, batch, store=None, timed_steps=False):
+    """One ``Server.generate`` of GEN tokens; returns (tokens, stats, the
+    per-step record or None, wall seconds).  ``timed_steps`` synchronises
+    around each step to time it (``instrument``)."""
+    srv = Server(model=model, store=store, max_len=PROMPT + GEN + 1)
+    rec = instrument(srv, store) if timed_steps else None
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tokens, stats = srv.generate(params, batch, GEN, scrub_every=SCRUB_EVERY)
+    torch.cuda.synchronize()
+    return tokens, stats, rec, time.perf_counter() - t0
+
+
+def profile_decode(model, params, batch, store=None, steps=4) -> dict:
+    """Trace ``steps`` warm decode steps (with the store's on_write and tick
+    when given) with torch.profiler: device busy time and kernel launches
+    per token, and the kernels that take the most device time."""
+    from torch.profiler import ProfilerActivity, profile
+    srv = Server(model=model, store=store, max_len=PROMPT + GEN + 1)
+    with torch.inference_mode():
+        logits, caches, pos = srv.prefill(params, batch)
+        red = srv.init_redundancy(caches)
+        token = torch.argmax(logits, dim=-1).to(torch.int32)
+
+        def step(t, red, token):
+            _, _, red, token = srv.decode(params, caches, red, token, pos + t)
+            if store is not None:
+                red, _ = store.tick(lambda: flatten_dict(caches), red, t + 1)
+            return red, token
+
+        for t in range(2):                      # warm
+            red, token = step(t, red, token)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for t in range(2, 2 + steps):
+                red, token = step(t, red, token)
+            torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    by_kernel: dict = {}
+    for e in kernels:
+        by_kernel[e.name] = by_kernel.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+    busy = sum(by_kernel.values())
+    return {"device_busy_ms_per_token": busy / steps if kernels else "not measured",
+            "launches_per_token": len(kernels) / steps,
+            "top_kernels_ms_per_token": {k[:90]: v / steps for k, v in sorted(
+                by_kernel.items(), key=lambda kv: -kv[1])[:6]}}
+
+
+def phase_serve(g) -> dict:
+    """Serve llama3.2-3b at full width and depth with the KV caches under
+    vilamb; check the run and time it.  Returns what phase 8 needs."""
+    dev = torch.device(DEVICE)
+    cfg = get_arch(SERVE_ARCH)
+    model = build_model(cfg, dev)
+    params = model.init(g)
+    max_len = PROMPT + GEN + 1
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (SERVE_BATCH, PROMPT),
+                                     generator=g, device=dev, dtype=torch.int32)}
+    policy = RedundancyPolicy.single("vilamb", period_steps=PERIOD,
+                                     max_vulnerable_steps=DEADLINE)
+
+    def new_store():
+        return ProtectedStore(policy, device=dev).attach(
+            model.cache_shapes(SERVE_BATCH, max_len))
+
+    # Warm-up (no store, two tokens): first use of cuBLAS and the kernels.
+    Server(model=model, max_len=max_len).generate(params, batch, 2)
+
+    # The main path, with every step timed: the counts are read around it.
+    store = new_store()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    tokens, stats, rec, wall_s = generate(model, params, batch, store, True)
+    launches = read_launches()
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    check(launches["flash_attn"] == cfg.n_layers,
+          f"flash launched {launches['flash_attn']} times in the prefill, want "
+          f"{cfg.n_layers}")
+    for name in ("checksum", "parity", "fused_update"):
+        check(launches[name] > 0, f"{name} kernel never launched while serving")
+    check(tuple(tokens.shape) == (SERVE_BATCH, GEN), f"tokens {tuple(tokens.shape)}")
+    check(stats["mismatches"] == 0, f"scrub ticks found {stats['mismatches']} mismatches")
+    # Due every PERIOD steps (16, 32, 48) unless the straggler governor
+    # stretched the period; never more than DEADLINE steps apart.
+    due = [t for t in rec["ticks"] if t["updated"]]
+    steps = [0] + [t["step"] for t in due]
+    check(due and all(b - a <= DEADLINE for a, b in zip(steps, steps[1:]))
+          and GEN - 1 - steps[-1] < DEADLINE, f"due ticks at {steps[1:]}")
+
+    # Redundancy is observational: the same tokens with no store.
+    bare_tokens, _, bare_rec, bare_wall_s = generate(model, params, batch, None, True)
+    check(torch.equal(tokens, bare_tokens), "tokens differ with and without the store")
+
+    # End to end, untimed steps, in turns: store, none, none, store.
+    walls = {"store": [], "none": []}
+    for kind in ("store", "none", "none", "store"):
+        walls[kind].append(generate(model, params, batch,
+                                    new_store() if kind == "store" else None)[3])
+
+    prof = {"store": profile_decode(model, params, batch, new_store()),
+            "none": profile_decode(model, params, batch)}
+
+    out = {"model": model, "params": params, "batch": batch, "store": store,
+           "caches": stats["caches"], "launches": launches}
+    with torch.inference_mode():
+        out["red"], checks = serve_checks(g, store, flatten_dict(stats["caches"]),
+                                          stats["red"])
+        out["layer0_err"], out["layer0_qkv"] = layer0_attention(model, params, batch)
+    decode_ms = sum(rec["decode_ms"]) + sum(t["ms"] for t in rec["ticks"])
+    bare_decode_ms = sum(bare_rec["decode_ms"])
+    mean = {k: sum(v) / len(v) for k, v in walls.items()}
+    out["timings"] = {
+        "prefill_ms": rec["prefill_ms"][0], "prefill_ms_no_store": bare_rec["prefill_ms"][0],
+        "decode_ms_per_token": decode_ms / (GEN - 1),
+        "decode_ms_per_token_no_store": bare_decode_ms / (GEN - 1),
+        "decode_tokens_per_s": SERVE_BATCH * (GEN - 1) / (decode_ms / 1e3),
+        "decode_tokens_per_s_no_store": SERVE_BATCH * (GEN - 1) / (bare_decode_ms / 1e3),
+        "generate_s_timed_steps": wall_s, "generate_s_timed_steps_no_store": bare_wall_s,
+        "generate_s": walls["store"], "generate_s_no_store": walls["none"],
+        "generate_tokens_per_s": SERVE_BATCH * GEN / mean["store"],
+        "generate_tokens_per_s_no_store": SERVE_BATCH * GEN / mean["none"],
+        "store_overhead": mean["store"] / mean["none"] - 1,
+        "decode_profile": prof["store"], "decode_profile_no_store": prof["none"],
+        "due_tick_steps": steps[1:], "due_tick_ms": [t["ms"] for t in due],
+        "due_tick_dirty_blocks": [t["dirty_blocks"] for t in due],
+        "quiet_tick_ms_mean": (sum(t["ms"] for t in rec["ticks"] if not t["updated"])
+                               / max(1, len(rec["ticks"]) - len(due))),
+        "peak_mem_gb": peak_gb,
+        "cache_gb": sum(m.data_bytes for m in store.metas.values()) / 1e9,
+        "parity_gb": sum(r.parity.numel() * 4 for r in stats["red"].values()) / 1e9,
+        **checks,
+    }
+    return out
+
+
+def serve_checks(g, store, leaves: dict, red: dict):
+    """After generate: a clean scrub; flush; one corrupted K-cache lane found
+    by scrub and rebuilt bitwise from parity; a clean rescrub."""
+    masks, scrub_ms = timed(lambda: store.scrub(leaves, red))
+    flagged = sum(int(m.sum()) for m in masks.values())
+    check(flagged == 0, f"scrub after generate flagged {flagged} blocks")
+    stats = {k: int(v) for k, v in store.dirty_stats(red)["slot_0/k"].items()}
+    red, flush_ms = timed(lambda: store.flush(leaves, red, step=GEN))
+    name = "slot_0/k"
+    meta = store.metas[name]
+    lanes = blocks.to_lanes(leaves[name], meta)
+    check(lanes.data_ptr() == leaves[name].data_ptr(), "cache lane view is not a view")
+    bad = int(torch.randint(0, meta.n_blocks, (1,), generator=g, device=DEVICE))
+    saved = lanes[bad].clone()
+    lanes[bad, 99] ^= 0xBAD
+    masks, scrub2_ms = timed(lambda: store.scrub(leaves, red))
+    flagged = {n: torch.nonzero(m).flatten().tolist() for n, m in masks.items()}
+    check(flagged[name] == [bad] and all(not v for n, v in flagged.items() if n != name),
+          f"scrub flagged {flagged}, expected [{bad}] in {name}")
+    (fixed, ok), recover_ms = timed(
+        lambda: store.recover_block(leaves[name], red[name], name, bad))
+    check(ok and fixed.data_ptr() == leaves[name].data_ptr(),
+          "recover_block refused or copied")
+    check(torch.equal(lanes[bad], saved), "recovered cache block differs from the original")
+    masks, rescrub_ms = timed(lambda: store.scrub(leaves, red))
+    check(sum(int(m.sum()) for m in masks.values()) == 0, "rescrub after repair flags blocks")
+    check(all(bool(v) for v in store.verify_meta(red).values()), "verify_meta failed")
+    return red, {"scrub_ms": scrub_ms, "flush_ms": flush_ms,
+                 "flush_dirty_blocks_slot0_k": stats["dirty_blocks"],
+                 "corrupted_block": bad, "scrub_flagged_ms": scrub2_ms,
+                 "recover_ms": recover_ms, "rescrub_ms": rescrub_ms}
+
+
+def layer0_attention(model, params, batch):
+    """Layer 0's prefill attention, kernel against plain, for one sequence at
+    S = 4,096; returns the error and the whole batch's layer-0 q, k, v (the
+    prefill's shapes, for phase 8)."""
+    p = params["stack"]["slot_0"]
+    x = params["embed"][batch["tokens"].long()]
+    h = layers.rmsnorm(x, p["mixer_norm"]["scale"][0])
+    pos = torch.arange(PROMPT, device=DEVICE)[None, :]
+    q, k, v = attention._qkv({n: w[0] for n, w in p["attn"].items()}, h, model.cfg, pos)
+    e = flash_err(fa_ops.flash_attention(q[:1], k[:1], v[:1]),
+                  fa_ref.attention(q[:1], k[:1], v[:1]), "layer 0, one sequence")
+    return e, (q, k, v)
+
+
+def phase_flash_time(serve: dict, err: float):
+    """The flash kernel at the prefill's shapes (layer 0's q, k, v of all 8
+    sequences): against its plain version, timed beside it and beside
+    scaled_dot_product_attention (the library column; the port never calls
+    it).  Returns the kernel's JSON row and a few more numbers."""
+    q, k, v = serve["layer0_qkv"]
+    B, S, H, hd = q.shape
+    with torch.inference_mode():
+        got, want = fa_ops.flash_attention(q, k, v), fa_ref.attention(q, k, v)
+        prefill_err = flash_err(got, want, "the prefill's shapes")
+        err = max(err, prefill_err["max_abs_err"])
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+
+        def sdpa():
+            return torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True)
+
+        sdpa_err = float((sdpa().transpose(1, 2).float() - want.float()).abs().max())
+        del got, want
+        ms = per_call_ms(lambda: fa_ops.flash_attention(q, k, v), 10)
+        plain_ms = per_call_ms(lambda: fa_ref.attention(q, k, v), 2)
+        library_ms = per_call_ms(sdpa, 10)
+    # Both products over the causal triangle's S(S+1)/2 (query, key) pairs;
+    # q, k, v read once and the output written once.
+    flops = 4 * B * H * hd * S * (S + 1) // 2
+    nbytes = sum(t.numel() * t.element_size() for t in (q, k, v, q))
+    bms, by = bound(nbytes, flops, BF16_FLOPS_PER_SEC)
+    return ({"name": "flash_attn", "route": "cuda",
+            "source": "src/repro_torch/csrc/flash_attn.cu",
+            "replaces": "src/repro/kernels/flash_attn/flash_attn.py:92",
+            "launches": serve["launches"]["flash_attn"], "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+            "library_ms": library_ms}, {
+            "shape": [B, S, H, k.shape[2], hd], "tflops": flops / (ms / 1e3) / 1e12,
+            "library_tflops": flops / (library_ms / 1e3) / 1e12,
+            "err_vs_plain": prefill_err, "sdpa_max_abs_err_vs_plain": sdpa_err})
 
 
 def main() -> int:
@@ -372,6 +705,9 @@ def main() -> int:
         if "registers" in line or line.startswith("=="):
             print("  " + line.strip())
 
+    # The plain versions' fp32 products stay in full fp32 (torch's default,
+    # stated here): no TF32.
+    torch.backends.cuda.matmul.allow_tf32 = False
     g = torch.Generator(device="cuda")
     g.manual_seed(args.seed)
     err = phase_kernels(g)
@@ -383,10 +719,48 @@ def main() -> int:
           f"{main_run['launches']}", flush=True)
     phase_update_profile(g, main_run)
     kernels = phase_kernel_times(g, main_run, err)
-    phase_full_check(main_run)
+    phase_full_check(main_run["store"], main_run["state"], main_run["red"])
     print("full check: checksums and parity of every block match a chunked plain "
           "recompute")
-    print(json.dumps({"main": main_run["timings"]}))
+    print(json.dumps({"main": main_run["timings"]}), flush=True)
+    del main_run
+    torch.cuda.empty_cache()
+
+    flash_cases = phase_flash_small(g)
+    print(json.dumps({"flash_small": flash_cases}))
+    print(f"flash == plain at small shapes: max abs err "
+          f"{max(c[4] for c in flash_cases)}, max rel L2 err "
+          f"{max(c[5] for c in flash_cases)}", flush=True)
+    t0 = time.perf_counter()
+    serve = phase_serve(g)
+    tm = serve["timings"]
+    print(f"serve ({time.perf_counter() - t0:.1f} s): launches {serve['launches']}")
+    print(f"serve: prefill {tm['prefill_ms']:.1f} ms; decode "
+          f"{tm['decode_ms_per_token']:.2f} ms/token, {tm['decode_tokens_per_s']:.1f} "
+          f"tokens/s ({tm['decode_ms_per_token_no_store']:.2f} ms/token, "
+          f"{tm['decode_tokens_per_s_no_store']:.1f} tokens/s with no store); "
+          f"generate {tm['generate_tokens_per_s']:.1f} tokens/s end to end "
+          f"({tm['generate_tokens_per_s_no_store']:.1f} with no store, overhead "
+          f"{100 * tm['store_overhead']:.2f}%); due "
+          f"ticks {[round(x, 2) for x in tm['due_tick_ms']]} ms over "
+          f"{tm['due_tick_dirty_blocks']} dirty blocks; peak {tm['peak_mem_gb']:.2f} GiB")
+    for key, label in (("decode_profile", "with"), ("decode_profile_no_store", "without")):
+        p = tm[key]
+        print(f"serve: decode {label} the store, traced: {p['launches_per_token']:.0f} "
+              f"launches and {p['device_busy_ms_per_token']} ms of device time a token")
+    print(f"serve: tokens identical with and without the store; scrub clean; block "
+          f"{tm['corrupted_block']} of slot_0/k corrupted, found and repaired; layer-0 "
+          f"attention within bounds of plain: {serve['layer0_err']}")
+    with torch.inference_mode():
+        phase_full_check(serve["store"], flatten_dict(serve["caches"]), serve["red"])
+    print("serve full check: every cache checksum and parity row matches a chunked "
+          "plain recompute")
+    row, flash = phase_flash_time(serve, max([c[4] for c in flash_cases]
+                                             + [serve["layer0_err"]["max_abs_err"]]))
+    kernels.append(row)
+    print(json.dumps({"flash": flash}))
+    print(json.dumps({"serve": tm}))
+    print(json.dumps({"serve_launches": serve["launches"]}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -5,7 +5,8 @@ lifecycle (attach / on_write / tick / flush).  :class:`RedundancyEngine`
 is the per-group target underneath.  uint32 bit patterns are carried as
 int32 tensors; :mod:`.convert` moves state to and from numpy.
 """
-from .blocks import BlockMeta, from_lanes, make_meta, to_lanes
+from . import convert
+from .blocks import BlockMeta, ShapeDtype, from_lanes, make_meta, to_lanes
 from .checksum import (block_checksums, checksum_diff, fmix32, meta_checksum,
                        meta_checksum_delta)
 from .engine import ALL, RedundancyConfig, RedundancyEngine
@@ -20,8 +21,8 @@ from .workqueue import (compact_stripe_ids, full_update, queue_capacity,
 __all__ = [
     "ALL", "BlockMeta", "LeafPolicy", "LeafRedundancy", "ProtectedStore",
     "RedundancyConfig", "RedundancyEngine", "RedundancyPolicy",
-    "RedundancyState", "StragglerGovernor", "TickReport", "block_checksums",
-    "checksum_diff", "compact_stripe_ids", "empty_leaf_red", "fmix32",
+    "RedundancyState", "ShapeDtype", "StragglerGovernor", "TickReport", "block_checksums",
+    "checksum_diff", "compact_stripe_ids", "convert", "empty_leaf_red", "fmix32",
     "from_lanes", "full_update", "make_meta", "meta_checksum",
     "meta_checksum_delta", "parity_diff", "queue_capacity", "queued_update",
     "reconstruct_block", "scatter_xor_stripes", "stripe_parity",

@@ -44,6 +44,14 @@ def _elems_per_word(dtype: torch.dtype) -> int:
 
 
 @dataclasses.dataclass(frozen=True)
+class ShapeDtype:
+    """A leaf's shape and dtype without its data (the counterpart of
+    ``jax.ShapeDtypeStruct``): enough to declare a leaf to a store."""
+    shape: Tuple[int, ...]
+    dtype: torch.dtype
+
+
+@dataclasses.dataclass(frozen=True)
 class BlockMeta:
     """Static geometry of a leaf's block view."""
     shape: Tuple[int, ...]

@@ -91,6 +91,42 @@ class RedundancyPolicy:
                 return lp
         return self.default
 
+    @classmethod
+    def single(cls, mode: str, period_steps: int = 8,
+               scrub_period_steps: int = 0, max_vulnerable_steps: int = 0,
+               max_vulnerable_seconds: float = 0.0, **kw) -> "RedundancyPolicy":
+        """One policy for every leaf (a one-group store)."""
+        return cls(default=LeafPolicy(
+            mode=mode, period_steps=period_steps,
+            scrub_period_steps=scrub_period_steps,
+            max_vulnerable_steps=max_vulnerable_steps,
+            max_vulnerable_seconds=max_vulnerable_seconds), **kw)
+
+    @classmethod
+    def from_spec(cls, spec: str, default_mode: str = "vilamb",
+                  period_steps: int = 8, scrub_period_steps: int = 0,
+                  max_vulnerable_steps: int = 0, **kw) -> "RedundancyPolicy":
+        """Parse ``"params/*=sync,m/*=vilamb:16,v/*=none"`` into rules.
+
+        Each clause is ``pattern=mode[:period]``; omitted periods inherit
+        ``period_steps``.  An empty spec yields a single-mode policy.
+        """
+        rules: List[Tuple[str, LeafPolicy]] = []
+        for clause in filter(None, (c.strip() for c in spec.split(","))):
+            pattern, _, rhs = clause.partition("=")
+            if not rhs:
+                raise ValueError(f"bad policy clause {clause!r} "
+                                 "(want pattern=mode[:period])")
+            mode, _, per = rhs.partition(":")
+            rules.append((pattern.strip(), LeafPolicy(
+                mode=mode.strip(), period_steps=int(per) if per else period_steps,
+                scrub_period_steps=scrub_period_steps,
+                max_vulnerable_steps=max_vulnerable_steps)))
+        return cls(default=LeafPolicy(
+            mode=default_mode, period_steps=period_steps,
+            scrub_period_steps=scrub_period_steps,
+            max_vulnerable_steps=max_vulnerable_steps), rules=tuple(rules), **kw)
+
 
 # ------------------------------------------------------------------- governor
 class StragglerGovernor:
@@ -158,7 +194,7 @@ class ProtectedStore:
         if self.policy.async_tick:
             raise NotImplementedError(
                 "the overlap-pipelined tick (async_tick=True) is not ported "
-                "yet: ROADMAP.md, Queue 1 item 2 (the overlap pipeline)")
+                "yet: ROADMAP.md, Queue 1 item 7 (the overlap pipeline)")
         self.device = resolve_device(device, "ProtectedStore")
         self.groups: Dict[str, _Group] = {}
         self.corruption_alarms = 0
@@ -171,7 +207,8 @@ class ProtectedStore:
 
     # ------------------------------------------------------------ construction
     def attach(self, tree: Any) -> "ProtectedStore":
-        """Declare the protected tree (tensors on the store's device).
+        """Declare the protected tree (tensors on the store's device, or
+        :class:`~repro_torch.core.blocks.ShapeDtype` structs).
 
         Nested dicts are flattened to ``a/b/c`` paths — the namespace the
         policy rules match against.  Returns ``self`` for chaining.
@@ -402,6 +439,20 @@ class ProtectedStore:
                 if step is not None:
                     g.last_update_step = int(step)
         return out
+
+    def settle(self, red: RedundancyState,
+               leaves: Optional[Mapping[str, torch.Tensor]] = None,
+               step: Optional[int] = None) -> RedundancyState:
+        """Adopt every in-flight update into ``red``.  The blocking tick
+        leaves none in flight and runs no background drain, so this returns
+        ``red`` as it is; callers written against the overlapped store call
+        it all the same."""
+        return dict(red)
+
+    def take_repaired(self) -> Dict[str, torch.Tensor]:
+        """Leaves replaced by a background drain since the last call: none
+        under the blocking tick."""
+        return {}
 
     def redundancy_step(self, leaves: Mapping[str, torch.Tensor],
                         red: RedundancyState) -> RedundancyState:

@@ -26,11 +26,14 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
 LIB_NAME = "libvilamb.so"
 
-_P, _I = ctypes.c_void_p, ctypes.c_int64
+_P, _I, _D = ctypes.c_void_p, ctypes.c_int64, ctypes.c_double
 _SIGNATURES = {
     "vilamb_checksum": (_P, _P, _I, _I, _I, _P),
     "vilamb_parity": (_P, _P, _I, _I, _I, _P),
     "vilamb_fused_update": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # q, k, v, out; B, S, H, KV, hd, dtype, causal; 4 x (batch, seq, head)
+    # strides; scale; stream.
+    "vilamb_flash_attn": (_P, _P, _P, _P) + (_I,) * 7 + (_I,) * 12 + (_D, _P),
 }
 
 

@@ -1,0 +1,100 @@
+"""Model configuration: the port's own copy of ``repro.models.config``.
+
+The fields that fix a model's shapes and arithmetic are kept with the
+reference's names and defaults, so a config and its weights carry across.
+Of the other kinds' fields, only those that ``layer_kind``, ``ffn_kind``
+and ``group_size`` read are here, so that an unported kind is recognised
+and refused; each later slice adds the fields of the code it ports.
+The reference's XLA-only knobs (sequence parallelism, attention tiles,
+custom-VJP norms, layer unrolling, remat, the flash-kernel switch) have no
+counterpart: on the card the flash kernel is the only prefill attention.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+
+VOCAB_PAD_MULTIPLE = 2048  # the reference pads the vocab so 16-way TP divides it
+
+
+def pad_vocab(v: int, mult: int = VOCAB_PAD_MULTIPLE) -> int:
+    return -(-v // mult) * mult
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: str                 # dense | moe | hybrid | ssm | vlm | audio
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab_size: int
+
+    # --- MoE ---
+    n_experts: int = 0
+    moe_every: int = 1          # MoE FFN every k-th layer
+
+    # --- hybrid: one attention layer per `attn_every` layers ---
+    attn_every: int = 0
+
+    # --- SSM ---
+    ssm_kind: str = ""          # mamba | xlstm
+    slstm_every: int = 0
+
+    # --- norm / activation / positions ---
+    norm: str = "rmsnorm"       # rmsnorm | layernorm | nonparam_ln
+    activation: str = "swiglu"  # swiglu | squared_relu | gelu
+    rope_theta: float = 10000.0
+
+    # --- structure ---
+    enc_dec: bool = False
+    frontend: str = ""          # "" | vision | audio
+    tie_embeddings: bool = False
+    head_dim: int = 0           # 0 -> d_model // n_heads
+
+    # --- numerics ---
+    param_dtype: str = "bfloat16"
+
+    @property
+    def hd(self) -> int:
+        return self.head_dim or self.d_model // self.n_heads
+
+    @property
+    def padded_vocab(self) -> int:
+        return pad_vocab(self.vocab_size)
+
+    def layer_kind(self, i: int) -> str:
+        """Mixer kind of layer i: attn | mamba | mlstm | slstm."""
+        if self.ssm_kind == "xlstm":
+            last = self.slstm_every and i % self.slstm_every == self.slstm_every - 1
+            return "slstm" if last else "mlstm"
+        if self.attn_every:
+            return "attn" if i % self.attn_every == self.attn_every // 2 else "mamba"
+        return "attn"
+
+    def ffn_kind(self, i: int) -> str:
+        """FFN kind of layer i: dense | moe | none (xlstm has no FFN)."""
+        if self.ssm_kind == "xlstm":
+            return "none"
+        if self.n_experts and i % self.moe_every == self.moe_every - 1:
+            return "moe"
+        return "dense"
+
+    @property
+    def group_size(self) -> int:
+        """Layers per group (the pattern period)."""
+        if self.ssm_kind == "xlstm":
+            return self.slstm_every or 1
+        p = self.attn_every or 1
+        if self.n_experts and self.moe_every > 1:
+            p = p * self.moe_every // math.gcd(p, self.moe_every)
+        return p
+
+    @property
+    def n_groups(self) -> int:
+        if self.n_layers % self.group_size:
+            raise ValueError(f"{self.name}: {self.n_layers} layers are not a "
+                             f"whole number of groups of {self.group_size}")
+        return self.n_layers // self.group_size

@@ -1,0 +1,135 @@
+"""Shared layer primitives: norms, RoPE, dense FFNs, initialisers.
+
+The port of ``repro.models.layers`` (forward only: the custom-VJP norms
+are training-only and wait for the training slice).  Reductions run in
+fp32; the (B, S, d)-sized products stay in the input dtype, as in the
+reference.  Initialisers draw from an explicit ``torch.Generator``.
+"""
+from __future__ import annotations
+
+import math
+from typing import Callable, Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+
+def dense_init(gen: Optional[torch.Generator], shape, in_axis: int = -2,
+               scale: float = 1.0, dtype: torch.dtype = torch.float32,
+               device=None) -> torch.Tensor:
+    """Fan-in truncated normal (cut at +-2 sd), drawn in fp32, cast to ``dtype``."""
+    fan_in = shape[in_axis] if len(shape) > 1 else shape[0]
+    w = torch.empty(shape, dtype=torch.float32, device=device)
+    torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=gen)
+    return w.mul_(scale / math.sqrt(fan_in)).to(dtype)
+
+
+def embed_init(gen: Optional[torch.Generator], shape,
+               dtype: torch.dtype = torch.float32, device=None) -> torch.Tensor:
+    w = torch.empty(shape, dtype=torch.float32, device=device)
+    return w.normal_(0.0, 0.02, generator=gen).to(dtype)
+
+
+# ----------------------------------------------------------------- norms
+def rmsnorm(x: torch.Tensor, scale: Optional[torch.Tensor],
+            eps: float = 1e-6) -> torch.Tensor:
+    """``x * rsqrt(mean(x^2) + eps)`` in the ``(1 + scale)`` form.
+
+    The sum of squares is fp32 (bf16 products are exact in fp32); ``inv``
+    is cast to x's dtype before the product, as the reference does.
+    """
+    xf = x.float()
+    var = (xf * xf).sum(dim=-1, keepdim=True) / x.shape[-1]
+    inv = torch.rsqrt(var + eps).to(x.dtype)
+    y = x * inv
+    if scale is not None:
+        y = y * (1.0 + scale).to(x.dtype)
+    return y
+
+
+def layernorm(x: torch.Tensor, scale: Optional[torch.Tensor],
+              bias: Optional[torch.Tensor], eps: float = 1e-5) -> torch.Tensor:
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = (xf * xf).mean(dim=-1, keepdim=True) - mu * mu
+    inv = torch.rsqrt(var.clamp_min(0.0) + eps)
+    y = (x - mu.to(x.dtype)) * inv.to(x.dtype)
+    if scale is not None:
+        y = y * scale.to(x.dtype) + bias.to(x.dtype)
+    return y
+
+
+def nonparam_ln(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """OLMo's non-parametric LayerNorm (no scale, no bias)."""
+    return layernorm(x, None, None, eps)
+
+
+def make_norm(cfg) -> Tuple[Callable, Callable]:
+    """``(init(d, device, lead), apply(params, x))`` for ``cfg.norm``.  Norm
+    parameters are fp32 whatever the param dtype, as in the reference;
+    ``lead`` prefixes their shapes (the stack's group axis)."""
+    kind = cfg.norm
+
+    def init(d: int, device=None, lead: Tuple[int, ...] = ()) -> Dict[str, torch.Tensor]:
+        shape = lead + (d,)
+        if kind == "nonparam_ln":
+            return {}
+        if kind == "layernorm":
+            return {"scale": torch.ones(shape, dtype=torch.float32, device=device),
+                    "bias": torch.zeros(shape, dtype=torch.float32, device=device)}
+        return {"scale": torch.zeros(shape, dtype=torch.float32, device=device)}
+
+    def apply(params, x):
+        if kind == "nonparam_ln":
+            return nonparam_ln(x)
+        if kind == "layernorm":
+            return layernorm(x, params["scale"], params["bias"])
+        return rmsnorm(x, params["scale"])
+
+    return init, apply
+
+
+# ----------------------------------------------------------------- RoPE
+def rope_freqs(hd: int, theta: float, device=None) -> torch.Tensor:
+    """fp32 ``1 / theta ** (2i / hd)``.  ``theta`` stays a Python scalar: a
+    tensor made from it on the card would be a blocking host-to-device copy
+    on every call."""
+    exps = torch.arange(0, hd, 2, dtype=torch.float32, device=device) / hd
+    return 1.0 / torch.pow(theta, exps)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """x: (..., S, H, hd) with ``positions`` broadcastable to (..., S).
+
+    Angles, cos and sin are fp32; the rotation runs in x's dtype.
+    """
+    hd = x.shape[-1]
+    freqs = rope_freqs(hd, theta, x.device)
+    ang = positions[..., None].float() * freqs                # (..., S, hd/2)
+    cos = torch.cos(ang)[..., None, :].to(x.dtype)
+    sin = torch.sin(ang)[..., None, :].to(x.dtype)
+    x1, x2 = x.chunk(2, dim=-1)
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+
+
+# ----------------------------------------------------------------- FFN
+def ffn_init(gen: Optional[torch.Generator], cfg, d_ff: Optional[int] = None,
+             dtype: torch.dtype = torch.float32, device=None,
+             lead: Tuple[int, ...] = ()) -> Dict[str, torch.Tensor]:
+    """``lead`` prefixes every shape (the stack's group axis)."""
+    d, ff = cfg.d_model, d_ff or cfg.d_ff
+    p = {"wi": dense_init(gen, lead + (d, ff), dtype=dtype, device=device)}
+    if cfg.activation == "swiglu":
+        p["wg"] = dense_init(gen, lead + (d, ff), dtype=dtype, device=device)
+    p["wo"] = dense_init(gen, lead + (ff, d), dtype=dtype, device=device)
+    return p
+
+
+def ffn_apply(params, x: torch.Tensor, cfg) -> torch.Tensor:
+    if cfg.activation == "swiglu":
+        h = F.silu(x @ params["wg"]) * (x @ params["wi"])
+    elif cfg.activation == "squared_relu":   # nemotron-4
+        h = torch.square(F.relu(x @ params["wi"]))
+    else:                                     # gelu (jax.nn.gelu's tanh form)
+        h = F.gelu(x @ params["wi"], approximate="tanh")
+    return h @ params["wo"]

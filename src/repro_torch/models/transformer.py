@@ -1,0 +1,128 @@
+"""Layer stacks of a decoder-only LM: attention mixers with dense FFNs.
+
+The port of ``repro.models.transformer``.  Parameters stay stacked by
+group on a leading axis, with the reference's names and shapes
+(``slot_0/attn/wq`` is ``(n_groups, d, H, hd)``), so weights carry across.
+A Python loop over groups takes the place of ``lax.scan``.  Other mixers
+(Mamba, mLSTM, sLSTM) and MoE FFNs raise ``NotImplementedError`` naming
+their ``ROADMAP.md`` item.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, List, Tuple
+
+import torch
+
+from . import attention as attn_mod
+from .config import ModelConfig
+from .layers import ffn_apply, ffn_init, make_norm
+
+# What the port cannot run yet, by kind, with its ROADMAP.md item.  The one
+# owner of these strings: the registry refers to them for the archs it
+# does not serve.
+NOT_PORTED = {
+    "moe": "MoE FFNs: ROADMAP.md, Queue 1 item 2",
+    "mamba": "Mamba mixers: ROADMAP.md, Queue 1 item 3",
+    "mlstm": "mLSTM mixers: ROADMAP.md, Queue 1 item 4",
+    "slstm": "sLSTM mixers: ROADMAP.md, Queue 1 item 4",
+    "enc_dec": "the encoder-decoder stack: ROADMAP.md, Queue 1 item 5",
+    "frontend": "the vision front end: ROADMAP.md, Queue 1 item 5",
+}
+
+
+def slot_kinds(cfg: ModelConfig) -> List[Tuple[str, str]]:
+    """(mixer, ffn) kind per slot within one group."""
+    return [(cfg.layer_kind(s), cfg.ffn_kind(s)) for s in range(cfg.group_size)]
+
+
+def not_ported(name: str, kinds) -> NotImplementedError:
+    """The error for ``name``, which needs the unported ``kinds``."""
+    return NotImplementedError(f"{name} is not ported yet: it needs "
+                               + "; ".join(v for k, v in NOT_PORTED.items() if k in kinds))
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    """Raise ``NotImplementedError`` for what the port cannot run yet."""
+    kinds = {k for pair in slot_kinds(cfg) for k in pair}
+    kinds |= {k for k in ("enc_dec", "frontend") if getattr(cfg, k)}
+    if kinds & NOT_PORTED.keys():
+        raise not_ported(cfg.name, kinds)
+
+
+def _index(tree: Dict[str, Any], g: int) -> Dict[str, Any]:
+    """Group ``g`` of a stacked parameter tree (views, no copies)."""
+    return {k: _index(v, g) if isinstance(v, dict) else v[g] for k, v in tree.items()}
+
+
+# --------------------------------------------------------------------- init
+def _slot_init(gen, cfg: ModelConfig, mixer: str, ffn: str, dtype: torch.dtype,
+               device, n_groups: int) -> Dict[str, Any]:
+    norm_init, _ = make_norm(cfg)
+    lead = (n_groups,)
+    p: Dict[str, Any] = {"mixer_norm": norm_init(cfg.d_model, device, lead),
+                         "attn": attn_mod.attn_init(gen, cfg, dtype, device, lead)}
+    if ffn != "none":
+        p["ffn_norm"] = norm_init(cfg.d_model, device, lead)
+        p["ffn"] = ffn_init(gen, cfg, cfg.d_ff, dtype, device, lead)
+    return p
+
+
+def stack_init(gen, cfg: ModelConfig, n_groups: int, dtype: torch.dtype,
+               device=None) -> Dict[str, Any]:
+    check_supported(cfg)
+    return {f"slot_{s}": _slot_init(gen, cfg, mixer, ffn, dtype, device, n_groups)
+            for s, (mixer, ffn) in enumerate(slot_kinds(cfg))}
+
+
+# -------------------------------------------------------------------- apply
+def _slot_apply_full(p, x: torch.Tensor, cfg: ModelConfig, ffn: str
+                     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Full-sequence slot (prefill).  Returns ``(x, {"k", "v"})``, k and v
+    (B, S, KV, hd) for the cache."""
+    _, norm = make_norm(cfg)
+    y, (k, v) = attn_mod.causal_attention(p["attn"], norm(p["mixer_norm"], x), cfg)
+    x = x + y
+    if ffn != "none":
+        x = x + ffn_apply(p["ffn"], norm(p["ffn_norm"], x), cfg)
+    return x, {"k": k, "v": v}
+
+
+def _slot_apply_decode(p, x: torch.Tensor, cfg: ModelConfig, ffn: str,
+                       cache: Dict[str, torch.Tensor], pos: int) -> torch.Tensor:
+    """One-token slot.  x: (B, 1, d).  Writes the cache row ``pos`` in place."""
+    _, norm = make_norm(cfg)
+    x = x + attn_mod.decode_attention(
+        p["attn"], norm(p["mixer_norm"], x), cfg, cache["k"], cache["v"], pos)
+    if ffn != "none":
+        x = x + ffn_apply(p["ffn"], norm(p["ffn_norm"], x), cfg)
+    return x
+
+
+def stack_apply_full(stack, x: torch.Tensor, cfg: ModelConfig,
+                     caches: Dict[str, Dict[str, torch.Tensor]]) -> torch.Tensor:
+    """Run the stack over the sequence, group by group, filling the caches.
+
+    Each layer's k and v go straight into rows ``:S`` of its group of
+    ``caches`` (``init_caches``' sequence-major ``(G, S_max, B, KV, hd)``
+    tensors), so the stacked ``(G, B, S, KV, hd)`` copies the reference
+    builds never exist.
+    """
+    for g in range(cfg.n_groups):
+        for s, (_, ffn) in enumerate(slot_kinds(cfg)):
+            x, c = _slot_apply_full(_index(stack[f"slot_{s}"], g), x, cfg, ffn)
+            dst = caches[f"slot_{s}"]
+            S = c["k"].shape[1]
+            dst["k"][g, :S] = c["k"].transpose(0, 1)
+            dst["v"][g, :S] = c["v"].transpose(0, 1)
+    return x
+
+
+def stack_apply_decode(stack, x: torch.Tensor, cfg: ModelConfig, caches,
+                       pos: int) -> torch.Tensor:
+    """One token through the stack; every cache is written in place at
+    ``pos``."""
+    for g in range(cfg.n_groups):
+        for s, (_, ffn) in enumerate(slot_kinds(cfg)):
+            x = _slot_apply_decode(_index(stack[f"slot_{s}"], g), x, cfg, ffn,
+                                   _index(caches[f"slot_{s}"], g), pos)
+    return x

@@ -1,0 +1,171 @@
+"""The port's flash attention against the reference's Pallas kernel.
+
+On the CPU ``ops.flash_attention`` runs its plain version (``ref.py``); it
+is held against the JAX wrapper with ``use_pallas=True, interpret=True``,
+as the reference's tests/test_flash_attn.py runs it, on inputs made with
+numpy.  The reference takes KV already expanded to H heads; the port
+takes (B, S, KV, hd) and maps head h to KV head h // (H // KV), so the
+JAX side gets ``np.repeat(k, H // KV, axis=2)``, the head order of
+``expand_kv``.  Tolerances are the reference's own (tests/test_flash_attn.py):
+2e-5 in fp32 (summation order) and 2e-2 in bf16 (p is rounded to bf16
+before p . v, at other points than the reference's exact-softmax oracle).
+
+The ``*_on_card`` tests hold the CUDA kernel against its plain version and
+skip where no card is present.  The two round p the same way, so only
+summation order and the output's rounding (one ulp, 2^-8 relative in
+bf16) separate them: the bound is |got - want| <= 4e-3 + 1e-2 |want|, and
+a relative L2 error of at most 1e-2 where long rows make outputs small.  The module imports no JAX itself, so they
+also run where JAX is not installed:
+
+    PYTHONPATH=src python -m pytest -q --noconftest tests/test_torch_flash_attn.py -k on_card
+"""
+import types
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core.convert import leaves_from_numpy
+from repro_torch.kernels.flash_attn import ops as tops
+from repro_torch.kernels.flash_attn import ref as tref
+
+TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+CARD_ATOL, CARD_RTOL, CARD_REL_L2 = 4e-3, 1e-2, 1e-2
+
+
+@pytest.fixture(scope="module")
+def jflash():
+    """The reference's flash wrapper (the Pallas kernel in interpret mode)."""
+    pytest.importorskip("jax")
+    import jax.numpy as jnp
+    from repro.kernels.flash_attn import ops
+    return types.SimpleNamespace(jnp=jnp, ops=ops)
+
+
+@pytest.fixture()
+def cuda_device():
+    """The card, or a skip where there is none (decided at run time)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    return torch.device("cuda")
+
+
+def _card_close(got, want):
+    """The kernel's output against its plain version's (see the module's
+    docstring for the bounds)."""
+    g, w = _f32(got), _f32(want)
+    np.testing.assert_allclose(g, w, rtol=CARD_RTOL, atol=CARD_ATOL)
+    assert np.linalg.norm(g - w) <= CARD_REL_L2 * np.linalg.norm(w)
+
+
+def _inputs(seed, B, S, H, KV, hd, dtype):
+    """q (B, S, H, hd), k and v (B, S, KV, hd) as numpy arrays of ``dtype``
+    (bf16 through ml_dtypes)."""
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((B, S, H, hd), dtype=np.float32)
+    k = rng.standard_normal((B, S, KV, hd), dtype=np.float32)
+    v = rng.standard_normal((B, S, KV, hd), dtype=np.float32)
+    if dtype == "bfloat16":
+        import ml_dtypes
+        q, k, v = (x.astype(ml_dtypes.bfloat16) for x in (q, k, v))
+    return q, k, v
+
+
+def _torch(arrays, device="cpu"):
+    return [leaves_from_numpy({"x": a}, device)["x"] for a in arrays]
+
+
+def _f32(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        return x.detach().float().cpu().numpy()
+    return np.asarray(x).astype(np.float32)
+
+
+@pytest.mark.parametrize("B,S,H,KV,hd,causal,dtype", [
+    (1, 16, 4, 2, 16, True, "float32"),
+    (2, 64, 4, 1, 32, True, "float32"),
+    (1, 128, 6, 2, 64, False, "float32"),
+    (2, 256, 4, 4, 128, True, "float32"),
+    (1, 96, 6, 3, 64, True, "float32"),
+    (1, 256, 8, 2, 64, True, "bfloat16"),
+    (2, 96, 3, 1, 128, False, "bfloat16"),
+    (2, 128, 4, 2, 128, True, "bfloat16"),
+])
+def test_plain_vs_pallas(jflash, B, S, H, KV, hd, causal, dtype):
+    q, k, v = _inputs(B * S + H, B, S, H, KV, hd, dtype)
+    G = H // KV
+    want = jflash.ops.flash_attention(
+        jflash.jnp.asarray(q), jflash.jnp.asarray(np.repeat(k, G, axis=2)),
+        jflash.jnp.asarray(np.repeat(v, G, axis=2)), causal=causal,
+        use_pallas=True, interpret=True)
+    tq, tk, tv = _torch((q, k, v))
+    got = tops.flash_attention(tq, tk, tv, causal=causal)
+    assert got.dtype == tq.dtype and tuple(got.shape) == (B, S, H, hd)
+    np.testing.assert_allclose(_f32(got), _f32(want), rtol=TOL[dtype], atol=TOL[dtype])
+
+
+def test_cpu_wrapper_is_the_plain_version():
+    tq, tk, tv = _torch(_inputs(3, 2, 33, 4, 2, 64, "bfloat16"))
+    before = tops.LAUNCHES
+    got = tops.flash_attention(tq, tk, tv, causal=True)
+    assert torch.equal(got, tref.attention(tq, tk, tv, causal=True))
+    assert tops.LAUNCHES == before, "a CPU tensor must not count a launch"
+
+
+def test_plain_causal_rows_ignore_later_keys():
+    """Row r of a causal attention depends on keys <= r only."""
+    tq, tk, tv = _torch(_inputs(4, 1, 40, 2, 1, 32, "float32"))
+    full = tref.attention(tq, tk, tv, causal=True)
+    tk2, tv2 = tk.clone(), tv.clone()
+    tk2[:, 20:] = 7.0
+    tv2[:, 20:] = -3.0
+    cut = tref.attention(tq, tk2, tv2, causal=True)
+    assert torch.equal(full[:, :20], cut[:, :20])
+    assert not torch.equal(full[:, 20:], cut[:, 20:])
+
+
+@pytest.mark.parametrize("shapes", [
+    ((1, 8, 4, 16), (1, 8, 3, 16), (1, 8, 3, 16)),     # H % KV != 0
+    ((1, 8, 4, 16), (1, 9, 2, 16), (1, 9, 2, 16)),     # S differs
+    ((1, 8, 4, 16), (1, 8, 2, 16), (1, 8, 2, 32)),     # k, v differ
+    ((8, 4, 16), (8, 2, 16), (8, 2, 16)),              # not 4-d
+])
+def test_wrapper_rejects_bad_shapes(shapes):
+    q, k, v = (torch.zeros(s) for s in shapes)
+    with pytest.raises(ValueError):
+        tops.flash_attention(q, k, v)
+
+
+# ------------------------------------------------------------ on the card
+@pytest.mark.parametrize("S", [1, 17, 255, 1000])
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("group", [1, 3, 4])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_kernel_on_card(cuda_device, S, hd, group, causal):
+    KV = 2
+    q, k, v = _torch(_inputs(S + hd + group, 2, S, KV * group, KV, hd, "bfloat16"),
+                     cuda_device)
+    before = tops.LAUNCHES
+    got = tops.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert tops.LAUNCHES == before + 1
+    want = tref.attention(q, k, v, causal=causal)
+    _card_close(got, want)
+
+
+def test_flash_kernel_fp16_and_strided_on_card(cuda_device):
+    """fp16, and q, k, v read by strides out of one fused qkv tensor."""
+    B, S, H, KV, hd = 2, 300, 8, 2, 128
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    qkv = torch.randn((B, S, H + 2 * KV, hd), generator=g, device=cuda_device,
+                      dtype=torch.float16)
+    q, k, v = qkv[:, :, :H], qkv[:, :, H:H + KV], qkv[:, :, H + KV:]
+    got = tops.flash_attention(q, k, v, causal=True)
+    want = tref.attention(q, k, v, causal=True)
+    _card_close(got, want)
+
+
+def test_flash_kernel_rejects_fp32_on_card(cuda_device):
+    q = torch.zeros((1, 8, 2, 64), device=cuda_device)
+    with pytest.raises(ValueError, match="bf16 or fp16"):
+        tops.flash_attention(q, q, q)
