@@ -8,6 +8,8 @@ Phases, each of which must pass or the script exits non-zero:
 
 1. device: the nvidia-smi name/power-limit line; a CUDA device is required;
 2. build: every kernel under src/repro_torch/csrc compiles (nvcc, sm_90a);
+   ptxas's registers, spills and notes for every kernel, the flash
+   kernel's dynamic shared memory, and no spilled byte in the flash kernel;
 3. kernels: each kernel is bitwise equal to its plain PyTorch version at
    small shapes (partial stripes, L in {128, 1024, 16384}, a block offset,
    zero/one/all-dirty work queues, NaN/Inf/zero/saturated payloads);
@@ -19,8 +21,9 @@ Phases, each of which must pass or the script exits non-zero:
 5. each kernel at the main path's shapes against its plain version, timed,
    then a chunked plain recompute of all checksums and parity, bitwise;
 6. the flash-attention kernel against its plain version at small shapes
-   (S in {1, 17, 255, 1000}, hd in {64, 128}, H/KV in {1, 3, 4}, causal
-   and full, bf16), held to |got - want| <= 4e-3 + 1e-2 |want| and a
+   (S in {1, 17, 128, 129, 255, 383, 1000}: around the kernel's 128-row
+   tiles; hd in {64, 128}, H/KV in {1, 3, 4}, causal and full, bf16),
+   held to |got - want| <= 4e-3 + 1e-2 |want| and a
    relative L2 error ||got - want|| / ||want|| <= 1e-2, with the mean
    |want| printed beside each case's errors;
 7. serving: llama3.2-3b at full width and depth (random bf16 weights from
@@ -35,7 +38,8 @@ Phases, each of which must pass or the script exits non-zero:
    generate calls in turns (store, none, none, store), and a profiler trace
    of four decode steps with and without the store;
 8. the flash kernel at the prefill's shapes against its plain version,
-   timed beside the plain version and torch's scaled_dot_product_attention.
+   timed beside the plain version and torch's scaled_dot_product_attention,
+   with its TFLOP/s and share of its bound.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 the per-kernel JSON record.  All data comes from ``--seed``.
@@ -297,6 +301,27 @@ def phase_update_profile(g, main: dict) -> None:
     })
 
 
+def print_build_log(lib) -> None:
+    """ptxas's report of each kernel (registers, spills, notes such as an
+    injected wgmma fence) and the flash kernel's dynamic shared memory;
+    fails if the flash kernel spills."""
+    source, flash_spills = "", []
+    for line in _build.build_log().splitlines():
+        if line.startswith("=="):
+            source = line
+        if line.startswith("==") or any(w in line for w in (
+                "entry function", "registers", "spill", "C7", "warning")):
+            print("  " + line.strip())
+        if "flash_attn" in source and "spill stores" in line:
+            flash_spills.append(line.strip())
+    print("  flash_attn dynamic shared memory: "
+          f"{lib.vilamb_flash_smem_bytes(128)} bytes a CTA at hd 128, "
+          f"{lib.vilamb_flash_smem_bytes(64)} at hd 64")
+    check(flash_spills and all(l.startswith("0 bytes stack frame, 0 bytes spill stores, "
+                                            "0 bytes spill loads") for l in flash_spills),
+          f"the flash kernel spills: {flash_spills}")
+
+
 def bound(bytes_moved: float, ops: float, ops_per_sec: float = ALU_OPS_PER_SEC):
     t_bytes, t_ops = bytes_moved / HBM_BYTES_PER_SEC, ops / ops_per_sec
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
@@ -403,7 +428,7 @@ def phase_flash_small(g) -> list:
     """The flash kernel against its plain version at small shapes, bf16;
     one [S, hd, H/KV, causal, max abs err, rel L2 err, mean |want|] a case."""
     cases, KV = [], 2
-    for S in (1, 17, 255, 1000):
+    for S in (1, 17, 128, 129, 255, 383, 1000):
         for hd in (64, 128):
             for group in (1, 3, 4):
                 for causal in (True, False):
@@ -680,7 +705,7 @@ def phase_flash_time(serve: dict, err: float):
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
             "library_ms": library_ms}, {
             "shape": [B, S, H, k.shape[2], hd], "tflops": flops / (ms / 1e3) / 1e12,
-            "library_tflops": flops / (library_ms / 1e3) / 1e12,
+            "share_of_bound": bms / ms, "library_tflops": flops / (library_ms / 1e3) / 1e12,
             "err_vs_plain": prefill_err, "sdpa_max_abs_err_vs_plain": sdpa_err})
 
 
@@ -699,11 +724,9 @@ def main() -> int:
           f"device {torch.cuda.get_device_name(0)}", flush=True)
 
     t0 = time.perf_counter()
-    _build.library()
+    lib = _build.library()
     print(f"build: {time.perf_counter() - t0:.1f} s")
-    for line in _build.build_log().splitlines():
-        if "registers" in line or line.startswith("=="):
-            print("  " + line.strip())
+    print_build_log(lib)
 
     # The plain versions' fp32 products stay in full fp32 (torch's default,
     # stated here): no TF32.
@@ -758,6 +781,10 @@ def main() -> int:
     row, flash = phase_flash_time(serve, max([c[4] for c in flash_cases]
                                              + [serve["layer0_err"]["max_abs_err"]]))
     kernels.append(row)
+    print(f"flash at the prefill's shapes {flash['shape']}: {row['ms']:.4f} ms, "
+          f"{flash['tflops']:.1f} TFLOP/s, {100 * flash['share_of_bound']:.1f}% of its "
+          f"{row['bound_ms']:.4f} ms bound; scaled_dot_product_attention "
+          f"{row['library_ms']:.4f} ms; plain {row['plain_ms']:.2f} ms")
     print(json.dumps({"flash": flash}))
     print(json.dumps({"serve": tm}))
     print(json.dumps({"serve_launches": serve["launches"]}))

@@ -31,9 +31,10 @@ _SIGNATURES = {
     "vilamb_checksum": (_P, _P, _I, _I, _I, _P),
     "vilamb_parity": (_P, _P, _I, _I, _I, _P),
     "vilamb_fused_update": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
-    # q, k, v, out; B, S, H, KV, hd, dtype, causal; 4 x (batch, seq, head)
-    # strides; scale; stream.
+    # q, k, v, out; B, S, H, KV, hd, dtype, causal; 4 x (head, seq, batch)
+    # byte strides; scale; stream.
     "vilamb_flash_attn": (_P, _P, _P, _P) + (_I,) * 7 + (_I,) * 12 + (_D, _P),
+    "vilamb_flash_smem_bytes": (_I,),
 }
 
 

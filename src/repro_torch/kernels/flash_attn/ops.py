@@ -2,13 +2,15 @@
 
 A CUDA tensor launches the kernel (or raises); a CPU tensor runs the plain
 version in ``ref.py``.  ``LAUNCHES`` counts kernel launches.  The kernel
-reads q ``(B, S, H, hd)`` and k, v ``(B, S, KV, hd)`` by their strides:
-GQA needs no expanded copy and hd no padding.
+reads q ``(B, S, H, hd)`` and k, v ``(B, S, KV, hd)`` in place through TMA
+tensor maps of dims ``(hd, heads, S, B)`` and the byte strides that
+``tensor_map_layout`` computes: GQA needs no expanded copy and hd no
+padding.  Layouts a tensor map cannot describe are copied first.
 """
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -18,17 +20,39 @@ from . import ref
 LAUNCHES = 0
 HEAD_DIMS = (64, 128)
 _DTYPES = {torch.bfloat16: 0, torch.float16: 1}
-_MAX_GRID_Y = 65535          # B * H CTAs on the grid's y axis
+_BLOCK_M = 128                # query rows a CTA
+_MAX_GRID = 2**31 - 1        # CTAs: B * H * ceil(S / 128) on the grid's x axis
+_MAX_STRIDE = 1 << 40        # TMA: byte strides below 2^40
+
+
+def tensor_map_layout(x: torch.Tensor) -> Optional[Tuple[Tuple[int, ...], Tuple[int, ...]]]:
+    """The TMA tensor map of a ``(B, S, heads, hd)`` tensor: its dims
+    innermost first, ``(hd, heads, S, B)``, and the byte strides of heads,
+    S and B.  None where a tensor map cannot describe ``x``: hd not
+    unit-stride, a stride not a multiple of 16 bytes or not below 2^40, a
+    dim's stride smaller than the extent of the dims inside it (TMA wants
+    each dim to enclose the previous one), or a base not 16-byte aligned.
+    A dim of size 1 is never stepped, so its stride is taken as that
+    extent."""
+    B, S, heads, hd = x.shape
+    if x.stride(3) != 1 or x.data_ptr() % 16:
+        return None
+    es = x.element_size()
+    strides, extent = [], hd * es
+    for size, stride in ((heads, x.stride(2)), (S, x.stride(1)), (B, x.stride(0))):
+        st = extent if size == 1 else stride * es
+        if st % 16 or st < extent or st >= _MAX_STRIDE:
+            return None
+        strides.append(st)
+        extent = st * size
+    return (hd, heads, S, B), tuple(strides)
 
 
 def _strided(x: torch.Tensor) -> torch.Tensor:
-    """``x`` itself where the kernel can read it by strides (unit stride on
-    hd, the other strides multiples of 8 elements, 16-byte aligned), else a
-    contiguous copy."""
-    if (x.stride(-1) == 1 and all(s % 8 == 0 for s in x.stride()[:3])
-            and x.data_ptr() % 16 == 0):
+    """``x`` itself where a tensor map can describe it, else a packed copy."""
+    if tensor_map_layout(x) is not None:
         return x
-    return x.contiguous()
+    return x.clone(memory_format=torch.contiguous_format)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -58,17 +82,22 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"{q.dtype}, {k.dtype}, {v.dtype}")
     if hd not in HEAD_DIMS:
         raise ValueError(f"flash_attention: hd must be one of {HEAD_DIMS}, got {hd}")
-    if S < 1 or B * H > _MAX_GRID_Y:
-        raise ValueError(f"flash_attention: want S >= 1 and B * H <= {_MAX_GRID_Y}, "
-                         f"got S={S}, B*H={B * H}")
+    if S < 1 or B * H * -(-S // _BLOCK_M) > _MAX_GRID:
+        raise ValueError(f"flash_attention: want S >= 1 and B * H * ceil(S / "
+                         f"{_BLOCK_M}) <= {_MAX_GRID}, got B={B}, S={S}, H={H}")
+    scale = scale if scale is not None else 1.0 / math.sqrt(hd)
+    if scale < 0:            # the kernel takes scale >= 0: (-q) k (-scale) is exact
+        q, scale = -q, -scale
     q, k, v = _strided(q), _strided(k), _strided(v)
     out = torch.empty((B, S, H, hd), dtype=q.dtype, device=q.device)
-    scale = scale if scale is not None else 1.0 / math.sqrt(hd)
+    strides = [s for t in (q, k, v, out) for s in tensor_map_layout(t)[1]]
     rc = _build.library().vilamb_flash_attn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        B, S, H, KV, hd, _DTYPES[q.dtype], int(bool(causal)),
-        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
+        B, S, H, KV, hd, _DTYPES[q.dtype], int(bool(causal)), *strides,
         float(scale), _build.stream_handle(q))
+    if rc < 0:
+        raise RuntimeError(f"flash_attn: cuTensorMapEncodeTiled refused a tensor "
+                           f"map (CUresult {-rc})")
     _build.check(rc, "flash_attn")
     LAUNCHES += 1
     return out

@@ -10,6 +10,9 @@ JAX side gets ``np.repeat(k, H // KV, axis=2)``, the head order of
 2e-5 in fp32 (summation order) and 2e-2 in bf16 (p is rounded to bf16
 before p . v, at other points than the reference's exact-softmax oracle).
 
+``tensor_map_layout`` (the TMA tensor maps' dims and byte strides, computed
+in the wrapper) is checked on the CPU, with the layouts it must copy.
+
 The ``*_on_card`` tests hold the CUDA kernel against its plain version and
 skip where no card is present.  The two round p the same way, so only
 summation order and the output's rounding (one ulp, 2^-8 relative in
@@ -136,6 +139,54 @@ def test_wrapper_rejects_bad_shapes(shapes):
         tops.flash_attention(q, k, v)
 
 
+# ------------------------------------------------ the tensor maps' layout
+def test_tensor_map_layout_contiguous():
+    x = torch.zeros((2, 5, 3, 64), dtype=torch.bfloat16)
+    assert tops.tensor_map_layout(x) == ((64, 3, 5, 2), (128, 384, 1920))
+    assert tops._strided(x) is x
+
+
+@pytest.mark.parametrize("dtype,es", [(torch.bfloat16, 2), (torch.float32, 4)])
+def test_tensor_map_layout_fused_qkv_slices(dtype, es):
+    """q, k and v sliced out of one (B, S, H + 2 KV, hd) tensor are read in
+    place: head stride hd, sequence stride (H + 2 KV) hd, 16-byte bases."""
+    B, S, H, KV, hd = 2, 7, 6, 2, 128
+    qkv = torch.zeros((B, S, H + 2 * KV, hd), dtype=dtype)
+    row = (H + 2 * KV) * hd * es
+    for x, heads in ((qkv[:, :, :H], H), (qkv[:, :, H:H + KV], KV),
+                     (qkv[:, :, H + KV:], KV)):
+        assert tops.tensor_map_layout(x) == ((hd, heads, S, B), (hd * es, row, S * row))
+        assert tops._strided(x) is x
+
+
+def test_tensor_map_layout_size_one_dims_take_the_enclosing_extent():
+    """A dim of size 1 is never stepped: whatever stride torch reports for
+    it, the map gets the extent of the dims inside it."""
+    base = torch.zeros(4096, dtype=torch.bfloat16)
+    x = base.as_strided((1, 3, 1, 64), (5, 64, 7, 1))
+    assert tops.tensor_map_layout(x) == ((64, 1, 3, 1), (128, 128, 384))
+
+
+@pytest.mark.parametrize("case", ["unaligned base", "stride not 16 bytes",
+                                  "hd not unit stride", "heads outside seq"])
+def test_tensor_map_layout_rejects_and_copies(case):
+    """Layouts a tensor map cannot describe give None, and the wrapper's
+    copy of them is packed and equal."""
+    base = torch.arange(2 * 9 * 4 * 64 * 2, dtype=torch.float32).to(torch.bfloat16)
+    if case == "unaligned base":
+        x = base[1:1 + 2 * 9 * 4 * 64].view(2, 9, 4, 64)
+    elif case == "stride not 16 bytes":
+        x = base.as_strided((2, 9, 4, 64), (9 * 4 * 68, 4 * 68, 68, 1))
+    elif case == "hd not unit stride":
+        x = base[:2 * 9 * 4 * 64].view(2, 9, 64, 4).transpose(2, 3)
+    else:                                    # a (B, heads, S, hd) tensor's view
+        x = base[:2 * 9 * 4 * 64].view(2, 4, 9, 64).transpose(1, 2)
+    assert tops.tensor_map_layout(x) is None
+    y = tops._strided(x)
+    assert y.data_ptr() != x.data_ptr() and torch.equal(y, x)
+    assert tops.tensor_map_layout(y) == ((64, 4, 9, 2), (128, 512, 4608))
+
+
 # ------------------------------------------------------------ on the card
 @pytest.mark.parametrize("S", [1, 17, 255, 1000])
 @pytest.mark.parametrize("hd", [64, 128])
@@ -169,3 +220,53 @@ def test_flash_kernel_rejects_fp32_on_card(cuda_device):
     q = torch.zeros((1, 8, 2, 64), device=cuda_device)
     with pytest.raises(ValueError, match="bf16 or fp16"):
         tops.flash_attention(q, q, q)
+
+
+@pytest.mark.parametrize("S", [127, 128, 129, 383, 4096])
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_kernel_tile_boundaries_on_card(cuda_device, S, hd, causal):
+    """Lengths around the kernel's 128-query and 128-key tiles, and a whole
+    prefill-length sequence (the ragged tail and the diagonal tile)."""
+    q, k, v = _torch(_inputs(S + hd, 1, S, 6, 2, hd, "bfloat16"), cuda_device)
+    got = tops.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    _card_close(got, tref.attention(q, k, v, causal=causal))
+
+
+def test_flash_kernel_many_heads_on_card(cuda_device):
+    """B * H = 192 query heads in 24 / 8 groups, the prefill's: the block
+    order over (b, KV head), query tiles and a group's heads."""
+    q, k, v = _torch(_inputs(7, 8, 384, 24, 8, 128, "bfloat16"), cuda_device)
+    got = tops.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    _card_close(got, tref.attention(q, k, v, causal=True))
+
+
+@pytest.mark.parametrize("S", [129, 383])
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("dtype", [torch.float16, torch.bfloat16])
+def test_flash_kernel_fused_qkv_slices_on_card(cuda_device, S, hd, dtype):
+    """q, k, v sliced out of one (B, S, H + 2 KV, hd) tensor: read in place
+    (no copy), with head and sequence strides unlike a contiguous tensor's."""
+    B, H, KV = 2, 6, 2
+    g = torch.Generator(device=cuda_device).manual_seed(S + hd)
+    qkv = torch.randn((B, S, H + 2 * KV, hd), generator=g, device=cuda_device,
+                      dtype=dtype)
+    q, k, v = qkv[:, :, :H], qkv[:, :, H:H + KV], qkv[:, :, H + KV:]
+    assert all(tops._strided(x) is x for x in (q, k, v))
+    for causal in (True, False):
+        got = tops.flash_attention(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        _card_close(got, tref.attention(q, k, v, causal=causal))
+
+
+@pytest.mark.parametrize("scale", [0.05, 0.0, -0.125])
+def test_flash_kernel_explicit_scale_on_card(cuda_device, scale):
+    """A caller's scale: zero (uniform weights over the unmasked keys) and
+    a negative one too (the wrapper hands the kernel -q and -scale: the
+    same scores, exactly)."""
+    q, k, v = _torch(_inputs(11, 2, 200, 4, 2, 128, "bfloat16"), cuda_device)
+    got = tops.flash_attention(q, k, v, causal=True, scale=scale)
+    torch.cuda.synchronize()
+    _card_close(got, tref.attention(q, k, v, causal=True, scale=scale))
