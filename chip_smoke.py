@@ -13,11 +13,22 @@ Phases, each of which must pass or the script exits non-zero:
 3. kernels: each kernel is bitwise equal to its plain PyTorch version at
    small shapes (partial stripes, L in {128, 1024, 16384}, a block offset,
    zero/one/all-dirty work queues, NaN/Inf/zero/saturated payloads);
-4. main path: a ProtectedStore over an 8 GiB vilamb heap of 4 KiB rows
-   (2,097,152 blocks, 4+1 stripes, T=16, deadline 32) plus a 64 MiB sync
-   params leaf: attach, init, 64 steps of 4,096 random row writes with
-   on_write + tick, flush, one corrupted lane found by scrub, recover_block,
-   a clean rescrub and verify_meta; the kernel launch counts of this run;
+4. main path: a ProtectedStore on the default, overlapped tick over an
+   8 GiB vilamb heap of 4 KiB rows (2,097,152 blocks, 4+1 stripes, T=16,
+   deadline 32) plus a 64 MiB sync params leaf, beside a blocking twin fed
+   the same writes: attach, init, 64 steps of 4,096 random row writes with
+   on_write + tick (due at 16, 32, 48 in both; every fused update of the
+   overlapped store on its side stream), a settle after steps 20 and 52
+   with the clean blocks' checksums and the clean stripes' parity equal to
+   the twin's, flush with every field equal to the twin's, one corrupted
+   lane found by scrub, recover_block, a clean rescrub and verify_meta;
+   the kernel launch counts of the overlapped store alone (the twin's
+   launches are not counted).  Timed, both stores: each due tick's host ms
+   without a device sync; the wall time of the steps around each due tick
+   (15-18, 31-34, 47-50); a profiler trace of steps 15-18 (the fused
+   update's stream and its overlap with the foreground's kernels); one
+   more due tick at step 64, synchronised before and after (its update
+   included), before the flush;
 5. each kernel at the main path's shapes against its plain version, timed,
    then a chunked plain recompute of all checksums and parity, bitwise;
 6. the flash-attention kernel against its plain version at small shapes
@@ -28,15 +39,20 @@ Phases, each of which must pass or the script exits non-zero:
    |want| printed beside each case's errors;
 7. serving: llama3.2-3b at full width and depth (random bf16 weights from
    the seed) through ``Server.generate``: batch 8, 4,096-token prompts, 64
-   new tokens, the KV caches under a vilamb store (T=16, deadline 32, scrub
-   every 16).  Checked: the launch counts of this run (flash once per layer
-   of the prefill), tokens identical to a run with no store, a clean scrub,
+   new tokens, the KV caches under a vilamb store on the overlapped tick
+   (T=16, deadline 32, scrub every 16).  Checked: the launch counts of this
+   run (flash once per layer of the prefill), tokens identical to runs with
+   no store and with a blocking store, a clean scrub,
    one corrupted K-cache lane found by scrub and repaired bitwise, layer 0's
    prefill attention against the plain version at S = 4,096, and a chunked
    plain recompute of every cache checksum and parity row, bitwise;
-   Timed: every step of that run and of one with no store, four more
-   generate calls in turns (store, none, none, store), and a profiler trace
-   of four decode steps with and without the store;
+   Timed: every step of that run and of one with no store, six more
+   generate calls in turns (overlapped, none, blocking, then the same in
+   reverse) with the ticks' host ms, a
+   profiler trace of four decode steps with and without the store, and
+   one of decode steps 16-19 (the due tick with its scrub) with the
+   overlapped and the blocking store, with the fused update's stream
+   overlap;
 8. the flash kernel at the prefill's shapes against its plain version,
    timed beside the plain version and torch's scaled_dot_product_attention,
    with its TFLOP/s and share of its bound.
@@ -47,7 +63,10 @@ the per-kernel JSON record.  All data comes from ``--seed``.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import dataclasses
 import json
+import statistics
 import subprocess
 import sys
 import time
@@ -60,7 +79,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 from repro_torch.common import flatten_dict  # noqa: E402
 from repro_torch.configs import get_arch  # noqa: E402
 from repro_torch.core import LeafPolicy, ProtectedStore, RedundancyPolicy  # noqa: E402
-from repro_torch.core import blocks  # noqa: E402
+from repro_torch.core import bits, blocks  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.checksum import ops as ck_ops, ref as ck_ref  # noqa: E402
 from repro_torch.kernels.flash_attn import ops as fa_ops, ref as fa_ref  # noqa: E402
@@ -187,17 +206,148 @@ def phase_kernels(g) -> dict:
     return err
 
 
+def heap_policy(async_tick: bool) -> RedundancyPolicy:
+    return RedundancyPolicy(
+        default=LeafPolicy(mode="vilamb", period_steps=PERIOD,
+                           max_vulnerable_steps=DEADLINE),
+        rules=(("params*", LeafPolicy(mode="sync")),),
+        lanes_per_block=ROW, stripe_data_blocks=STRIPE, async_tick=async_tick)
+
+
+def stream_overlap(prof) -> dict:
+    """From a profiler trace: the streams the fused update's kernel ran on,
+    its device time, and the µs of it that overlap kernels on other streams
+    (the foreground's), with the trace's kernel count and busy time."""
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    k3 = [e for e in kernels if "fused_update_kernel" in e.name]
+    streams = {e.device_resource_id for e in k3}
+    if not k3 or None in streams:
+        return {"fused_update_launches": len(k3), "overlap_us": "not measured"}
+    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels
+                   if e.device_resource_id not in streams)
+    merged: list = []
+    for s0, s1 in spans:
+        if merged and s0 <= merged[-1][1]:
+            merged[-1][1] = max(merged[-1][1], s1)
+        else:
+            merged.append([s0, s1])
+    overlap = sum(max(0, min(e.time_range.end, m1) - max(e.time_range.start, m0))
+                  for e in k3 for m0, m1 in merged)
+    return {"fused_update_launches": len(k3), "fused_update_streams": sorted(streams),
+            "foreground_streams": sorted({e.device_resource_id for e in kernels} - streams),
+            "fused_update_us": sum(e.time_range.elapsed_us() for e in k3),
+            "overlap_us": overlap, "kernels": len(kernels),
+            "device_busy_us": sum(e.time_range.elapsed_us() for e in kernels)}
+
+
+# Phase 4's schedule: the wall time of the steps around each due tick
+# (16, 32, 48), synchronised only at both ends of each window; a profiler
+# trace of the first window; a settle (then a check against the blocking
+# twin) after steps 20 and 52, outside the windows.
+WINDOWS = ((15, 18), (31, 34), (47, 50))
+TRACE_STEPS = WINDOWS[0]
+SEGMENTS = ((0, 20), (21, 52), (53, STEPS - 1))
+
+
+def heap_steps(store, state, red, plan, steps, rec, k3_streams):
+    """Steps of the heap workload on one store: each writes 4,096 rows,
+    scales the params, records the writes and ticks.  Records every due
+    tick's host ms (no device sync), each window's wall ms, the trace's
+    stream overlap, and the stream of every fused-update launch
+    (``k3_streams``)."""
+    from torch.profiler import ProfilerActivity, profile
+    heap, params = state["heap"], state["params"]
+    prof = None
+    for step in steps:
+        if step == TRACE_STEPS[0]:
+            torch.cuda.synchronize()
+            prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+            prof.__enter__()
+        if any(step == w[0] for w in WINDOWS):
+            torch.cuda.synchronize()
+            w0 = time.perf_counter()
+        rows, vals = plan[step]
+        # Writes that never block the host (``heap[rows] = vals`` and
+        # ``ev[rows] = True`` wait for the stream's earlier work).
+        heap.index_copy_(0, rows, vals)
+        old_params = params.clone()
+        params.mul_(0.999)
+        ev = torch.zeros(N_ROWS, dtype=torch.bool, device=heap.device)
+        ev.index_fill_(0, rows, True)
+        red = store.on_write(red, events={"heap": ev}, old={"params": old_params},
+                             new={"params": params})
+        n = len(k3_streams)
+        t = time.perf_counter()
+        red, report = store.tick(state, red, step)
+        host_ms = (time.perf_counter() - t) * 1e3
+        if report.updated:
+            rec["due_steps"].append(step)
+            rec["due_tick_host_ms"].append(host_ms)
+        else:
+            check(len(k3_streams) == n, f"fused update launched on the quiet tick {step}")
+        if any(step == w[1] for w in WINDOWS):
+            torch.cuda.synchronize()
+            rec["window_ms"].append((time.perf_counter() - w0) * 1e3)
+        if step == TRACE_STEPS[1]:
+            torch.cuda.synchronize()
+            prof.__exit__(None, None, None)
+            rec["trace_steps_15_18"] = stream_overlap(prof)
+    return red
+
+
+@contextlib.contextmanager
+def uncounted():
+    """Launches inside are not the main path's (the blocking twin's): the
+    kernels' counts are put back as they were when the block ends."""
+    saved = (ck_ops.LAUNCHES, par_ops.LAUNCHES, fu_ops.LAUNCHES)
+    try:
+        yield
+    finally:
+        ck_ops.LAUNCHES, par_ops.LAUNCHES, fu_ops.LAUNCHES = saved
+
+
+def compare_clean(store, red, twin: dict, step: int) -> int:
+    """After a settle: the clean blocks' checksums and the clean stripes'
+    parity equal the blocking twin's bit for bit, and so do the bitmaps."""
+    meta = store.metas["heap"]
+    a, b = red["heap"], twin["heap"]
+    check(torch.equal(a.dirty, b.dirty) and torch.equal(a.shadow, b.shadow),
+          f"step {step}: dirty/shadow differ from the blocking twin's")
+    live = bits.unpack(a.dirty | a.shadow, meta.n_blocks)
+    clean_stripes = ~blocks.stripe_dirty_mask(meta, live)
+    check(torch.equal(a.checksums[~live], b.checksums[~live]),
+          f"step {step}: clean checksums differ from the blocking twin's")
+    check(not bool(((a.parity != b.parity).any(dim=1) & clean_stripes).any()),
+          f"step {step}: clean-stripe parity differs from the blocking twin's")
+    for name in ("params",):
+        for f in ("checksums", "parity", "meta_ck"):
+            check(torch.equal(getattr(red[name], f), getattr(twin[name], f)),
+                  f"step {step}: {name}.{f} differs from the blocking twin's")
+    return int(live.sum())
+
+
 def phase_main(g) -> dict:
-    """The store lifecycle on the 8 GiB heap; returns state and timings."""
+    """The store lifecycle on the 8 GiB heap, on the default overlapped tick
+    beside a blocking twin fed the same writes; returns state and timings."""
     dev = torch.device(DEVICE)
     heap = torch.randn((N_ROWS, ROW), generator=g, device=dev)
     params = torch.randn((16384, 1024), generator=g, device=dev)      # 64 MiB
     state = {"heap": heap, "params": params}
-    policy = RedundancyPolicy(
-        default=LeafPolicy(mode="vilamb", period_steps=PERIOD,
-                           max_vulnerable_steps=DEADLINE),
-        rules=(("params*", LeafPolicy(mode="sync")),),
-        lanes_per_block=ROW, stripe_data_blocks=STRIPE)
+    twin_state = {k: v.clone() for k, v in state.items()}
+    plan = [(torch.randperm(N_ROWS, generator=g, device=dev)[:ROWS_PER_STEP],
+             torch.randn((ROWS_PER_STEP, ROW), generator=g, device=dev))
+            for _ in range(STEPS)]
+    policy = heap_policy(async_tick=True)
+    check(RedundancyPolicy().async_tick and policy.async_tick,
+          "the overlapped tick is not the default")
+    k3_streams: list = []
+    k3_launch = fu_ops.fused_update
+
+    def record_stream(*a, **kw):
+        k3_streams.append(torch.cuda.current_stream())
+        return k3_launch(*a, **kw)
+
+    fu_ops.fused_update = record_stream
     torch.cuda.synchronize()
     ck_ops.LAUNCHES = par_ops.LAUNCHES = fu_ops.LAUNCHES = 0
     torch.cuda.reset_peak_memory_stats()
@@ -205,27 +355,60 @@ def phase_main(g) -> dict:
     store, init_ms = timed(lambda: ProtectedStore(policy).attach(state))
     red, ms = timed(lambda: store.init(state))
     init_ms += ms
+    with uncounted():
+        twin = ProtectedStore(heap_policy(async_tick=False)).attach(twin_state)
+        twin_red = twin.init(twin_state)
     meta = store.metas["heap"]
     check((meta.n_blocks, meta.n_stripes) == (N_ROWS, N_ROWS // STRIPE),
           f"heap geometry {meta.n_blocks} blocks, {meta.n_stripes} stripes")
-    due_ms, updated_steps = [], []
-    for step in range(STEPS):            # steps 0..63: due at 16, 32, 48
-        rows = torch.randperm(N_ROWS, generator=g, device=dev)[:ROWS_PER_STEP]
-        heap[rows] = torch.randn((ROWS_PER_STEP, ROW), generator=g, device=dev)
-        old_params = params.clone()
-        params.mul_(0.999)
-        ev = torch.zeros(N_ROWS, dtype=torch.bool, device=dev)
-        ev[rows] = True
-        red = store.on_write(red, events={"heap": ev}, old={"params": old_params},
-                             new={"params": params})
-        (red, report), ms = timed(lambda: store.tick(state, red, step))
-        if report.updated:
-            due_ms.append(ms)
-            updated_steps.append(step)
-    check(updated_steps == [16, 32, 48], f"due ticks at {updated_steps}")
+    side = store._side_stream()
+    check(side is not None and side != torch.cuda.default_stream(),
+          "the overlapped store has no side stream of its own")
+    rec = {k: {"due_steps": [], "due_tick_host_ms": [], "window_ms": []}
+           for k in ("async", "blocking")}
+    settled_live = []
+    for first, last in SEGMENTS:
+        n = len(k3_streams)
+        red = heap_steps(store, state, red, plan, range(first, last + 1), rec["async"],
+                         k3_streams)
+        check(all(s == side for s in k3_streams[n:]),
+              "a fused update of the overlapped store ran off its side stream")
+        n = len(k3_streams)
+        with uncounted():
+            twin_red = heap_steps(twin, twin_state, twin_red, plan, range(first, last + 1),
+                                  rec["blocking"], k3_streams)
+        check(all(s == torch.cuda.current_stream() for s in k3_streams[n:]),
+              "a fused update of the blocking store ran off the caller's stream")
+        if last < STEPS - 1:
+            red = store.settle(red, state, step=last)
+            check(all(grp.pending is None for grp in store.groups.values()),
+                  f"settle after step {last} left an update in flight")
+            settled_live.append(compare_clean(store, red, twin_red, last))
+    for kind in rec:
+        check(rec[kind]["due_steps"] == [16, 32, 48],
+              f"{kind}: due ticks at {rec[kind]['due_steps']}")
+    # One more due tick (step 64, over the writes of steps 49-63), timed
+    # between device syncs: the overlapped store's includes its update on
+    # the side stream, which the sync waits for.
+    (red, rep), synced_ms = timed(lambda: store.tick(state, red, STEPS))
+    with uncounted():
+        (twin_red, twin_rep), twin_synced_ms = timed(
+            lambda: twin.tick(twin_state, twin_red, STEPS))
+    check(rep.updated and twin_rep.updated, f"step {STEPS} was not a due tick")
     stats = {k: int(v) for k, v in store.dirty_stats(red)["heap"].items()}
     est = store.estimate_flush(red)
     red, flush_ms = timed(lambda: store.flush(state, red, step=STEPS))
+    with uncounted():
+        twin_red, twin_flush_ms = timed(lambda: twin.flush(twin_state, twin_red, step=STEPS))
+    fu_ops.fused_update = k3_launch
+    check(all(torch.equal(state[k], twin_state[k]) for k in state),
+          "the twins' leaves differ")
+    for name in red:
+        for f in ("checksums", "parity", "dirty", "shadow", "meta_ck"):
+            check(torch.equal(getattr(red[name], f), getattr(twin_red[name], f)),
+                  f"after flush {name}.{f} differs from the blocking twin's")
+    del twin, twin_red, twin_state, plan
+    torch.cuda.empty_cache()
 
     lanes = blocks.to_lanes(heap, meta)
     check(lanes.data_ptr() == heap.data_ptr(), "heap lane view is not a view")
@@ -253,8 +436,11 @@ def phase_main(g) -> dict:
     return {
         "store": store, "state": state, "red": red, "launches": launches,
         "timings": {
-            "init_ms": init_ms, "due_tick_ms_mean": sum(due_ms) / len(due_ms),
-            "due_tick_ms": due_ms, "flush_ms": flush_ms, "scrub_ms": scrub_ms,
+            "init_ms": init_ms, "overlap": rec,
+            "synced_due_tick_ms": {"async": synced_ms, "blocking": twin_synced_ms},
+            "settled_live_blocks": dict(zip((s[1] for s in SEGMENTS), settled_live)),
+            "flush_ms": flush_ms, "flush_ms_blocking": twin_flush_ms,
+            "scrub_ms": scrub_ms,
             "rescrub_ms": rescrub_ms, "recover_ms": recover_ms, "peak_mem_gb": peak_gb,
             "flush_dirty_blocks": stats["dirty_blocks"],
             "flush_vulnerable_stripes": stats["vulnerable_stripes"],
@@ -489,12 +675,48 @@ def read_launches() -> dict:
             "fused_update": fu_ops.LAUNCHES, "flash_attn": fa_ops.LAUNCHES}
 
 
+def host_timed_ticks(store) -> list:
+    """Time each of the store's ticks on the host clock alone (no device
+    sync: what the decode loop waits for), and inside it the update's
+    dispatch and the scrub (whose mismatch count waits for the foreground
+    stream); returns the record list."""
+    rec: list = []
+    parts = {"dispatch_ms": 0.0, "scrub_ms": 0.0}
+
+    def timed(fn, key):
+        def inner(*a, **kw):
+            t = time.perf_counter()
+            out = fn(*a, **kw)
+            parts[key] += (time.perf_counter() - t) * 1e3
+            return out
+        return inner
+
+    store._dispatch_async_many = timed(store._dispatch_async_many, "dispatch_ms")
+    store._dispatch_blocking = timed(store._dispatch_blocking, "dispatch_ms")
+    store._scrub_group = timed(store._scrub_group, "scrub_ms")
+    tick = store.tick
+
+    def timed_tick(leaves, red, step, **kw):
+        parts.update(dispatch_ms=0.0, scrub_ms=0.0)
+        t = time.perf_counter()
+        red, report = tick(leaves, red, step, **kw)
+        rec.append({"step": step, "ms": (time.perf_counter() - t) * 1e3, **parts,
+                    "updated": bool(report.updated), "scrubbed": bool(report.scrubbed)})
+        return red, report
+    store.tick = timed_tick
+    return rec
+
+
 def generate(model, params, batch, store=None, timed_steps=False):
     """One ``Server.generate`` of GEN tokens; returns (tokens, stats, the
-    per-step record or None, wall seconds).  ``timed_steps`` synchronises
-    around each step to time it (``instrument``)."""
+    per-step record, wall seconds).  ``timed_steps`` synchronises around
+    each step to time it (``instrument``); otherwise only the store's ticks
+    are timed, on the host clock."""
     srv = Server(model=model, store=store, max_len=PROMPT + GEN + 1)
-    rec = instrument(srv, store) if timed_steps else None
+    if timed_steps:
+        rec = instrument(srv, store)
+    else:
+        rec = {"ticks": host_timed_ticks(store) if store is not None else []}
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     tokens, stats = srv.generate(params, batch, GEN, scrub_every=SCRUB_EVERY)
@@ -502,10 +724,11 @@ def generate(model, params, batch, store=None, timed_steps=False):
     return tokens, stats, rec, time.perf_counter() - t0
 
 
-def profile_decode(model, params, batch, store=None, steps=4) -> dict:
-    """Trace ``steps`` warm decode steps (with the store's on_write and tick
-    when given) with torch.profiler: device busy time and kernel launches
-    per token, and the kernels that take the most device time."""
+def profile_decode(model, params, batch, store=None, steps=4, first=2) -> dict:
+    """Trace ``steps`` warm decode steps from decode step ``first`` (with the
+    store's on_write and tick when given) with torch.profiler: device busy
+    time and kernel launches per token, the kernels that take the most
+    device time, and the fused update's stream overlap."""
     from torch.profiler import ProfilerActivity, profile
     srv = Server(model=model, store=store, max_len=PROMPT + GEN + 1)
     with torch.inference_mode():
@@ -516,14 +739,15 @@ def profile_decode(model, params, batch, store=None, steps=4) -> dict:
         def step(t, red, token):
             _, _, red, token = srv.decode(params, caches, red, token, pos + t)
             if store is not None:
-                red, _ = store.tick(lambda: flatten_dict(caches), red, t + 1)
+                red, _ = store.tick(lambda: flatten_dict(caches), red, t + 1,
+                                    scrub_period=SCRUB_EVERY)
             return red, token
 
-        for t in range(2):                      # warm
+        for t in range(first):                  # warm
             red, token = step(t, red, token)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for t in range(2, 2 + steps):
+            for t in range(first, first + steps):
                 red, token = step(t, red, token)
             torch.cuda.synchronize()
     kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
@@ -534,7 +758,8 @@ def profile_decode(model, params, batch, store=None, steps=4) -> dict:
     return {"device_busy_ms_per_token": busy / steps if kernels else "not measured",
             "launches_per_token": len(kernels) / steps,
             "top_kernels_ms_per_token": {k[:90]: v / steps for k, v in sorted(
-                by_kernel.items(), key=lambda kv: -kv[1])[:6]}}
+                by_kernel.items(), key=lambda kv: -kv[1])[:6]},
+            "ticks": f"{first + 1}-{first + steps}", **stream_overlap(prof)}
 
 
 def phase_serve(g) -> dict:
@@ -549,10 +774,13 @@ def phase_serve(g) -> dict:
                                      generator=g, device=dev, dtype=torch.int32)}
     policy = RedundancyPolicy.single("vilamb", period_steps=PERIOD,
                                      max_vulnerable_steps=DEADLINE)
+    check(policy.async_tick, "the serving store is not on the overlapped tick")
 
-    def new_store():
-        return ProtectedStore(policy, device=dev).attach(
-            model.cache_shapes(SERVE_BATCH, max_len))
+    kinds = {"async": {}, "blocking": dict(async_tick=False)}
+
+    def new_store(kind="async"):
+        return ProtectedStore(dataclasses.replace(policy, **kinds[kind]),
+                              device=dev).attach(model.cache_shapes(SERVE_BATCH, max_len))
 
     # Warm-up (no store, two tokens): first use of cuBLAS and the kernels.
     Server(model=model, max_len=max_len).generate(params, batch, 2)
@@ -582,14 +810,28 @@ def phase_serve(g) -> dict:
     bare_tokens, _, bare_rec, bare_wall_s = generate(model, params, batch, None, True)
     check(torch.equal(tokens, bare_tokens), "tokens differ with and without the store")
 
-    # End to end, untimed steps, in turns: store, none, none, store.
-    walls = {"store": [], "none": []}
-    for kind in ("store", "none", "none", "store"):
-        walls[kind].append(generate(model, params, batch,
-                                    new_store() if kind == "store" else None)[3])
+    # End to end, untimed steps, in turns; the stores' ticks on the host
+    # clock only.  Tokens equal for the overlapped store, the blocking store
+    # and no store.
+    walls = {"async": [], "none": [], "blocking": []}
+    host_ticks = {"async": [], "blocking": []}
+    for kind in ("async", "none", "blocking", "blocking", "none", "async"):
+        st = None if kind == "none" else new_store(kind)
+        toks, _, trec, wall = generate(model, params, batch, st)
+        check(torch.equal(toks, tokens), f"tokens differ with the {kind} store")
+        walls[kind].append(wall)
+        if st is not None:
+            host_ticks[kind].extend(trec["ticks"])
 
     prof = {"store": profile_decode(model, params, batch, new_store()),
-            "none": profile_decode(model, params, batch)}
+            "none": profile_decode(model, params, batch),
+            "async_due": profile_decode(model, params, batch, new_store(), first=PERIOD - 1),
+            "blocking_due": profile_decode(model, params, batch, new_store("blocking"),
+                                           first=PERIOD - 1)}
+    check(isinstance(prof["async_due"]["overlap_us"], str)
+          or prof["async_due"]["fused_update_streams"]
+          != prof["blocking_due"]["fused_update_streams"],
+          "the overlapped store's fused update ran on the foreground's stream")
 
     out = {"model": model, "params": params, "batch": batch, "store": store,
            "caches": stats["caches"], "launches": launches}
@@ -607,11 +849,25 @@ def phase_serve(g) -> dict:
         "decode_tokens_per_s": SERVE_BATCH * (GEN - 1) / (decode_ms / 1e3),
         "decode_tokens_per_s_no_store": SERVE_BATCH * (GEN - 1) / (bare_decode_ms / 1e3),
         "generate_s_timed_steps": wall_s, "generate_s_timed_steps_no_store": bare_wall_s,
-        "generate_s": walls["store"], "generate_s_no_store": walls["none"],
-        "generate_tokens_per_s": SERVE_BATCH * GEN / mean["store"],
+        "generate_s": walls["async"], "generate_s_no_store": walls["none"],
+        "generate_s_blocking": walls["blocking"],
+        "generate_tokens_per_s": SERVE_BATCH * GEN / mean["async"],
         "generate_tokens_per_s_no_store": SERVE_BATCH * GEN / mean["none"],
-        "store_overhead": mean["store"] / mean["none"] - 1,
+        "generate_tokens_per_s_blocking": SERVE_BATCH * GEN / mean["blocking"],
+        "store_overhead": mean["async"] / mean["none"] - 1,
+        "store_overhead_blocking": mean["blocking"] / mean["none"] - 1,
+        "due_tick_host_ms": {k: [t["ms"] for t in v if t["updated"]]
+                             for k, v in host_ticks.items()},
+        "due_tick_host_ms_median": {
+            k: {part: statistics.median(t[part] for t in v if t["updated"])
+                for part in ("ms", "dispatch_ms", "scrub_ms")}
+            for k, v in host_ticks.items()},
+        "quiet_tick_host_ms_mean": {k: sum(t["ms"] for t in v if not t["updated"])
+                                    / max(1, sum(not t["updated"] for t in v))
+                                    for k, v in host_ticks.items()},
         "decode_profile": prof["store"], "decode_profile_no_store": prof["none"],
+        "decode_profile_due_async": prof["async_due"],
+        "decode_profile_due_blocking": prof["blocking_due"],
         "due_tick_steps": steps[1:], "due_tick_ms": [t["ms"] for t in due],
         "due_tick_dirty_blocks": [t["dirty_blocks"] for t in due],
         "quiet_tick_ms_mean": (sum(t["ms"] for t in rec["ticks"] if not t["updated"])
@@ -740,6 +996,18 @@ def main() -> int:
     main_run = phase_main(g)
     print(f"main path ({time.perf_counter() - t0:.1f} s): launches "
           f"{main_run['launches']}", flush=True)
+    ov = main_run["timings"]["overlap"]
+    for kind in ("async", "blocking"):
+        r = ov[kind]
+        print(f"heap {kind}: due ticks {r['due_steps']} host "
+              f"{[round(x, 3) for x in r['due_tick_host_ms']]} ms (no device sync; "
+              f"16 traced); steps 15-18, 31-34, 47-50 wall "
+              f"{[round(x, 3) for x in r['window_ms']]} ms (15-18 traced); due tick "
+              f"{STEPS} synchronised {main_run['timings']['synced_due_tick_ms'][kind]:.3f} "
+              f"ms; trace of steps 15-18: {r['trace_steps_15_18']}")
+    print("heap: the overlapped store equals its blocking twin on clean blocks and "
+          "stripes after each settle and everywhere after flush; its fused updates "
+          "ran on its side stream", flush=True)
     phase_update_profile(g, main_run)
     kernels = phase_kernel_times(g, main_run, err)
     phase_full_check(main_run["store"], main_run["state"], main_run["red"])
@@ -771,6 +1039,21 @@ def main() -> int:
         p = tm[key]
         print(f"serve: decode {label} the store, traced: {p['launches_per_token']:.0f} "
               f"launches and {p['device_busy_ms_per_token']} ms of device time a token")
+    print(f"serve: generate in turns (async, none, blocking, blocking, none, async): "
+          f"async {[round(x, 4) for x in tm['generate_s']]} s, none "
+          f"{[round(x, 4) for x in tm['generate_s_no_store']]} s, blocking "
+          f"{[round(x, 4) for x in tm['generate_s_blocking']]} s; overhead async "
+          f"{100 * tm['store_overhead']:.2f}%, blocking "
+          f"{100 * tm['store_overhead_blocking']:.2f}%; tokens identical for all")
+    print(f"serve: due ticks' host ms (no device sync): "
+          f"{ {k: [round(x, 3) for x in v] for k, v in tm['due_tick_host_ms'].items()} }; "
+          f"quiet ticks { {k: round(v, 4) for k, v in tm['quiet_tick_host_ms_mean'].items()} }")
+    print("serve: due ticks' host ms, medians (tick, its dispatch, its scrub): "
+          + "; ".join(f"{k} {v['ms']:.3f}, {v['dispatch_ms']:.3f}, {v['scrub_ms']:.3f}"
+                      for k, v in tm["due_tick_host_ms_median"].items()))
+    for key in ("decode_profile_due_async", "decode_profile_due_blocking"):
+        p = {k: v for k, v in tm[key].items() if k != "top_kernels_ms_per_token"}
+        print(f"serve: {key} (ticks {p['ticks']}): {p}")
     print(f"serve: tokens identical with and without the store; scrub clean; block "
           f"{tm['corrupted_block']} of slot_0/k corrupted, found and repaired; layer-0 "
           f"attention within bounds of plain: {serve['layer0_err']}")

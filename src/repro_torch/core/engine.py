@@ -168,23 +168,42 @@ class RedundancyEngine:
         return out
 
     # ---------------------------------------------------- Algorithm 1 (vilamb)
-    def _alg1(self, leaves: Mapping[str, torch.Tensor], red: RedundancyState,
-              queued: bool) -> RedundancyState:
-        out: RedundancyState = {}
+    def _alg1_parts(self, leaves: Mapping[str, torch.Tensor], red: RedundancyState,
+                    queued: bool, want_fits: bool):
+        """Shared Algorithm-1 body: per-leaf masked update.
+
+        Lines 2-4: snapshot ``dirty | shadow`` (leftover shadow from a
+        crash); lines 7-18 + 22: masked checksum + parity recompute and the
+        meta-checksum.  Returns ``({name: (cks, par, meta_ck, snapshot)},
+        fits)``; ``fits`` (do all live dirty stripes fit the CPU work
+        queues?) is a bool tensor when requested and some leaf has a queue,
+        else the host value ``True``: the card has no queue, so it never
+        fetches a fit signal from the device.
+        """
+        parts: Dict[str, Tuple] = {}
+        fits = []
         for name, meta in self.metas.items():
             r = red[name]
-            # Lines 2-4: snapshot dirty | shadow (leftover shadow from a crash).
             snapshot = r.dirty | r.shadow
             bdirty = bits.unpack(snapshot, meta.n_blocks)
             sdirty = self._stripe_dirty(meta, bdirty)
+            cap = self._queue_caps[name]
+            if want_fits and cap:
+                fits.append(workqueue.stripe_fits(sdirty, cap))
             lanes = self._lanes(leaves, name)
             cks, par, meta_ck = self._update_leaf(name, meta, lanes, r, bdirty,
                                                   sdirty, queued)
-            # Lines 19-20: redundancy written, then shadow cleared.
-            out[name] = LeafRedundancy(
-                checksums=cks, parity=par, dirty=torch.zeros_like(snapshot),
-                shadow=torch.zeros_like(snapshot), meta_ck=meta_ck)
-        return out
+            parts[name] = (cks, par, meta_ck, snapshot)
+        return parts, (torch.stack(fits).all() if fits else True)
+
+    def _alg1(self, leaves: Mapping[str, torch.Tensor], red: RedundancyState,
+              queued: bool) -> RedundancyState:
+        parts, _ = self._alg1_parts(leaves, red, queued, want_fits=False)
+        # Lines 19-20: redundancy written, then shadow cleared.
+        return {name: LeafRedundancy(
+                    checksums=cks, parity=par, dirty=torch.zeros_like(snapshot),
+                    shadow=torch.zeros_like(snapshot), meta_ck=meta_ck)
+                for name, (cks, par, meta_ck, snapshot) in parts.items()}
 
     def redundancy_step(self, leaves: Mapping[str, torch.Tensor],
                         red: RedundancyState) -> RedundancyState:
@@ -206,6 +225,35 @@ class RedundancyEngine:
         return self._alg1(leaves, red, queued=True)
 
     flush = redundancy_step
+
+    def redundancy_step_async(self, leaves: Mapping[str, torch.Tensor],
+                              red: RedundancyState, queued: bool = False
+                              ) -> Tuple[RedundancyState, Union[bool, torch.Tensor]]:
+        """Algorithm 1 for the overlapped tick: ``(red_out, fits)``.
+
+        The same per-leaf work as :meth:`redundancy_step` /
+        :meth:`redundancy_step_queued`, but valid unconditionally: ``fits``
+        is the queue-fit predicate (the speculation signal for the next
+        queued-vs-full choice, and the overflow flag of this one), and
+        ``red_out.shadow`` is ``where(overflowed, snapshot, 0)``, so after
+        a queued dispatch that overflowed every block the truncated queue
+        may have missed stays marked until the full fallback runs.
+        ``red_out.dirty`` is zero: the caller carries its own live epoch-B
+        bitmap over.  On the card there is no queue, nothing overflows and
+        ``fits`` is the host value ``True``; the checksums and parity of
+        ``red`` are updated in place on the current stream.
+        """
+        parts, fits = self._alg1_parts(leaves, red, queued, want_fits=True)
+        overflowed = ~fits if queued and isinstance(fits, torch.Tensor) else None
+        out: RedundancyState = {}
+        for name, (cks, par, meta_ck, snapshot) in parts.items():
+            zeros = torch.zeros_like(snapshot)
+            out[name] = LeafRedundancy(
+                checksums=cks, parity=par, dirty=torch.zeros_like(snapshot),
+                shadow=zeros if overflowed is None
+                else torch.where(overflowed, snapshot, zeros),
+                meta_ck=meta_ck)
+        return out, fits
 
     # ------------------------------------------------------- sync (Pangolin)
     def sync_update(self, old_leaves: Mapping[str, torch.Tensor],

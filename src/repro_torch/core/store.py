@@ -8,35 +8,58 @@ Callers hand over any nested dict of tensors and interact with three calls:
     Algorithm-1 updates, scrubbing with the paper's double-check,
     straggler back-off, and freshness deadlines
 
-plus ``flush`` for the preemption/battery path.  Policies are declarative
-and per leaf group: params may run ``sync`` (Pangolin-analogue inline
-diff) while a heap runs ``vilamb``.  Each distinct resolved policy becomes
-one :class:`~repro_torch.core.engine.RedundancyEngine`.
+plus ``flush`` for the preemption/battery path and ``settle`` to adopt
+in-flight updates.  Policies are declarative and per leaf group: params
+may run ``sync`` (Pangolin-analogue inline diff) while a heap runs
+``vilamb``.  Each distinct resolved policy becomes one
+:class:`~repro_torch.core.engine.RedundancyEngine`.
 
-This is the blocking tick: a due group's update runs before ``tick``
-returns.  The store runs on the GPU unless the caller passes
-``device="cpu"``.
+The default tick is overlap-pipelined (``RedundancyPolicy.async_tick``,
+``REPRO_ASYNC_TICK=0`` selects the blocking tick): a due tick swaps the
+dirty epochs and launches the update on the store's side CUDA stream,
+and a later tick adopts it.  The update refreshes ``checksums`` and
+``parity`` in place, so while it is in flight the live view carries the
+pending update's own arrays.  Stream-ordering rule: ``red``'s
+``checksums``, ``parity`` and ``meta_ck`` are ordered after an in-flight
+update only on the stream that called ``settle``, ``flush`` or an
+adopting ``tick`` (or a store reader such as ``verify_meta``, which
+makes its stream wait on the update on the device); any other stream
+must be ordered after that call before it reads them.  The store runs on
+the GPU unless the caller passes ``device="cpu"``, where dispatch runs
+to completion and the live view keeps the previous epoch's arrays, as
+the reference's does.
 """
 from __future__ import annotations
 
 import collections
 import dataclasses
 import fnmatch
+import os
 import statistics
 import time
 from typing import Any, Callable, Dict, List, Mapping, Optional, Tuple, Union
 
+import numpy as np
 import torch
 
 from ..common import flatten_dict, resolve_device
 from . import policy as policy_mod
 from . import workqueue
 from .blocks import (DEFAULT_LANES_PER_BLOCK, DEFAULT_STRIPE_DATA_BLOCKS,
-                     BlockMeta, make_meta)
+                     BlockMeta, ShapeDtype, make_meta)
 from .engine import ALL, RedundancyConfig, RedundancyEngine
 from .state import LeafRedundancy, RedundancyState
 
 MODES = ("none", "sync", "vilamb")
+
+
+def _async_tick_default() -> bool:
+    """Default of ``RedundancyPolicy.async_tick``: the overlap pipeline,
+    unless ``REPRO_ASYNC_TICK=0`` (the reference's lever for running a
+    suite on the blocking tick without touching call sites that pass the
+    knob explicitly)."""
+    return os.environ.get("REPRO_ASYNC_TICK", "1").lower() not in (
+        "0", "false", "no")
 
 
 # --------------------------------------------------------------------- policy
@@ -81,9 +104,13 @@ class RedundancyPolicy:
     straggler_window: int = 20
     straggler_recovery_steps: int = 10
     period_cap: int = 4096
-    # The overlap pipeline is not ported: True raises at store construction
-    # rather than silently running the blocking tick.
-    async_tick: bool = False
+    # Overlap pipeline: a due tick costs the foreground one dispatch on the
+    # side stream, with one update in flight per group (later due ticks
+    # coalesce into it).  ``async_tick=False`` selects the blocking tick.
+    async_tick: bool = dataclasses.field(default_factory=_async_tick_default)
+    # Run every update variant once at attach (``warmup``), so that the
+    # first due tick pays no kernel build or first-launch cost.
+    precompile: bool = True
 
     def leaf_policy(self, name: str) -> LeafPolicy:
         for pattern, lp in self.rules:
@@ -172,6 +199,39 @@ class TickReport:
     scrubbed: Tuple[str, ...] = ()
     mismatches: int = 0
     alarms: int = 0
+    # Overlap pipeline: due ticks folded into a still-in-flight update, and
+    # groups whose speculative queued dispatch overflowed (the full
+    # recompute ran on resolution).
+    coalesced: Tuple[str, ...] = ()
+    overflowed: Tuple[str, ...] = ()
+
+
+def _ready(x) -> bool:
+    """Non-blocking readiness probe: a CUDA event's ``query()``; None (the
+    CPU, where a dispatch runs to completion) is ready."""
+    query = getattr(x, "query", None)
+    return True if query is None else bool(query())
+
+
+@dataclasses.dataclass
+class _Pending:
+    """One in-flight overlapped Algorithm-1 update (per group).
+
+    ``red`` holds the update's outputs (on the card the checksums and
+    parity are the live view's own tensors, refreshed in place on the side
+    stream); ``done`` is the completion event recorded on the side stream
+    after the batch (None on the CPU).  ``fits`` is this group's fit bit,
+    folded to a host bool at dispatch (on the card a host True: the fused
+    kernel serves every dispatch and nothing overflows).  A failed
+    dispatch lands in ``error`` and re-raises at resolution.
+    """
+    red: Optional[Dict[str, LeafRedundancy]]
+    fits: Optional[bool]
+    queued: bool
+    step: int
+    coalesced: int = 0
+    error: Optional[BaseException] = None
+    done: Any = None
 
 
 @dataclasses.dataclass
@@ -182,6 +242,12 @@ class _Group:
     engine: Optional[RedundancyEngine]     # None for mode == "none"
     last_update_step: int = 0
     last_update_time: float = dataclasses.field(default_factory=time.monotonic)
+    # Overlap pipeline: at most one in-flight update, and the speculation
+    # signal (did the last consumed snapshot fit the CPU work queues?).
+    # Pessimistic start: the full update is always correct; the first
+    # resolved fit signal or a flush's exact check flips it.
+    pending: Optional[_Pending] = None
+    predicted_fits: bool = False
 
 
 # ---------------------------------------------------------------------- store
@@ -191,10 +257,6 @@ class ProtectedStore:
     def __init__(self, policy: Optional[RedundancyPolicy] = None,
                  device: Union[str, torch.device, None] = None):
         self.policy = policy or RedundancyPolicy()
-        if self.policy.async_tick:
-            raise NotImplementedError(
-                "the overlap-pipelined tick (async_tick=True) is not ported "
-                "yet: ROADMAP.md, Queue 1 item 7 (the overlap pipeline)")
         self.device = resolve_device(device, "ProtectedStore")
         self.groups: Dict[str, _Group] = {}
         self.corruption_alarms = 0
@@ -204,6 +266,37 @@ class ProtectedStore:
             window=self.policy.straggler_window,
             recovery_steps=self.policy.straggler_recovery_steps)
         self._copy_rate: Optional[float] = None
+        # Overlap pipeline: the side stream the updates run on (the card
+        # only; made by warmup or the first dispatch).
+        self._side: Optional[torch.cuda.Stream] = None
+        # Lifecycle phase hooks: host-level observation points (crash
+        # replay, tests).  Empty = one truthiness check on the hot paths.
+        self._phase_hooks: List[Callable[[str, Dict[str, Any]], None]] = []
+
+    # -------------------------------------------------------------- phase hooks
+    def add_phase_hook(self, fn: Callable[[str, Dict[str, Any]], None]) -> None:
+        """Register ``fn(phase, info)`` to fire at lifecycle phases.
+
+        Phases: ``on_write``; ``dispatcher_enqueue`` (the tick is about to
+        dispatch the batched update of every due group); ``dispatch``
+        (per group, right after the batch was launched and the epoch-swapped
+        live view adopted); ``coalesce`` (a due tick folded into the
+        in-flight update); ``dispatcher_join`` (about to wait for a
+        pending update; the reference's names, kept for its crash-replay
+        hooks); ``adopt`` / ``adopt_forced`` (lazy vs
+        deadline- or scrub-forced resolution); ``blocking_update``;
+        ``scrub``; ``tick``; ``flush``; ``settle``.  ``info['red']`` is the
+        live redundancy view at that instant.  Exceptions raised by a hook
+        propagate.
+        """
+        self._phase_hooks.append(fn)
+
+    def remove_phase_hook(self, fn) -> None:
+        self._phase_hooks.remove(fn)
+
+    def _phase(self, name: str, **info) -> None:
+        for fn in list(self._phase_hooks):
+            fn(name, info)
 
     # ------------------------------------------------------------ construction
     def attach(self, tree: Any) -> "ProtectedStore":
@@ -242,6 +335,8 @@ class ProtectedStore:
                 engine = RedundancyEngine({n: flat[n] for n in names}, cfg,
                                           device=self.device)
             self.groups[label] = _Group(label, lp, tuple(names), engine)
+        if self.policy.precompile:
+            self.warmup()
         return self
 
     # ---------------------------------------------------------------- structure
@@ -346,15 +441,255 @@ class ProtectedStore:
                 raise ValueError(
                     f"sync leaves {g.names} need old=/new= (or row_diffs=) "
                     "in on_write")
+        if self._phase_hooks:
+            self._phase("on_write", red=dict(out))
         return out
 
+    # ------------------------------------------------------ dispatch machinery
+    def _async_group(self, g: _Group) -> bool:
+        """Does this group take the overlap-pipelined tick?"""
+        return (g.engine is not None and g.policy.mode == "vilamb"
+                and self.policy.async_tick)
+
+    def _side_stream(self) -> Optional[torch.cuda.Stream]:
+        """The store's side stream (None on the CPU)."""
+        if self.device.type != "cuda":
+            return None
+        if self._side is None:
+            self._side = torch.cuda.Stream(self.device)
+        return self._side
+
+    def warmup(self) -> "ProtectedStore":
+        """Run every Algorithm-1 variant a vilamb group can dispatch once.
+
+        Runs at ``attach`` (``RedundancyPolicy.precompile``) so that the
+        first due tick pays no first-use cost: on the card that is the
+        kernel library's build and load, the side stream's creation and
+        the first launch of every kernel and torch op of the tick (the
+        epoch swap, the update on the side stream, the blocking update of
+        ``flush`` and the scrub).  Each group's variants run through an
+        engine of the group's configuration over a small zero-dirty leaf,
+        since the protected leaves may be declared without data.  Returns
+        ``self`` for chaining.
+        """
+        for g in self._protected():
+            if g.policy.mode != "vilamb":
+                continue
+            cfg = g.engine.config
+            n_blocks = 8 * cfg.stripe_data_blocks
+            probe = RedundancyEngine(
+                {"probe": ShapeDtype((n_blocks, cfg.lanes_per_block), torch.float32)},
+                cfg, device=self.device)
+            leaf = {"probe": torch.zeros((n_blocks, cfg.lanes_per_block),
+                                         dtype=torch.float32, device=self.device)}
+            red = probe.init(leaf)
+            variants = (False, True) if g.engine.has_queue else (False,)
+            if self._async_group(g):
+                for queued in variants:
+                    self._swap(red)                 # the epoch swap's ops
+                    _, _, done = self._update_many([(probe, queued)], (leaf,), (red,))
+                    if done is not None:
+                        torch.cuda.current_stream(self.device).wait_event(done)
+            for queued in variants:
+                red = (probe.redundancy_step_queued if queued
+                       else probe.redundancy_step)(leaf, red)
+            probe.scrub(leaf, red)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        return self
+
     def _dispatch_blocking(self, g: _Group, sub, red_sub) -> RedundancyState:
-        """Queued update when the live dirty stripes fit the CPU work queues
-        (a host-side check), the full update otherwise; on the card the
-        fused kernel serves both.  Bitwise-identical either way."""
-        if g.engine.has_queue and g.engine.queue_fits(red_sub):
+        """Blocking dispatch (flush, the blocking tick): the queued update
+        when the live dirty stripes fit the CPU work queues (an exact
+        host-side check), the full update otherwise; on the card the fused
+        kernel serves both.  Bitwise identical either way.  The exact fit
+        answer seeds the speculation of later overlapped dispatches."""
+        queued = g.engine.has_queue and g.engine.queue_fits(red_sub)
+        g.predicted_fits = queued or not g.engine.has_queue
+        if queued:
             return g.engine.redundancy_step_queued(sub, red_sub)
         return g.engine.redundancy_step(sub, red_sub)
+
+    @staticmethod
+    def _swap(red_sub: RedundancyState):
+        """The epoch swap of one group's live view, on the current stream:
+        per leaf the epoch-A snapshot ``dirty | shadow`` (the live
+        ``shadow`` while the update runs) and a fresh zero epoch-B bitmap
+        (the live ``dirty`` the foreground marks into meanwhile)."""
+        return ({n: r.dirty | r.shadow for n, r in red_sub.items()},
+                {n: torch.zeros_like(r.dirty) for n, r in red_sub.items()})
+
+    def _update_many(self, jobs, subs, red_subs):
+        """Every due group's overlapped update, as one batch.
+
+        ``jobs`` pairs each group's engine with its queued-vs-full choice.
+        On the card the batch runs on the side stream after everything the
+        current stream has queued (the epoch swap, every earlier write),
+        and a completion event is recorded behind it.  Tensors that cross
+        streams are recorded with the stream that uses them, so the caching
+        allocator never hands their memory out while that stream may still
+        touch it: the leaves and the input redundancy, read or written on
+        the side stream, and the outputs, read on the current stream after
+        adoption.  Tensors the batch makes and uses only on the side stream
+        (the lane copies, the work queue) need no record: their memory is
+        reused only by later work of that same stream.  Returns ``(outs,
+        fits, done)``: per group the update's outputs, the stacked host fit
+        vector, and the completion event (None on the CPU).
+        """
+        side = self._side_stream()
+        done = None
+        if side is not None:
+            main = torch.cuda.current_stream(self.device)
+            side.wait_stream(main)
+        with torch.cuda.stream(side):             # no-op on the CPU
+            res = [eng.redundancy_step_async(sub, rs, queued=q)
+                   for (eng, q), sub, rs in zip(jobs, subs, red_subs)]
+            if side is not None:
+                # A blocking-sync event: a host waiting on it (sync_inflight)
+                # sleeps instead of spinning a core.
+                done = torch.cuda.Event(blocking=True)
+                done.record(side)
+        if side is not None:
+            for sub, rs, (out, _) in zip(subs, red_subs, res):
+                for leaf in sub.values():
+                    leaf.record_stream(side)
+                for r in rs.values():
+                    for t in (r.checksums, r.parity, r.dirty, r.shadow):
+                        t.record_stream(side)
+                for r in out.values():
+                    for t in (r.meta_ck, r.dirty, r.shadow):
+                        t.record_stream(main)
+        fits = torch.stack([torch.as_tensor(f) for _, f in res])
+        return tuple(out for out, _ in res), fits, done
+
+    def sync_inflight(self) -> "ProtectedStore":
+        """Wait on the host until every in-flight update has finished on
+        the device (a determinism hook for tests and replays that want
+        "adopt, never coalesce" schedules)."""
+        for g in self._protected():
+            p = g.pending
+            if p is not None and p.error is None and p.done is not None:
+                p.done.synchronize()
+        return self
+
+    def _dispatch_async_many(self, items: List[Tuple[_Group, bool]], get_leaves,
+                             out: RedundancyState, step: int) -> RedundancyState:
+        """Overlapped batched dispatch; returns the groups' live view.
+
+        Every due group's update runs in one batch on the side stream
+        (``_update_many``), dispatched here on the tick thread: torch's
+        inference mode, under which serving ticks, is thread-local.  The
+        fit bits are folded to host bools at once (on the card they are
+        host values already), and a later tick probes the completion event
+        when it resolves.  The live view carries a fresh epoch-B dirty
+        bitmap and ``shadow`` = snapshot A, so scrub, recovery and
+        accounting treat the in-flight blocks as vulnerable until adoption.  Its checksums, parity and meta-checksum are the
+        previous epoch's where the update wrote new tensors (the CPU) and
+        the pending's own where it refreshed the old ones in place (the
+        card).  A dispatch that raises (a failed build or launch) is kept
+        in the pendings and re-raises at resolution; the tick never turns
+        into a blocking one on its own.
+        """
+        lv = get_leaves()
+        subs = tuple({n: lv[n] for n in g.names} for g, _ in items)
+        red_subs = tuple({n: out[n] for n in g.names} for g, _ in items)
+        swaps = [self._swap(rs) for rs in red_subs]
+        outs, fits, done, error = None, None, None, None
+        try:
+            outs, fits, done = self._update_many(
+                [(g.engine, q) for g, q in items], subs, red_subs)
+        except Exception as e:      # re-raised by _resolve
+            error = e
+        host = None if error is not None else np.asarray(fits)
+        for i, (g, queued) in enumerate(items):
+            g.pending = _Pending(
+                red=None if outs is None else outs[i],
+                fits=None if host is None else workqueue.fold_fits_host(host[i]),
+                queued=queued, step=step, error=error, done=done)
+        view: RedundancyState = {}
+        for i, ((g, _), (snaps, fresh), rs) in enumerate(zip(items, swaps, red_subs)):
+            for n in g.names:
+                base = rs[n]
+                if outs is not None and outs[i][n].checksums is base.checksums:
+                    base = outs[i][n]       # refreshed in place: no old epoch
+                view[n] = dataclasses.replace(base, dirty=fresh[n], shadow=snaps[n])
+        return view
+
+    def _resolve(self, g: _Group, red_sub: RedundancyState, *, wait: bool):
+        """Adopt a group's in-flight update into the live view, if resolvable.
+
+        Returns ``(red_sub', overflowed, deferred)``, or ``(None, False, 0)``
+        while the update is in flight and ``wait`` is False.  ``wait``
+        adopts whether or not the update has finished (forced by a
+        deadline, a scrub, ``settle`` or ``flush``).  A dispatch that raised
+        re-raises here.  On the card the current stream waits for the
+        update's completion event (on the device: the host does not block
+        on it).  The adopted arrays are
+        the update's outputs with the live epoch-B dirty bitmap carried
+        over; the update's ``shadow = overflowed ? snapshot : 0`` keeps a
+        mispredicted queued dispatch's blocks marked, and ``overflowed``
+        tells the caller to run the full recompute.  ``deferred`` counts
+        due ticks coalesced while the update was outstanding.
+        """
+        p = g.pending
+        if p is None:
+            return red_sub, False, 0
+        if not wait and not _ready(p.done):
+            return None, False, 0
+        if p.error is not None:
+            g.pending = None
+            raise p.error
+        self._await_update(g)
+        fits = p.fits                  # folded at dispatch
+        g.predicted_fits = fits
+        adopted = {n: dataclasses.replace(p.red[n], dirty=red_sub[n].dirty)
+                   for n in g.names}
+        g.pending = None
+        return adopted, (p.queued and not fits), p.coalesced
+
+    def _await_update(self, g: _Group) -> None:
+        """Order the current stream after ``g``'s in-flight update, on the
+        device, before it reads the group's checksums, parity or
+        meta-checksum."""
+        p = g.pending
+        if p is not None and p.done is not None:
+            torch.cuda.current_stream(self.device).wait_event(p.done)
+
+    def settle(self, red: RedundancyState,
+               leaves: Optional[Mapping[str, torch.Tensor]] = None,
+               step: Optional[int] = None) -> RedundancyState:
+        """Adopt every in-flight update into ``red``.
+
+        No new periodic pass is scheduled (that is ``flush``).  With
+        ``leaves``, a mispredicted speculative queued update is repaired at
+        once with the full recompute; without them its blocks stay marked
+        (shadow) for the next pass.  Ticks coalesced behind the in-flight
+        update fold into the next due tick.  ``step`` (``None`` = unknown,
+        never step 0) stamps the ``dispatcher_join`` phase.  The returned
+        arrays are ordered after the adopted updates on the calling stream.
+        """
+        out = dict(red)
+        for g in self._protected():
+            if g.pending is None:
+                continue
+            if self._phase_hooks:
+                info = {} if step is None else {"step": int(step)}
+                self._phase("dispatcher_join", red=dict(out), group=g.label, **info)
+            red_sub, overflowed, _ = self._resolve(
+                g, {n: out[n] for n in g.names}, wait=True)
+            out.update(red_sub)
+            if overflowed and leaves is not None:
+                # The full recompute through the overlapped variant, which
+                # writes new tensors on the CPU (the only place a queue, and
+                # so an overflow, exists): settle also backs the read-only
+                # scrub paths, whose callers keep using their own red.
+                repaired, fits = g.engine.redundancy_step_async(
+                    {n: leaves[n] for n in g.names}, {n: out[n] for n in g.names})
+                g.predicted_fits = workqueue.fold_fits_host(fits)
+                out.update(repaired)
+        if self._phase_hooks:
+            self._phase("settle", red=dict(out))
+        return out
 
     def tick(self, leaves: Union[Mapping[str, torch.Tensor], Callable[[], Any]],
              red: RedundancyState, step: int, *,
@@ -368,25 +703,44 @@ class ProtectedStore:
         scrubbing with the paper's double-check.  ``step_time`` feeds the
         governor; ``scrub_period`` overrides every group's scrub cadence.
         ``leaves`` may be the flat leaf mapping or a zero-arg callable
-        returning it.  Callers must adopt the returned state: on the card a
-        due update refreshes checksums and parity in place.
+        returning it.
+
+        On the overlap pipeline (the default) a due tick costs the
+        foreground the epoch swap and one batched dispatch on the side
+        stream: the returned state carries a fresh dirty bitmap and the
+        consumed snapshot in ``shadow``, and the update is adopted lazily
+        by a later tick once its completion event fired (or at once when a
+        deadline or a scrub forces settled state, and by ``flush``,
+        ``settle`` and the scrub calls).  A mispredicted queued dispatch
+        (CPU work queues only) keeps its snapshot marked and runs the full
+        recompute at resolution (``report.overflowed``).  At most one
+        update per group is in flight; due ticks arriving meanwhile
+        coalesce (``report.coalesced``).  A scheduled scrub runs after the
+        dispatch and reads the checksums while the update refreshes the
+        in-flight blocks' entries, which it masks out.
+
+        Callers must adopt the returned state: it is the only live lineage.
         """
         step = int(step)
         if step_time is not None:
             self._governor.observe(step_time)
         report = TickReport(step=step)
         out = dict(red)
-        updated: List[str] = []
-        deadline: List[str] = []
+        updated, deadline, coalesced, overflowed = [], [], [], []
+        to_dispatch: List[Tuple[_Group, bool]] = []
         scrub_groups: List[_Group] = []
         now = time.monotonic()
         materialized = None if callable(leaves) else leaves
 
-        def sub_of(g):
+        def get_leaves():
             nonlocal materialized
             if materialized is None:
                 materialized = leaves()
-            return {n: materialized[n] for n in g.names}
+            return materialized
+
+        def sub_of(g):
+            lv = get_leaves()
+            return {n: lv[n] for n in g.names}
 
         for g in self._protected():
             lp = g.policy
@@ -394,6 +748,7 @@ class ProtectedStore:
                 # The step counter restarted: rebase so deadlines keep meaning.
                 g.last_update_step = 0
             sp = scrub_period if scrub_period is not None else lp.scrub_period_steps
+            scrub_due = bool(sp and policy_mod.should_scrub(step, sp))
             if lp.mode == "vilamb":
                 eff = min(lp.period_steps * self._governor.scale,
                           self.policy.period_cap)
@@ -403,60 +758,126 @@ class ProtectedStore:
                      and step - g.last_update_step >= lp.max_vulnerable_steps)
                     or (lp.max_vulnerable_seconds > 0
                         and now - g.last_update_time >= lp.max_vulnerable_seconds))
-                if due or overdue:
+                if self._async_group(g):
+                    # Resolve lazily (waiting only when a deadline or a
+                    # scrub forces settled state), then keep at most one
+                    # update in flight.
+                    had_pending = g.pending is not None
+                    forced = overdue or scrub_due
+                    if had_pending and forced and self._phase_hooks:
+                        self._phase("dispatcher_join", red=dict(out),
+                                    group=g.label, step=step)
+                    res, ovf, deferred = self._resolve(
+                        g, {n: out[n] for n in g.names}, wait=forced)
+                    if res is None:
+                        # Still in flight: fold this due tick into it.  The
+                        # deadline clock keeps running, so a stuck update is
+                        # eventually force-resolved via overdue.
+                        if due:
+                            g.pending.coalesced += 1
+                            coalesced.append(g.label)
+                            updated.append(g.label)
+                            if self._phase_hooks:
+                                self._phase("coalesce", red=dict(out),
+                                            group=g.label, step=step)
+                    else:
+                        out.update(res)
+                        if had_pending and self._phase_hooks:
+                            self._phase("adopt_forced" if forced else "adopt",
+                                        red=dict(out), group=g.label, step=step,
+                                        overflowed=ovf)
+                        if ovf:
+                            overflowed.append(g.label)
+                        if ovf or due or overdue or deferred:
+                            to_dispatch.append(
+                                (g, bool(not ovf and g.engine.has_queue
+                                         and g.predicted_fits)))
+                            g.last_update_step = step
+                            g.last_update_time = now
+                            if due or overdue:
+                                updated.append(g.label)
+                            if overdue and not due:
+                                deadline.append(g.label)
+                elif due or overdue:
                     out.update(self._dispatch_blocking(
                         g, sub_of(g), {n: out[n] for n in g.names}))
                     g.last_update_step = step
                     g.last_update_time = now
                     updated.append(g.label)
+                    if self._phase_hooks:
+                        self._phase("blocking_update", red=dict(out),
+                                    group=g.label, step=step)
                     if overdue and not due:
                         deadline.append(g.label)
-            if sp and policy_mod.should_scrub(step, sp):
+            if scrub_due:
                 scrub_groups.append(g)
+        if to_dispatch:
+            if self._phase_hooks:
+                self._phase("dispatcher_enqueue", red=dict(out), step=step,
+                            groups=tuple(g.label for g, _ in to_dispatch))
+            out.update(self._dispatch_async_many(to_dispatch, get_leaves, out, step))
+            if self._phase_hooks:
+                for g, _ in to_dispatch:
+                    self._phase("dispatch", red=dict(out), group=g.label,
+                                step=step, queued=g.pending.queued)
         for g in scrub_groups:
             mm, alarms = self._scrub_group(g, sub_of(g), out)
             report.scrubbed += (g.label,)
             report.mismatches += mm
             report.alarms += alarms
+            if self._phase_hooks:
+                self._phase("scrub", red=dict(out), group=g.label, step=step,
+                            mismatches=mm)
         report.updated = tuple(updated)
         report.deadline_fired = tuple(deadline)
+        report.coalesced = tuple(coalesced)
+        report.overflowed = tuple(overflowed)
+        if self._phase_hooks:
+            self._phase("tick", red=dict(out), step=step, report=report)
         return out, report
 
     def flush(self, leaves: Mapping[str, torch.Tensor], red: RedundancyState,
               step: Optional[int] = None) -> RedundancyState:
         """Battery/preemption flush: force Algorithm 1 on every vilamb group
-        now (paper §3.3).  Sync groups are current by construction.  Pass
+        now (paper §3.3).  Sync groups are current by construction.  An
+        in-flight update is adopted first, so the result equals the
+        blocking tick's flush bit for bit.  Pass
         ``step`` when known so the steps deadline does not fire a spurious
         pass right after the flush."""
         out = dict(red)
         now = time.monotonic()
+        info = {} if step is None else {"step": int(step)}
         for g in self._protected():
             if g.policy.mode == "vilamb":
+                if g.pending is not None:
+                    # An overflowed speculative dispatch left its blocks
+                    # marked (shadow), so the forced pass below covers them.
+                    if self._phase_hooks:
+                        self._phase("dispatcher_join", red=dict(out),
+                                    group=g.label, **info)
+                    red_sub, _, _ = self._resolve(
+                        g, {n: out[n] for n in g.names}, wait=True)
+                    out.update(red_sub)
                 out.update(self._dispatch_blocking(
                     g, {n: leaves[n] for n in g.names},
                     {n: out[n] for n in g.names}))
                 g.last_update_time = now
                 if step is not None:
                     g.last_update_step = int(step)
+        if self._phase_hooks:
+            self._phase("flush", red=dict(out), **info)
         return out
 
-    def settle(self, red: RedundancyState,
-               leaves: Optional[Mapping[str, torch.Tensor]] = None,
-               step: Optional[int] = None) -> RedundancyState:
-        """Adopt every in-flight update into ``red``.  The blocking tick
-        leaves none in flight and runs no background drain, so this returns
-        ``red`` as it is; callers written against the overlapped store call
-        it all the same."""
-        return dict(red)
-
     def take_repaired(self) -> Dict[str, torch.Tensor]:
-        """Leaves replaced by a background drain since the last call: none
-        under the blocking tick."""
+        """Leaves replaced by a background drain since the last call: the
+        port runs no shard rebuild or remesh, so none."""
         return {}
 
     def redundancy_step(self, leaves: Mapping[str, torch.Tensor],
                         red: RedundancyState) -> RedundancyState:
-        """Algorithm 1 on every vilamb group, without touching the schedule."""
+        """Algorithm 1 on every vilamb group, without touching the schedule.
+        Bypasses the overlap pipeline: ``settle`` first if an update is in
+        flight, or its later adoption would roll checksums back."""
         out = dict(red)
         for g in self._protected():
             if g.policy.mode == "vilamb":
@@ -477,8 +898,8 @@ class ProtectedStore:
         total = count()
         alarms = 0
         if total:
-            # Double-check (paper §3.4): quiesce in-flight work, re-verify
-            # before raising the alarm.
+            # Double-check (paper §3.4): quiesce in-flight work (the side
+            # stream's update too), re-verify before raising the alarm.
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
             total = count()
@@ -489,7 +910,13 @@ class ProtectedStore:
 
     def scrub(self, leaves: Mapping[str, torch.Tensor], red: RedundancyState
               ) -> Dict[str, torch.Tensor]:
-        """Per-leaf mismatch masks over clean blocks (no double-check)."""
+        """Per-leaf mismatch masks over clean blocks (no double-check).
+
+        In-flight updates are settled first (with the full fallback after
+        a misprediction), so the masks are the blocking tick's.  The
+        caller's ``red`` stays a conservative view (in-flight blocks
+        marked) until the next tick or flush adopts."""
+        red = self.settle(red, leaves)
         out: Dict[str, torch.Tensor] = {}
         for g in self._protected():
             out.update(g.engine.scrub({n: leaves[n] for n in g.names},
@@ -498,24 +925,31 @@ class ProtectedStore:
 
     def scrub_check(self, leaves: Mapping[str, torch.Tensor],
                     red: RedundancyState) -> int:
-        """Scrub all protected groups with the double-check protocol."""
+        """Scrub all protected groups with the double-check protocol, after
+        settling in-flight updates (the blocking tick's count)."""
+        red = self.settle(red, leaves)
         return sum(self._scrub_group(g, {n: leaves[n] for n in g.names}, red)[0]
                    for g in self._protected())
 
     def verify_meta(self, red: RedundancyState) -> Dict[str, torch.Tensor]:
+        """Checksum-of-checksums check per leaf; an in-flight update's
+        checksums are read only after it finished (a device-side wait)."""
         out: Dict[str, torch.Tensor] = {}
         for g in self._protected():
+            self._await_update(g)
             out.update(g.engine.verify_meta({n: red[n] for n in g.names}))
         return out
 
     def recover_block(self, leaf: torch.Tensor, r: LeafRedundancy, name: str,
                       block_id: int) -> Tuple[torch.Tensor, bool]:
         """Rebuild one block from parity, in place (see
-        :meth:`RedundancyEngine.recover_block`)."""
-        engine = self.engine_for(name)
-        if engine is None:
-            raise KeyError(f"{name} is not parity-protected")
-        return engine.recover_block(leaf, r, name, block_id)
+        :meth:`RedundancyEngine.recover_block`); never from parity an
+        in-flight update is still rewriting (a device-side wait)."""
+        for g in self._protected():
+            if name in g.names:
+                self._await_update(g)
+                return g.engine.recover_block(leaf, r, name, block_id)
+        raise KeyError(f"{name} is not parity-protected")
 
     def vulnerable_masks(self, red: RedundancyState) -> Dict[str, torch.Tensor]:
         """Per-leaf bool[n_blocks] masks of the vulnerability window."""

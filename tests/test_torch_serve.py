@@ -35,10 +35,11 @@ B, S, GEN, L = 2, 16, 12, 128
 STORE_KW = dict(lanes_per_block=L)
 
 
-def _policy(cls, mode="vilamb", **kw):
-    extra = dict(async_tick=False, precompile=False) if cls is JPolicy else {}
+def _policy(cls, mode="vilamb", async_tick=False, **kw):
+    """The blocking tick unless asked for the overlapped one, on both sides."""
+    extra = dict(precompile=False) if cls is JPolicy else {}
     return cls.single(mode, period_steps=4, max_vulnerable_steps=8, **STORE_KW,
-                      **extra, **kw)
+                      async_tick=async_tick, **extra, **kw)
 
 
 def _pair(arch="llama3.2-3b"):
@@ -67,14 +68,14 @@ def pair():
     return _pair()
 
 
-@pytest.mark.parametrize("arch", ["llama3.2-3b", "glm4-9b"])
-def test_generate_matches_reference(arch):
+def _generate_both(arch, async_tick):
     jm, jp, tm, tp, tokens = _pair(arch)
     max_len = S + GEN + 1
-    jsrv = JServer(model=jm, store=_jstore(jm, _policy(JPolicy), max_len),
-                   max_len=max_len)
+    jsrv = JServer(model=jm, store=_jstore(jm, _policy(JPolicy, async_tick=async_tick),
+                                           max_len), max_len=max_len)
     jtok, jstats = jsrv.generate(jp, {"tokens": jnp.asarray(tokens)}, GEN, scrub_every=3)
-    tsrv = Server(model=tm, store=_tstore(tm, _policy(RedundancyPolicy), max_len),
+    tsrv = Server(model=tm, store=_tstore(tm, _policy(RedundancyPolicy,
+                                                      async_tick=async_tick), max_len),
                   max_len=max_len)
     ttok, tstats = tsrv.generate(tp, {"tokens": torch.from_numpy(tokens)}, GEN,
                                  scrub_every=3)
@@ -89,6 +90,18 @@ def test_generate_matches_reference(arch):
                                           err_msg=f"{n}.{f}")
 
 
+@pytest.mark.parametrize("arch", ["llama3.2-3b", "glm4-9b"])
+def test_generate_matches_reference(arch):
+    _generate_both(arch, async_tick=False)
+
+
+@pytest.mark.parametrize("arch", ["llama3.2-3b", "glm4-9b"])
+def test_generate_overlapped_matches_reference(arch):
+    """Both servers on the overlapped tick: generate settles the last
+    in-flight update, and the settled bitvectors agree."""
+    _generate_both(arch, async_tick=True)
+
+
 @pytest.mark.parametrize("mode", ["vilamb", "sync"])
 def test_generate_is_clean_and_observational(pair, mode):
     """0 mismatches; tokens equal to a run with no store; the settled state
@@ -96,7 +109,7 @@ def test_generate_is_clean_and_observational(pair, mode):
     _, _, tm, tp, tokens = pair
     max_len = S + GEN + 1
     batch = {"tokens": torch.from_numpy(tokens)}
-    store = _tstore(tm, _policy(RedundancyPolicy, mode), max_len)
+    store = _tstore(tm, _policy(RedundancyPolicy, mode, async_tick=True), max_len)
     srv = Server(model=tm, store=store, max_len=max_len)
     toks, stats = srv.generate(tp, batch, GEN, scrub_every=3)
     bare, bare_stats = Server(model=tm, max_len=max_len).generate(tp, batch, GEN)
@@ -185,12 +198,45 @@ def test_single_matches_reference():
 
 
 def test_settle_and_take_repaired_are_blocking(pair):
+    """On the blocking tick nothing is in flight: settle returns ``red`` as
+    it is, and no background drain replaced a leaf."""
     _, _, tm, _, _ = pair
     store = _tstore(tm, _policy(RedundancyPolicy), 8)
-    red = store.init(flatten_dict(tm.init_caches(B, 8)))
-    settled = store.settle(red, step=3)
+    nested = tm.init_caches(B, 8)
+    caches = flatten_dict(nested)
+    red = store.init(caches)
+    red = store.on_write(red, events=tm.dirty_events_decode(nested, 1))
+    red, rep = store.tick(caches, red, 4)
+    assert rep.updated and all(g.pending is None for g in store.groups.values())
+    settled = store.settle(red, step=4)
     assert settled == red and settled is not red
     assert store.take_repaired() == {}
+
+
+def test_settle_adopts_the_overlapped_update(pair):
+    """On the overlapped tick a due tick leaves the update in flight with
+    its blocks in ``shadow``; settle adopts it, equal to the blocking tick's
+    state, and the pending is gone."""
+    _, _, tm, _, _ = pair
+    nested = tm.init_caches(B, 8)
+    caches = flatten_dict(nested)
+    states = []
+    for async_tick in (True, False):
+        store = _tstore(tm, _policy(RedundancyPolicy, async_tick=async_tick), 8)
+        red = store.init(caches)
+        red = store.on_write(red, events=tm.dirty_events_decode(nested, 1))
+        red, rep = store.tick(caches, red, 4)
+        assert rep.updated
+        if async_tick:
+            assert all(g.pending is not None for g in store.groups.values())
+            assert any(int(bits.popcount(r.shadow)) for r in red.values())
+            red = store.settle(red, caches, step=4)
+            assert all(g.pending is None for g in store.groups.values())
+            assert store.take_repaired() == {}
+        states.append(convert.red_to_numpy(red))
+    for n, fields in states[0].items():
+        for f, v in fields.items():
+            np.testing.assert_array_equal(v, states[1][n][f], f"{n}.{f}")
 
 
 def test_read_verified_is_not_ported(pair):

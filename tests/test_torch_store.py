@@ -1,7 +1,8 @@
 """The port's ProtectedStore lifecycle against the reference store.
 
-The same numpy writes drive ``repro.core.ProtectedStore`` (blocking tick,
-``async_tick=False, precompile=False``) and ``repro_torch`` on the CPU.
+The same numpy writes drive ``repro.core.ProtectedStore`` and
+``repro_torch`` on the CPU, both on the blocking tick (``async_tick=False``;
+tests/test_torch_async_tick.py holds the overlapped tick).
 After every tick the whole redundancy state, the tick report and the dirty
 statistics must agree bit for bit; so must the scrub masks and the
 recovered leaf at the end.
@@ -25,7 +26,7 @@ def _stores(policy_kw, leaf_kw, rules, np_state):
                    async_tick=False, precompile=False, **policy_kw)
     tpol = RedundancyPolicy(default=LeafPolicy(**leaf_kw),
                             rules=tuple((p, LeafPolicy(**kw)) for p, kw in rules),
-                            **policy_kw)
+                            async_tick=False, **policy_kw)
     js = JStore(jpol).attach({k: jnp.asarray(v) for k, v in np_state.items()})
     ts = ProtectedStore(tpol, device="cpu").attach(
         convert.leaves_from_numpy(np_state, device="cpu"))
@@ -156,11 +157,6 @@ def test_region_4k_row_heap(mode):
     assert_masks_equal(jm["heap"], tm["heap"])
     state["heap"][400, 7] -= np.float32(1.0)   # undo; the end check corrupts anew
     _check_end(js, ts, jred, tred, state, "heap", 300, 11)
-
-
-def test_async_tick_is_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ProtectedStore(RedundancyPolicy(async_tick=True), device="cpu")
 
 
 def test_attach_rejects_leaf_on_other_device():
