@@ -55,7 +55,24 @@ Phases, each of which must pass or the script exits non-zero:
    overlap;
 8. the flash kernel at the prefill's shapes against its plain version,
    timed beside the plain version and torch's scaled_dot_product_attention,
-   with its TFLOP/s and share of its bound.
+   with its TFLOP/s and share of its bound;
+9. training: llama3.2-3b at full width and depth (bf16 params, fp32 Adam
+   moments, per-slot remat, random weights and the reference's zipf stream
+   from the seed), batch 1 x 4,096 tokens, AdamW(warmup_cosine(1e-3, 10,
+   24)), 24 steps through ``Trainer.run`` with params and both moments
+   (32 GB) under a vilamb store on the overlapped tick (T=8, deadline 16,
+   scrub every 16: due ticks at 8, 16, 24, a scrub at 16).  Checked: finite
+   losses whose last four average below the first; every fused update on
+   the store's side stream; the launch counts of this run; untouched
+   embedding rows bit-identical in params, m and v, and blocks of only
+   untouched rows never marked dirty; after flush every checksum and
+   parity row against a chunked plain recompute, a clean scrub, one
+   corrupted lane in an m/ and one in a params/ leaf found and rebuilt
+   bitwise; three runs of 8 steps (overlapped store, blocking store, no
+   store) with bitwise equal losses and final params checksums.  Timed:
+   those three runs' step wall times, each due tick's host ms, a profiler
+   trace of steps 7-9 (the fused update's device time, stream and overlap,
+   the device-busy share), peak memory and the model-FLOP share.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 the per-kernel JSON record.  All data comes from ``--seed``.
@@ -65,14 +82,20 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import gc
 import json
+import os
 import statistics
 import subprocess
 import sys
 import time
 from pathlib import Path
 
-import torch
+# Deterministic cuBLAS for phase 9's train steps (determinism mode), read
+# when cuBLAS first runs: set before torch touches the card.
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+
+import torch  # noqa: E402
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
@@ -85,8 +108,11 @@ from repro_torch.kernels.checksum import ops as ck_ops, ref as ck_ref  # noqa: E
 from repro_torch.kernels.flash_attn import ops as fa_ops, ref as fa_ref  # noqa: E402
 from repro_torch.kernels.parity import ops as par_ops, ref as par_ref  # noqa: E402
 from repro_torch.kernels.redundancy import ops as fu_ops, ref as fu_ref  # noqa: E402
-from repro_torch.models import attention, build_model, layers  # noqa: E402
+from repro_torch.data import SyntheticPipeline  # noqa: E402
+from repro_torch.models import Model, ShapeConfig, attention, build_model, layers  # noqa: E402
+from repro_torch.optim import AdamW, warmup_cosine  # noqa: E402
 from repro_torch.serve import Server  # noqa: E402
+from repro_torch.train import Trainer, protected_leaves, protected_structs  # noqa: E402
 
 # H100 SXM peaks at 700 W: the HBM3 rate (NVIDIA data sheet), and the
 # INT32 rate for the kernels' integer operations: 132 SMs x 64 INT32
@@ -110,6 +136,13 @@ SERVE_ARCH, SERVE_BATCH, PROMPT, GEN, SCRUB_EVERY = "llama3.2-3b", 8, 4096, 64, 
 # 2^-8 relative) separate them.  The relative L2 bound matters where the
 # outputs are small (long causal rows average thousands of keys).
 FLASH_ATOL, FLASH_RTOL, FLASH_REL_L2 = 4e-3, 1e-2, 1e-2
+
+# Training (phase 9): llama3.2-3b at full size, batch 1 x train_4k's 4,096
+# tokens, params and both Adam moments under vilamb (the launcher's T=8).
+TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, OBS_STEPS = "llama3.2-3b", 1, 4096, 24, 8
+TRAIN_PERIOD, TRAIN_DEADLINE, TRAIN_SCRUB = 8, 16, 16
+TRAIN_TRACE = (7, 9)                    # the due tick at 8 and the step after it
+TRAIN_CORRUPT = ("m/stack/slot_0/ffn/wi", "params/stack/slot_0/attn/wq")
 
 SPECIALS = [0x7FC00000, 0x7F800000, 0xFF800000, 0x7F800001, 0x00000000, 0xFFFFFFFF]
 
@@ -204,6 +237,23 @@ def phase_kernels(g) -> dict:
                                   abs_err(got[1], want[1]))
     torch.cuda.synchronize()
     return err
+
+
+def record_k3_streams():
+    """Wrap the fused update's wrapper so that every launch records the
+    stream it was made on; returns the record and a function that puts
+    the wrapper back."""
+    streams: list = []
+    launch = fu_ops.fused_update
+
+    def record(*a, **kw):
+        streams.append(torch.cuda.current_stream())
+        return launch(*a, **kw)
+
+    def restore():
+        fu_ops.fused_update = launch
+    fu_ops.fused_update = record
+    return streams, restore
 
 
 def heap_policy(async_tick: bool) -> RedundancyPolicy:
@@ -340,14 +390,7 @@ def phase_main(g) -> dict:
     policy = heap_policy(async_tick=True)
     check(RedundancyPolicy().async_tick and policy.async_tick,
           "the overlapped tick is not the default")
-    k3_streams: list = []
-    k3_launch = fu_ops.fused_update
-
-    def record_stream(*a, **kw):
-        k3_streams.append(torch.cuda.current_stream())
-        return k3_launch(*a, **kw)
-
-    fu_ops.fused_update = record_stream
+    k3_streams, restore_k3 = record_k3_streams()
     torch.cuda.synchronize()
     ck_ops.LAUNCHES = par_ops.LAUNCHES = fu_ops.LAUNCHES = 0
     torch.cuda.reset_peak_memory_stats()
@@ -400,7 +443,7 @@ def phase_main(g) -> dict:
     red, flush_ms = timed(lambda: store.flush(state, red, step=STEPS))
     with uncounted():
         twin_red, twin_flush_ms = timed(lambda: twin.flush(twin_state, twin_red, step=STEPS))
-    fu_ops.fused_update = k3_launch
+    restore_k3()
     check(all(torch.equal(state[k], twin_state[k]) for k in state),
           "the twins' leaves differ")
     for name in red:
@@ -965,6 +1008,296 @@ def phase_flash_time(serve: dict, err: float):
             "err_vs_plain": prefill_err, "sdpa_max_abs_err_vs_plain": sdpa_err})
 
 
+def busy_share(prof, window_us: float) -> dict:
+    """The union of every kernel's device interval in a trace (all
+    streams), over the traced window's wall time, and the kernels that take
+    the most device time."""
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy, end = 0.0, None
+    for s0, s1 in sorted((e.time_range.start, e.time_range.end) for e in kernels):
+        if end is None or s0 > end:
+            busy, end = busy + (s1 - s0), s1
+        elif s1 > end:
+            busy, end = busy + (s1 - end), s1
+    by_kernel: dict = {}
+    for e in kernels:
+        by_kernel[e.name[:90]] = by_kernel.get(e.name[:90], 0.0) + e.time_range.elapsed_us() / 1e3
+    return {"window_ms": window_us / 1e3,
+            "device_busy_union_ms": busy / 1e3 if kernels else "not measured",
+            "device_busy_share": busy / window_us if kernels else "not measured",
+            "kernels": len(kernels),
+            "top_kernels_ms": dict(sorted(by_kernel.items(), key=lambda kv: -kv[1])[:10])}
+
+
+def train_setup(seed: int):
+    """llama3.2-3b for training on the card: model, data, AdamW, and the
+    protected leaves' shapes (from ``Model.init``/``AdamW.init`` on the
+    meta device)."""
+    cfg = get_arch(TRAIN_ARCH)
+    got = (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd, cfg.d_ff,
+           cfg.vocab_size, cfg.padded_vocab, cfg.tie_embeddings, cfg.param_dtype,
+           cfg.moment_dtype, cfg.remat)
+    check(got == (28, 3072, 24, 8, 128, 8192, 128256, 129024, True, "bfloat16",
+                  "float32", "full"), f"{TRAIN_ARCH} is not the full model: {got}")
+    model = build_model(cfg, DEVICE)
+    data = SyntheticPipeline(cfg, ShapeConfig("train_4k_batch1", TRAIN_SEQ, TRAIN_BATCH,
+                                              "train"), seed=seed, device=DEVICE)
+    opt = AdamW(lr=warmup_cosine(1e-3, 10, TRAIN_STEPS), moment_dtype=cfg.moment_dtype)
+    meta = Model(cfg, torch.device("meta")).init()
+    return model, data, opt, protected_structs(meta, opt.init(meta))
+
+
+def train_trainer(model, opt, structs, kind: str) -> Trainer:
+    """A Trainer whose store covers params/*, m/* and v/* with vilamb (T=8,
+    deadline 16, scrub every 16) on the overlapped (``async``) or the
+    blocking tick, or has no store (``none``)."""
+    store = None
+    if kind != "none":
+        policy = RedundancyPolicy.single(
+            "vilamb", period_steps=TRAIN_PERIOD, scrub_period_steps=TRAIN_SCRUB,
+            max_vulnerable_steps=TRAIN_DEADLINE, async_tick=kind == "async")
+        store = ProtectedStore(policy, device=DEVICE).attach(structs)
+    return Trainer(model=model, opt=opt, store=store, scrub_period_steps=TRAIN_SCRUB)
+
+
+def step_recorder(trainer, rec: dict, marked: dict = None):
+    """An ``on_step`` callback keeping each step's loss tensor and wall ms
+    (between consecutive callbacks: the step, its loss wait and its tick)
+    and, for the names in ``marked``, OR-ing the blocks that are dirty or
+    in flight into ``marked``."""
+    rec.setdefault("losses", [])
+    rec.setdefault("wall_ms", [])
+    rec["last"] = time.perf_counter()
+
+    def on_step(state, metrics):
+        rec["losses"].append(metrics["loss"])
+        for n, acc in (marked or {}).items():
+            r = state.red[n]
+            acc |= bits.unpack(r.dirty | r.shadow, trainer.store.metas[n].n_blocks)
+        now = time.perf_counter()
+        rec["wall_ms"].append((now - rec["last"]) * 1e3)
+        rec["last"] = now
+    return on_step
+
+
+def train_flops(cfg, n_params: int) -> float:
+    """Model FLOPs of one step: 6 N per token, plus causal attention's two
+    products over S (S + 1) / 2 (query, key) pairs a head, three times
+    (forward and backward), in every layer.  Per-slot recomputation is not
+    counted."""
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    attn = 3 * 4 * TRAIN_BATCH * cfg.n_heads * cfg.hd * TRAIN_SEQ * (TRAIN_SEQ + 1) // 2
+    return 6 * n_params * tokens + attn * cfg.n_layers
+
+
+def phase_train(seed: int) -> dict:
+    """Phase 9's main path (24 steps with the overlapped store, traced at
+    steps 7-9, then flush and a scrub), its checks, and the three
+    observational runs."""
+    from torch.profiler import ProfilerActivity, profile
+    model, data, opt, structs = train_setup(seed)
+    cfg = model.cfg
+    embed_names = ("params/embed", "m/embed", "v/embed")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    k3_streams, restore_k3 = record_k3_streams()
+    reset_launches()
+    try:
+        trainer = train_trainer(model, opt, structs, "async")
+        store = trainer.store
+        check(store.policy.async_tick, "the training store is not on the overlapped tick")
+        ticks = host_timed_ticks(store)
+        state = trainer.init_state(torch.Generator(device=DEVICE).manual_seed(seed))
+        embed0 = state.params["embed"].clone()
+        marked = {n: torch.zeros(store.metas[n].n_blocks, dtype=torch.bool, device=DEVICE)
+                  for n in embed_names}
+        rec: dict = {}
+        on_step = step_recorder(trainer, rec, marked)
+        k3_first = len(k3_streams)            # attach's warmup and init before
+        state = trainer.run(state, data, TRAIN_TRACE[0] - 1, on_step=on_step)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            rec["last"] = time.perf_counter()
+            state = trainer.run(state, data, TRAIN_TRACE[1] - TRAIN_TRACE[0] + 1,
+                                on_step=on_step)
+            torch.cuda.synchronize()
+        window_us = (time.perf_counter() - t0) * 1e6
+        rec["last"] = time.perf_counter()
+        state = trainer.run(state, data, TRAIN_STEPS - TRAIN_TRACE[1], on_step=on_step)
+        tick_k3 = k3_streams[k3_first:]       # the due ticks' updates
+        state, flush_ms = timed(lambda: trainer.flush(state))
+        scrub_mm, scrub_ms = timed(lambda: trainer.scrub_check(state))
+        torch.cuda.synchronize()
+        launches = read_launches()
+    finally:
+        restore_k3()
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+
+    losses = torch.stack(rec["losses"]).float()
+    loss_list = losses.tolist()
+    check(len(loss_list) == TRAIN_STEPS and bool(torch.isfinite(losses).all()),
+          f"losses {loss_list}")
+    check(sum(loss_list[-4:]) / 4 < loss_list[0],
+          f"the mean of the last four losses is not below the first: {loss_list}")
+    due = [t["step"] for t in ticks if t["updated"]]
+    scrubbed = [t["step"] for t in ticks if t["scrubbed"]]
+    check(due == [8, 16, 24] and scrubbed == [16], f"due ticks {due}, scrubs {scrubbed}")
+    check(trainer.corruption_alarms == 0 and scrub_mm == 0,
+          f"alarms {trainer.corruption_alarms}, scrub after flush {scrub_mm}")
+    side = store._side_stream()
+    check(tick_k3 and all(st == side for st in tick_k3),
+          "a fused update of a due tick ran off the training store's side stream")
+    check(launches["flash_attn"] == 0, "training launched the forward-only flash kernel")
+    for name in ("checksum", "parity", "fused_update"):
+        check(launches[name] > 0, f"{name} kernel never launched while training")
+
+    # Lazy rows: embedding rows no batch touched are bit-identical to their
+    # initial values (moments: zero), and blocks of only such rows were
+    # never marked dirty after init.
+    rows = torch.zeros(cfg.padded_vocab, dtype=torch.bool, device=DEVICE)
+    for step in range(TRAIN_STEPS):
+        rows.index_fill_(0, data.get(step)["tokens"].reshape(-1).long(), True)
+    cold = ~rows
+    check(torch.equal(state.params["embed"][cold].view(torch.int16),
+                      embed0[cold].view(torch.int16)),
+          "an untouched embedding row changed in params/embed")
+    check(not torch.equal(state.params["embed"][rows], embed0[rows]),
+          "no touched embedding row changed")
+    for k in ("m", "v"):
+        check(not bool(state.opt[k]["embed"][cold].view(torch.int32).any()),
+              f"an untouched embedding row changed in {k}/embed")
+    lazy = {"touched_rows": int(rows.sum()), "rows": cfg.padded_vocab}
+    for n in embed_names:
+        meta = store.metas[n]
+        hot = blocks.row_mask_block_mask(meta, rows)
+        check(not bool((marked[n] & ~hot).any()),
+              f"{n}: a block of untouched rows was marked dirty")
+        lazy[n] = {"blocks": meta.n_blocks, "cold_blocks": int((~hot).sum()),
+                   "ever_marked": int(marked[n].sum())}
+        check(lazy[n]["cold_blocks"] > 0, f"{n}: every block was touched")
+    del embed0, marked, rows, cold
+
+    leaves = protected_leaves(state.params, state.opt)
+    phase_full_check(store, leaves, state.red)
+    corrupt = train_corruption(store, leaves, state.red)
+    red_gb = sum(r.parity.numel() * 4 for r in state.red.values()) / 1e9
+    state_gb = sum(t.numel() * t.element_size() for t in leaves.values()) / 1e9
+    n_params = sum(p.numel() for p in flatten_dict(state.params).values())
+    params_gb = sum(p.numel() * p.element_size() for p in flatten_dict(state.params).values()) / 1e9
+    main = {
+        "losses": loss_list, "step_wall_ms": rec["wall_ms"], "launches": launches,
+        "due_ticks": [{k: t[k] for k in ("step", "ms", "dispatch_ms", "scrub_ms",
+                                          "scrubbed")} for t in ticks if t["updated"]],
+        "quiet_tick_host_ms_mean": statistics.mean(t["ms"] for t in ticks if not t["updated"]),
+        "trace_steps_7_9": {**stream_overlap(prof), **busy_share(prof, window_us)},
+        "flush_ms": flush_ms, "scrub_check_ms": scrub_ms, "peak_mem_gb": peak_gb,
+        "memory_gb": {"state": state_gb, "params": params_gb, "parity": red_gb,
+                      "leaves": len(leaves),
+                      "blocks": sum(m.n_blocks for m in store.metas.values())},
+        "lazy_rows": lazy, "corruption": corrupt, "n_params": n_params,
+        "k3_launches_on_side_stream": len(tick_k3),
+    }
+    del trainer, store, state, leaves, prof, on_step
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # The store is observational: three runs of OBS_STEPS from the same
+    # seed, one after another, each freeing the last.
+    obs = {}
+    for kind in ("async", "blocking", "none"):
+        obs[kind] = train_observe(model, data, opt, structs, seed, kind)
+        gc.collect()
+        torch.cuda.empty_cache()
+    for kind in ("blocking", "none"):
+        check(torch.equal(obs[kind]["loss_bits"], obs["async"]["loss_bits"]),
+              f"losses differ between the overlapped store and {kind}: "
+              f"{obs['async']['losses']} vs {obs[kind]['losses']}")
+        check(obs[kind]["checksums"].keys() == obs["async"]["checksums"].keys()
+              and all(torch.equal(v, obs["async"]["checksums"][n])
+                      for n, v in obs[kind]["checksums"].items()),
+              f"final params checksums differ between the overlapped store and {kind}")
+    flops = train_flops(cfg, n_params)
+    for o in obs.values():
+        step_s = o["median_step_ms"] / 1e3
+        o["tokens_per_s"] = TRAIN_BATCH * TRAIN_SEQ / step_s
+        o["model_flop_share"] = flops / step_s / BF16_FLOPS_PER_SEC
+        del o["loss_bits"], o["checksums"]
+    none = obs["none"]
+    # The profiler's own cost on each of a step's launches stretches the
+    # traced window, so the busy share is also taken against the untraced
+    # median step (no store: the foreground alone).
+    trace = main["trace_steps_7_9"]
+    if not isinstance(trace["device_busy_union_ms"], str):
+        per_step = trace["device_busy_union_ms"] / (TRAIN_TRACE[1] - TRAIN_TRACE[0] + 1)
+        trace["device_busy_ms_per_step"] = per_step
+        trace["device_busy_share_of_untraced_step"] = per_step / none["median_step_ms"]
+        trace["launches_per_step"] = trace["kernels"] / (TRAIN_TRACE[1] - TRAIN_TRACE[0] + 1)
+    return {"main": main, "observe": obs, "model_flops_per_step": flops,
+            "store_overhead": {k: obs[k]["median_step_ms"] / none["median_step_ms"] - 1
+                               for k in ("async", "blocking")},
+            "store_overhead_drained": {k: obs[k]["drained_s"] / none["drained_s"] - 1
+                                       for k in ("async", "blocking")}}
+
+
+def train_observe(model, data, opt, structs, seed: int, kind: str) -> dict:
+    """OBS_STEPS steps with the ``kind`` store from the seed: the losses (and
+    their bits), each step's wall ms, the run's wall time before and after
+    draining the device, the due ticks' host ms, and a K1 checksum of every
+    final params leaf."""
+    trainer = train_trainer(model, opt, structs, kind)
+    ticks = host_timed_ticks(trainer.store) if trainer.store is not None else []
+    state = trainer.init_state(torch.Generator(device=DEVICE).manual_seed(seed))
+    rec: dict = {}
+    on_step = step_recorder(trainer, rec)
+    torch.cuda.synchronize()
+    t0 = rec["last"] = time.perf_counter()
+    state = trainer.run(state, data, OBS_STEPS, on_step=on_step)
+    run_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    drained_s = time.perf_counter() - t0
+    losses = torch.stack(rec["losses"])
+    out = {"losses": losses.tolist(), "loss_bits": losses.view(torch.int32).clone(),
+           "step_wall_ms": rec["wall_ms"],
+           "median_step_ms": statistics.median(rec["wall_ms"][2:]),
+           "run_s": run_s, "drained_s": drained_s,
+           "due_tick_host_ms": [t["ms"] for t in ticks if t["updated"]],
+           "checksums": {n: ck_ops.block_checksums(blocks.to_lanes(p, blocks.make_meta(p)))
+                         for n, p in flatten_dict(state.params).items()}}
+    del trainer, state
+    return out
+
+
+def train_corruption(store, leaves: dict, red: dict) -> dict:
+    """One corrupted lane in an m/ leaf and one in a params/ leaf: scrub
+    flags exactly those two blocks, ``recover_block`` (outside autograd)
+    rebuilds each bitwise from parity in place, and a rescrub is clean."""
+    g = torch.Generator(device=DEVICE).manual_seed(len(leaves))
+    saved = {}
+    for name in TRAIN_CORRUPT:
+        meta = store.metas[name]
+        lanes = blocks.to_lanes(leaves[name], meta)
+        check(lanes.data_ptr() == leaves[name].data_ptr(), f"{name}: lane view is a copy")
+        bad = int(torch.randint(0, meta.n_blocks, (1,), generator=g, device=DEVICE))
+        saved[name] = (bad, lanes[bad].clone())
+        lanes[bad, 99] ^= 0xBAD
+    masks = store.scrub(leaves, red)
+    flagged = {n: torch.nonzero(m).flatten().tolist() for n, m in masks.items() if m.any()}
+    check(flagged == {n: [b] for n, (b, _) in saved.items()},
+          f"scrub flagged {flagged}, expected {({n: [b] for n, (b, _) in saved.items()})}")
+    with torch.no_grad():
+        for name, (bad, want) in saved.items():
+            fixed, ok = store.recover_block(leaves[name], red[name], name, bad)
+            check(ok and fixed.data_ptr() == leaves[name].data_ptr(),
+                  f"{name}: recover_block refused or copied")
+            lanes = blocks.to_lanes(leaves[name], store.metas[name])
+            check(torch.equal(lanes[bad], want), f"{name}: recovered block differs")
+    masks = store.scrub(leaves, red)
+    check(sum(int(m.sum()) for m in masks.values()) == 0, "rescrub after repair flags blocks")
+    check(all(bool(v) for v in store.verify_meta(red).values()), "verify_meta failed")
+    return {n: b for n, (b, _) in saved.items()}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1014,6 +1347,7 @@ def main() -> int:
     print("full check: checksums and parity of every block match a chunked plain "
           "recompute")
     print(json.dumps({"main": main_run["timings"]}), flush=True)
+    heap_launches = main_run["launches"]
     del main_run
     torch.cuda.empty_cache()
 
@@ -1071,6 +1405,44 @@ def main() -> int:
     print(json.dumps({"flash": flash}))
     print(json.dumps({"serve": tm}))
     print(json.dumps({"serve_launches": serve["launches"]}))
+    serve_launches = serve["launches"]
+    del serve
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    train = phase_train(args.seed)
+    m = train["main"]
+    print(f"train ({time.perf_counter() - t0:.1f} s): {TRAIN_ARCH} full size, batch "
+          f"{TRAIN_BATCH} x {TRAIN_SEQ}, {TRAIN_STEPS} steps under the overlapped vilamb "
+          f"store over {m['memory_gb']['leaves']} leaves ({m['memory_gb']['state']:.2f} GB, "
+          f"{m['memory_gb']['blocks']} blocks, {m['memory_gb']['parity']:.2f} GB parity); "
+          f"launches {m['launches']}; peak {m['peak_mem_gb']:.2f} GiB")
+    print(f"train: losses {[round(x, 4) for x in m['losses']]}")
+    print(f"train: due ticks' host ms (no device sync): "
+          f"{[(t['step'], round(t['ms'], 3)) for t in m['due_ticks']]}; quiet ticks "
+          f"{m['quiet_tick_host_ms_mean']:.4f} ms; flush {m['flush_ms']:.2f} ms; scrub "
+          f"{m['scrub_check_ms']:.2f} ms")
+    tr = {k: v for k, v in m["trace_steps_7_9"].items() if k != "top_kernels_ms"}
+    print(f"train: trace of steps 7-9: {tr}")
+    for kind, o in train["observe"].items():
+        print(f"train: {kind} store, {OBS_STEPS} steps: median step {o['median_step_ms']:.2f} "
+              f"ms (steps 3-8), {o['tokens_per_s']:.1f} tokens/s, model-FLOP share "
+              f"{100 * o['model_flop_share']:.2f}%; run {o['run_s']:.3f} s, drained "
+              f"{o['drained_s']:.3f} s; due ticks' host ms {o['due_tick_host_ms']}")
+    print(f"train: store overhead on a step (median) "
+          f"{ {k: round(100 * v, 3) for k, v in train['store_overhead'].items()} }%, "
+          f"on the drained run "
+          f"{ {k: round(100 * v, 3) for k, v in train['store_overhead_drained'].items()} }%; "
+          f"losses and final params checksums bitwise equal for the overlapped, blocking "
+          f"and no store; lazy embedding rows bit-identical; full check, scrub and "
+          f"recovery passed")
+    print(json.dumps({"train": train}))
+    for row in kernels:
+        by_path = {"heap": heap_launches.get(row["name"], 0),
+                   "serving": serve_launches[row["name"]],
+                   "training": m["launches"][row["name"]]}
+        row["launches"] = sum(by_path.values())
+        row["launches_by_path"] = by_path
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,4 +1,5 @@
 from .device import resolve_device
-from .flatten import flatten_dict, unflatten_dict
+from .flatten import flatten_dict, replace_leaves, tree_map, unflatten_dict
 
-__all__ = ["flatten_dict", "resolve_device", "unflatten_dict"]
+__all__ = ["flatten_dict", "replace_leaves", "resolve_device", "tree_map",
+           "unflatten_dict"]

@@ -169,7 +169,9 @@ def _mask_from_ids(meta: BlockMeta, ids: torch.Tensor) -> torch.Tensor:
     slot that is sliced away, so nothing synchronises with the host.
     """
     mask = torch.zeros((meta.n_blocks + 1,), dtype=torch.bool, device=ids.device)
-    mask[ids.reshape(-1)] = True
+    # ``index_fill_``, not ``mask[ids] = True``: on the card the latter
+    # copies its value from the host and so waits for the stream.
+    mask.index_fill_(0, ids.reshape(-1), True)
     return mask[: meta.n_blocks]
 
 

@@ -204,6 +204,10 @@ class TickReport:
     # recompute ran on resolution).
     coalesced: Tuple[str, ...] = ()
     overflowed: Tuple[str, ...] = ()
+    # Leaves a background repair replaced this tick, by name: the
+    # reference's scrub patroller fills it; the port runs none yet
+    # (ROADMAP.md, Queue 1 item 11), so it stays empty.
+    repaired: Dict[str, torch.Tensor] = dataclasses.field(default_factory=dict)
 
 
 def _ready(x) -> bool:

@@ -61,8 +61,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Softmax attention, (B, S, H, hd) out in q's dtype; causal by default.
 
     ``scale`` defaults to ``1 / sqrt(hd)``.  H must be a multiple of KV.
+    Forward only: raises when grad mode is on and an input requires grad
+    (on the CPU too), never returning a result with no graph; training
+    takes the tiled differentiable attention instead.
     """
     global LAUNCHES
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError("flash_attention is forward-only and was asked for a "
+                           "gradient: training takes the tiled attention "
+                           "(models.attention.causal_attention(..., train=True))")
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"flash_attention: want q (B, S, H, hd) and k, v "
                          f"(B, S, KV, hd), got {tuple(q.shape)}, "

@@ -1,7 +1,9 @@
-"""Dense decoder-only models for serving: the port of ``repro.models``."""
-from .config import ModelConfig
-from .convert import params_from_numpy, params_to_numpy
-from .model import Model, build_model
+"""Dense decoder-only models for serving and training: the port of
+``repro.models``."""
+from .config import SHAPES, ModelConfig, ShapeConfig
+from .convert import opt_from_numpy, params_from_numpy, params_to_numpy
+from .model import Model, build_model, cross_entropy
 
-__all__ = ["Model", "ModelConfig", "build_model", "params_from_numpy",
+__all__ = ["Model", "ModelConfig", "SHAPES", "ShapeConfig", "build_model",
+           "cross_entropy", "opt_from_numpy", "params_from_numpy",
            "params_to_numpy"]

@@ -1,10 +1,13 @@
-"""GQA attention: the causal prefill on the flash kernel, and decode.
+"""GQA attention: causal attention for the prefill and for training, and decode.
 
-The port of ``repro.models.attention``.  The prefill has one causal path:
-``kernels.flash_attn.flash_attention``, the hand-written CUDA kernel on the
-card (its plain version on the CPU).  The kernel maps query head ``h`` to
-KV head ``h // (H // KV)``, the head order of the reference's
-``expand_kv``, so k and v are never expanded.
+The port of ``repro.models.attention``.  The caller picks the causal path:
+the prefill takes ``kernels.flash_attn.flash_attention``, the hand-written
+CUDA kernel on the card (its plain version on the CPU), which is
+forward-only and refuses a gradient; training takes the reference's
+differentiable tiled path (a static lower-triangle schedule of (q, kv)
+tiles, merged flash-style), whose backward is autograd's.  The kernel maps
+query head ``h`` to KV head ``h // (H // KV)``, the head order of
+``expand_kv``, so on the prefill k and v are never expanded.
 
 KV caches are sequence-major ``(S_max, B, KV, hd)``, as in the reference:
 a decode write is one leading-axis row, and Vilamb's page-level dirty
@@ -22,6 +25,24 @@ from ..kernels.flash_attn import ops as flash_ops
 from .layers import apply_rope, dense_init
 
 NEG_INF = -1e30
+
+
+class _GradCast(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        ctx.dtype = x.dtype
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.to(ctx.dtype)
+
+
+def grad_cast(x: torch.Tensor) -> torch.Tensor:
+    """Identity whose cotangent is cast back to the primal dtype (the
+    reference's ``bf16_grad_boundaries`` knob: attention's fp32 scores must
+    not make dq, dk and dv fp32)."""
+    return _GradCast.apply(x)
 
 
 def attn_init(gen: Optional[torch.Generator], cfg, dtype: torch.dtype = torch.float32,
@@ -60,17 +81,101 @@ def _qkv(params, x: torch.Tensor, cfg, positions: torch.Tensor, rope: bool = Tru
     return q, k, v
 
 
+def expand_kv(k: torch.Tensor, n_heads: int) -> torch.Tensor:
+    """Broadcast the KV heads of (B, S, KV, hd) up to ``n_heads``: KV head
+    ``j`` serves query heads ``j * G .. j * G + G - 1``."""
+    B, S, KV, hd = k.shape
+    G = n_heads // KV
+    return k[:, :, :, None, :].expand(B, S, KV, G, hd).reshape(B, S, n_heads, hd)
+
+
+def _tile_attn(q, k, v, scale: float, mask=None):
+    """One (q-tile, kv-tile) partial: ``(acc, m, l)``, fp32.
+
+    q: (B, Sq, H, hd); k, v: (B, Sk, H, hd) (KV already expanded to H).
+    The scores are rounded to q's dtype before the fp32 scale, and p to
+    v's dtype before the second product, as in the reference.
+    """
+    s = torch.einsum("bqhd,bshd->bhqs", q, k).float() * scale
+    if mask is not None:
+        s = torch.where(mask, s, NEG_INF)
+    m = s.amax(dim=-1)                                        # (B, H, Sq)
+    p = torch.exp(s - m[..., None])
+    l = p.sum(dim=-1)
+    acc = torch.einsum("bhqs,bshd->bhqd", p.to(v.dtype), v).float()
+    return acc, m, l
+
+
+def _merge(acc1, m1, l1, acc2, m2, l2):
+    m = torch.maximum(m1, m2)
+    a1 = torch.exp(m1 - m)
+    a2 = torch.exp(m2 - m)
+    return acc1 * a1[..., None] + acc2 * a2[..., None], m, l1 * a1 + l2 * a2
+
+
+def pick_tile(B: int, H: int, S: int, shards: int = 1,
+              budget_bytes: int = 256 * 2**20) -> int:
+    """Largest q/kv tile whose fp32 score block fits the budget."""
+    for t in (4096, 2048, 1024, 512):
+        if S % t == 0 and B * H * t * t * 4 // max(shards, 1) <= budget_bytes:
+            return t
+    return 512 if S % 512 == 0 else S
+
+
+def _causal_mask(n: int, device) -> torch.Tensor:
+    i = torch.arange(n, device=device)
+    return (i[:, None] >= i[None, :])[None, None]
+
+
+def _tiled_causal(q, ke, ve, tile: int) -> torch.Tensor:
+    """The training attention: (B, H, S, hd) fp32 over the lower triangle
+    of (q, kv) tiles only; the diagonal tiles carry the causal mask."""
+    S = q.shape[1]
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    if S <= tile:
+        acc, m, l = _tile_attn(q, ke, ve, scale, _causal_mask(S, q.device))
+        return acc / l[..., None].clamp_min(1e-30)
+    if S % tile:
+        raise ValueError(f"attention tile {tile} does not divide S={S}")
+    diag = _causal_mask(tile, q.device)
+    outs = []
+    for i in range(S // tile):                 # static schedule
+        qi = q[:, i * tile:(i + 1) * tile]
+        acc = m = l = None
+        for j in range(i + 1):                 # lower triangle only
+            part = _tile_attn(qi, ke[:, j * tile:(j + 1) * tile],
+                              ve[:, j * tile:(j + 1) * tile], scale,
+                              diag if j == i else None)
+            acc, m, l = part if acc is None else _merge(acc, m, l, *part)
+        outs.append(acc / l[..., None].clamp_min(1e-30))
+    return torch.cat(outs, dim=2)
+
+
 def causal_attention(params, x: torch.Tensor, cfg,
-                     positions: Optional[torch.Tensor] = None, rope: bool = True
+                     positions: Optional[torch.Tensor] = None, rope: bool = True,
+                     *, train: bool = False
                      ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """Causal GQA over (B, S, d).  Returns ``(out, (k, v))``, k and v
-    (B, S, KV, hd) after RoPE, for the cache."""
-    S = x.shape[1]
+    (B, S, KV, hd) after RoPE, for the cache.
+
+    ``train=False`` (the prefill) runs the flash kernel, which raises if
+    asked for a gradient; ``train=True`` runs the differentiable tiled path
+    with ``cfg.attn_tile`` (0: :func:`pick_tile`'s 256 MiB budget).
+    """
+    B, S, _ = x.shape
     if positions is None:
         positions = torch.arange(S, device=x.device)[None, :]
     q, k, v = _qkv(params, x, cfg, positions, rope)
-    out = flash_ops.flash_attention(q, k, v, causal=True)     # (B, S, H, hd)
-    return _out_proj(out.to(x.dtype), params["wo"]), (k, v)
+    if not train:
+        out = flash_ops.flash_attention(q, k, v, causal=True)     # (B, S, H, hd)
+        return _out_proj(out.to(x.dtype), params["wo"]), (k, v)
+    if cfg.bf16_grad_boundaries:
+        q, k, v = grad_cast(q), grad_cast(k), grad_cast(v)
+    H = cfg.n_heads
+    out = _tiled_causal(q, expand_kv(k, H), expand_kv(v, H),
+                        cfg.attn_tile or pick_tile(B, H, S))
+    out = out.transpose(1, 2).to(x.dtype)                    # (B, S, H, hd)
+    return _out_proj(out, params["wo"]), (k, v)
 
 
 def decode_attention(params, x: torch.Tensor, cfg, k_cache: torch.Tensor,

@@ -5,9 +5,22 @@ reference's names and defaults, so a config and its weights carry across.
 Of the other kinds' fields, only those that ``layer_kind``, ``ffn_kind``
 and ``group_size`` read are here, so that an unported kind is recognised
 and refused; each later slice adds the fields of the code it ports.
-The reference's XLA-only knobs (sequence parallelism, attention tiles,
-custom-VJP norms, layer unrolling, remat, the flash-kernel switch) have no
-counterpart: on the card the flash kernel is the only prefill attention.
+The training numerics are here with the reference's names and defaults:
+``moment_dtype``, ``remat`` (per-slot activation checkpointing),
+``norm_vjp`` (the custom-VJP norms), ``bf16_grad_boundaries`` and
+``attn_tile`` (the training attention's tile).  The reference's mesh and
+XLA-only knobs have no counterpart:
+
+- ``seq_parallel``: shards activations over a tensor-parallel mesh axis,
+  and the port runs on one device;
+- ``attn_kv_gather_first``: orders a sequence-parallel all-gather, and
+  there is no collective on one device;
+- ``opt_grad_barrier``: stops XLA hoisting converts past a gradient
+  all-reduce, and eager PyTorch neither hoists nor all-reduces;
+- ``unroll_layers``: unrolls ``lax.scan`` for XLA's cost analysis, and the
+  port's stack is a Python loop already;
+- ``use_flash_kernel``: the caller picks the attention path (the flash
+  kernel for the prefill, the tiled differentiable path for training).
 """
 from __future__ import annotations
 
@@ -56,6 +69,11 @@ class ModelConfig:
 
     # --- numerics ---
     param_dtype: str = "bfloat16"
+    moment_dtype: str = "float32"   # Adam moments (bf16 for the 400B+ archs)
+    remat: str = "full"             # none | full: checkpoint every slot
+    attn_tile: int = 0              # training attention tile; 0 = pick_tile
+    norm_vjp: str = "autodiff"      # "custom" = hand-written bf16-cotangent VJP
+    bf16_grad_boundaries: bool = False  # cast q/k/v cotangents to their dtype
 
     @property
     def hd(self) -> int:
@@ -98,3 +116,20 @@ class ModelConfig:
             raise ValueError(f"{self.name}: {self.n_layers} layers are not a "
                              f"whole number of groups of {self.group_size}")
         return self.n_layers // self.group_size
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    """One input-shape cell."""
+    name: str                   # train_4k | prefill_32k | decode_32k | long_500k
+    seq_len: int
+    global_batch: int
+    kind: str                   # train | prefill | decode
+
+
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}

@@ -1,9 +1,11 @@
 """Shared layer primitives: norms, RoPE, dense FFNs, initialisers.
 
-The port of ``repro.models.layers`` (forward only: the custom-VJP norms
-are training-only and wait for the training slice).  Reductions run in
-fp32; the (B, S, d)-sized products stay in the input dtype, as in the
-reference.  Initialisers draw from an explicit ``torch.Generator``.
+The port of ``repro.models.layers``.  Reductions run in fp32; the
+(B, S, d)-sized products stay in the input dtype, as in the reference.
+The custom-VJP norms (``rmsnorm_cv``, ``layernorm_cv``) are
+``torch.autograd.Function``s whose backward keeps the (B, S, d) tensors in
+the input dtype as well.  Initialisers draw from an explicit
+``torch.Generator``.
 """
 from __future__ import annotations
 
@@ -59,6 +61,84 @@ def layernorm(x: torch.Tensor, scale: Optional[torch.Tensor],
     return y
 
 
+# Custom-VJP norms: autodiff of the fp32 variance promotes the whole
+# residual-stream cotangent to fp32; the hand-written backward keeps every
+# (B, S, d) tensor in the input dtype and only the (B, S) reductions in
+# fp32.  Selected by ``ModelConfig.norm_vjp == "custom"``.
+def _f32_dot_last(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """fp32 sum over the last axis of ``a * b`` (bf16 products are exact in
+    fp32; the fp32 copies are transient, inside the reduction)."""
+    return (a.float() * b.float()).sum(dim=-1)
+
+
+class _RMSNormCV(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, scale, eps):
+        var = (_f32_dot_last(x, x) / x.shape[-1])[..., None]
+        inv = torch.rsqrt(var + eps)                        # fp32 (B, S, 1)
+        y = x * inv.to(x.dtype)
+        if scale is not None:
+            y = y * (1.0 + scale).to(x.dtype)
+        ctx.save_for_backward(x, scale, inv)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        x, scale, inv = ctx.saved_tensors
+        d = x.shape[-1]
+        gs = g * (1.0 + scale).to(g.dtype) if scale is not None else g
+        t = (_f32_dot_last(gs, x) / d)[..., None]           # fp32 (B, S, 1)
+        dx = gs * inv.to(g.dtype) - x * (t * inv ** 3).to(g.dtype)
+        dscale = None
+        if scale is not None:
+            xhat = x * inv.to(x.dtype)
+            dscale = (g * xhat).float().sum(dim=tuple(range(g.dim() - 1))).to(scale.dtype)
+        return dx, dscale, None
+
+
+class _LayerNormCV(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, scale, bias, eps):
+        d = x.shape[-1]
+        mean = (x.float().sum(dim=-1) / d)[..., None]
+        var = (_f32_dot_last(x, x) / d)[..., None] - mean * mean
+        inv = torch.rsqrt(var.clamp_min(0.0) + eps)         # fp32 (B, S, 1)
+        xhat = (x - mean.to(x.dtype)) * inv.to(x.dtype)
+        y = xhat
+        if scale is not None:
+            y = y * scale.to(x.dtype) + bias.to(x.dtype)
+        ctx.save_for_backward(xhat, scale, inv)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        xhat, scale, inv = ctx.saved_tensors
+        d = xhat.shape[-1]
+        gs = g * scale.to(g.dtype) if scale is not None else g
+        m1 = (gs.float().sum(dim=-1) / d)[..., None]
+        m2 = (_f32_dot_last(gs, xhat) / d)[..., None]
+        dx = inv.to(g.dtype) * (gs - m1.to(g.dtype) - xhat * m2.to(g.dtype))
+        dscale = dbias = None
+        if scale is not None:
+            dims = tuple(range(g.dim() - 1))
+            dscale = (g * xhat).float().sum(dim=dims).to(scale.dtype)
+            dbias = g.float().sum(dim=dims).to(scale.dtype)
+        return dx, dscale, dbias, None
+
+
+def rmsnorm_cv(x: torch.Tensor, scale: Optional[torch.Tensor],
+               eps: float = 1e-6) -> torch.Tensor:
+    """:func:`rmsnorm` with the hand-written backward."""
+    return _RMSNormCV.apply(x, scale, eps)
+
+
+def layernorm_cv(x: torch.Tensor, scale: Optional[torch.Tensor],
+                 bias: Optional[torch.Tensor], eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm with the hand-written backward (``scale=bias=None``: OLMo's
+    non-parametric form)."""
+    return _LayerNormCV.apply(x, scale, bias, eps)
+
+
 def nonparam_ln(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     """OLMo's non-parametric LayerNorm (no scale, no bias)."""
     return layernorm(x, None, None, eps)
@@ -67,8 +147,10 @@ def nonparam_ln(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
 def make_norm(cfg) -> Tuple[Callable, Callable]:
     """``(init(d, device, lead), apply(params, x))`` for ``cfg.norm``.  Norm
     parameters are fp32 whatever the param dtype, as in the reference;
-    ``lead`` prefixes their shapes (the stack's group axis)."""
+    ``lead`` prefixes their shapes (the stack's group axis).  With
+    ``cfg.norm_vjp == "custom"`` ``apply`` takes the custom-VJP norms."""
     kind = cfg.norm
+    custom = cfg.norm_vjp == "custom"
 
     def init(d: int, device=None, lead: Tuple[int, ...] = ()) -> Dict[str, torch.Tensor]:
         shape = lead + (d,)
@@ -81,9 +163,13 @@ def make_norm(cfg) -> Tuple[Callable, Callable]:
 
     def apply(params, x):
         if kind == "nonparam_ln":
-            return nonparam_ln(x)
+            return layernorm_cv(x, None, None) if custom else nonparam_ln(x)
         if kind == "layernorm":
+            if custom:
+                return layernorm_cv(x, params["scale"], params["bias"])
             return layernorm(x, params["scale"], params["bias"])
+        if custom:
+            return rmsnorm_cv(x, params["scale"])
         return rmsnorm(x, params["scale"])
 
     return init, apply

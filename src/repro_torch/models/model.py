@@ -1,11 +1,11 @@
-"""Top-level Model: init, prefill and decode, plus Vilamb dirty events.
+"""Top-level Model: init, loss, prefill and decode, plus Vilamb dirty events.
 
-The port of ``repro.models.model`` for serving dense decoder-only models.
+The port of ``repro.models.model`` for dense decoder-only models.
 ``build_model(cfg)`` returns a :class:`Model` on the card unless the caller
-passes ``device="cpu"``.  The model reports which KV-cache pages a decode
+passes ``device="cpu"``.  The model reports which embedding rows a train
+step touched (``dirty_events_train``) and which KV-cache pages a decode
 step wrote (``dirty_events_decode``), feeding the store's bitvectors (the
-paper's dirty bits, generated at the writer).  The training half (loss,
-cross entropy, ``dirty_events_train``) waits for the training slice.
+paper's dirty bits, generated at the writer).
 """
 from __future__ import annotations
 
@@ -13,12 +13,84 @@ import dataclasses
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from ..common.device import DeviceLike, resolve_device
 from ..core.blocks import ShapeDtype
 from . import transformer as tfm
 from .config import ModelConfig
 from .layers import embed_init, make_norm
+
+
+# fp32 elements of one row slice of the cross entropy's temporaries (1 GiB):
+# no (B, S, V) fp32 buffer of the whole batch lives at once.
+CE_SLICE_ELEMS = 1 << 28
+
+
+def _row_slices(n_rows: int, row_elems: int):
+    step = max(1, CE_SLICE_ELEMS // max(row_elems, 1))
+    return [slice(i, min(n_rows, i + step)) for i in range(0, n_rows, step)]
+
+
+def _masked_f32(logits: torch.Tensor, vocab_size: int) -> torch.Tensor:
+    """fp32 logits with the padded vocabulary tail at -1e30."""
+    lf = logits.float()
+    if lf.shape[-1] > vocab_size:
+        lf = lf.clone() if lf is logits else lf
+        lf[:, vocab_size:] = -1e30
+    return lf
+
+
+class _CrossEntropy(torch.autograd.Function):
+    """The reference's custom-VJP masked cross entropy.
+
+    Residuals are the logits and the lse (the backward recomputes the
+    softmax from them); ``dlogits`` comes back in the logits' dtype.  Both
+    directions walk row slices of :data:`CE_SLICE_ELEMS` elements, with the
+    same arithmetic for every element as the reference's whole-batch form.
+    The label's score is gathered, which equals the reference's one-hot
+    product exactly (one nonzero term).
+    """
+
+    @staticmethod
+    def forward(ctx, logits, labels, vocab_size):
+        V = logits.shape[-1]
+        flat, lab = logits.reshape(-1, V), labels.reshape(-1)
+        nll, lse = [], []
+        for sl in _row_slices(flat.shape[0], V):
+            lf = _masked_f32(flat[sl], vocab_size)
+            shifted = lf - lf.amax(dim=-1, keepdim=True)
+            lse_s = torch.log(torch.exp(shifted).sum(dim=-1))
+            ll = shifted.gather(-1, lab[sl].clamp_min(0).long()[:, None])[:, 0]
+            nll.append(lse_s - ll)
+            lse.append(lse_s)
+        mask = (lab >= 0).float()
+        denom = mask.sum().clamp_min(1.0)
+        ctx.save_for_backward(logits, labels, torch.cat(lse), mask, denom)
+        ctx.vocab_size = vocab_size
+        return (torch.cat(nll) * mask).sum() / denom
+
+    @staticmethod
+    def backward(ctx, g):
+        logits, labels, lse, mask, denom = ctx.saved_tensors
+        V = logits.shape[-1]
+        flat, lab = logits.reshape(-1, V), labels.reshape(-1)
+        dlogits = torch.empty_like(flat)
+        scale = g * mask / denom
+        iota = torch.arange(V, device=flat.device)
+        for sl in _row_slices(flat.shape[0], V):
+            lf = _masked_f32(flat[sl], ctx.vocab_size)
+            p = torch.exp(lf - lf.amax(dim=-1, keepdim=True)) / torch.exp(lse[sl])[:, None]
+            onehot = (iota[None, :] == lab[sl].clamp_min(0)[:, None]).float()
+            dlogits[sl] = ((p - onehot) * scale[sl, None]).to(logits.dtype)
+        return dlogits.view(logits.shape), None, None
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  vocab_size: int) -> torch.Tensor:
+    """Masked mean cross entropy over (B, S, V_pad) logits of any float
+    dtype: the padded vocabulary tail is masked, labels below 0 ignored."""
+    return _CrossEntropy.apply(logits, labels, vocab_size)
 
 
 @dataclasses.dataclass
@@ -49,13 +121,37 @@ class Model:
 
     # ---------------------------------------------------------------- embed
     def _embed(self, params, tokens: torch.Tensor) -> torch.Tensor:
-        rows = params["embed"].index_select(0, tokens.reshape(-1))
-        return rows.view(*tokens.shape, self.cfg.d_model).to(self.dtype)
+        """The table's rows: ``F.embedding``, whose backward (sort-based)
+        is deterministic, where ``index_select``'s adds with atomics."""
+        return F.embedding(tokens.long(), params["embed"]).to(self.dtype)
 
     def _logits(self, params, x: torch.Tensor) -> torch.Tensor:
         if self.cfg.tie_embeddings:
             return x @ params["embed"].T
         return x @ params["head"]
+
+    # ----------------------------------------------------------------- loss
+    def loss(self, params, batch: Dict[str, torch.Tensor]
+             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """Training loss of a batch ``{"tokens", "labels"}`` (B, S) int.
+
+        Returns ``(loss, aux)``, aux ``{"ce", "aux_loss", "expert_counts",
+        "logits_mean"}``; a dense model has no router, so ``aux_loss`` is 0
+        and ``expert_counts`` zeros ``(G, group_size, 1)`` int32.
+        """
+        cfg = self.cfg
+        _, norm = make_norm(cfg)
+        x = self._embed(params, batch["tokens"])
+        x = tfm.stack_apply_full(params["stack"], x, cfg, train=True)
+        logits = self._logits(params, norm(params["final_norm"], x))
+        ce = cross_entropy(logits, batch["labels"], cfg.vocab_size)
+        aux_loss = torch.zeros((), dtype=torch.float32, device=x.device)
+        with torch.no_grad():
+            logits_mean = logits.abs().mean(dtype=torch.float32)
+        return ce + 0.01 * aux_loss, {
+            "ce": ce, "aux_loss": aux_loss, "logits_mean": logits_mean,
+            "expert_counts": torch.zeros((cfg.n_groups, cfg.group_size, 1),
+                                         dtype=torch.int32, device=x.device)}
 
     # ---------------------------------------------------------------- caches
     def cache_shapes(self, batch: int, max_len: int) -> Dict[str, Dict[str, ShapeDtype]]:
@@ -100,6 +196,20 @@ class Model:
         return logits, caches, torch.argmax(logits, dim=-1).to(torch.int32)
 
     # ----------------------------------------------------- dirty events (§3.2)
+    def dirty_events_train(self, batch: Dict[str, torch.Tensor],
+                           aux: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+        """Dirty events of the sparse leaves after a train step: a presence
+        row mask over ``padded_vocab`` for ``embed`` (lazy AdamW leaves its
+        untouched rows bit-identical).  The train loop expands them to the
+        params and both moments and marks every other leaf ALL-dirty.  A
+        dense model has no expert slabs (MoE is ROADMAP.md, Queue 1 item 2).
+        """
+        tokens = batch["tokens"]
+        presence = torch.zeros((self.cfg.padded_vocab,), dtype=torch.bool,
+                               device=tokens.device)
+        presence.index_fill_(0, tokens.reshape(-1).long(), True)
+        return {"embed": presence}
+
     def dirty_events_decode(self, caches, pos: int) -> Dict[str, torch.Tensor]:
         """KV-cache page dirty events for a decode step at ``pos``.
 

@@ -3,15 +3,20 @@
 The port of ``repro.models.transformer``.  Parameters stay stacked by
 group on a leading axis, with the reference's names and shapes
 (``slot_0/attn/wq`` is ``(n_groups, d, H, hd)``), so weights carry across.
-A Python loop over groups takes the place of ``lax.scan``.  Other mixers
-(Mamba, mLSTM, sLSTM) and MoE FFNs raise ``NotImplementedError`` naming
-their ``ROADMAP.md`` item.
+A Python loop over groups takes the place of ``lax.scan``; each stacked
+leaf is split into its groups once per call (``unbind``), so the backward
+stacks each leaf's gradient once instead of adding a full-size zero tensor
+per group.  Training checkpoints each slot (``cfg.remat``), as the
+reference's per-slot ``jax.checkpoint`` does.  Other mixers (Mamba, mLSTM,
+sLSTM) and MoE FFNs raise ``NotImplementedError`` naming their
+``ROADMAP.md`` item.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from . import attention as attn_mod
 from .config import ModelConfig
@@ -49,9 +54,15 @@ def check_supported(cfg: ModelConfig) -> None:
         raise not_ported(cfg.name, kinds)
 
 
-def _index(tree: Dict[str, Any], g: int) -> Dict[str, Any]:
-    """Group ``g`` of a stacked parameter tree (views, no copies)."""
-    return {k: _index(v, g) if isinstance(v, dict) else v[g] for k, v in tree.items()}
+def _unbind(tree: Dict[str, Any], n_groups: int) -> List[Dict[str, Any]]:
+    """A stacked tree split into its ``n_groups`` groups (views, no copies),
+    each leaf split once by ``unbind(0)``."""
+    out: List[Dict[str, Any]] = [{} for _ in range(n_groups)]
+    for k, v in tree.items():
+        parts = _unbind(v, n_groups) if isinstance(v, dict) else v.unbind(0)
+        for g in range(n_groups):
+            out[g][k] = parts[g]
+    return out
 
 
 # --------------------------------------------------------------------- init
@@ -75,16 +86,21 @@ def stack_init(gen, cfg: ModelConfig, n_groups: int, dtype: torch.dtype,
 
 
 # -------------------------------------------------------------------- apply
-def _slot_apply_full(p, x: torch.Tensor, cfg: ModelConfig, ffn: str
-                     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Full-sequence slot (prefill).  Returns ``(x, {"k", "v"})``, k and v
-    (B, S, KV, hd) for the cache."""
+def _slot_apply_full(p, x: torch.Tensor, cfg: ModelConfig, ffn: str,
+                     train: bool) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Full-sequence slot (prefill or training).  Returns ``(x, {"k", "v"})``,
+    k and v (B, S, KV, hd) for the cache."""
     _, norm = make_norm(cfg)
-    y, (k, v) = attn_mod.causal_attention(p["attn"], norm(p["mixer_norm"], x), cfg)
+    y, (k, v) = attn_mod.causal_attention(p["attn"], norm(p["mixer_norm"], x), cfg,
+                                          train=train)
     x = x + y
     if ffn != "none":
         x = x + ffn_apply(p["ffn"], norm(p["ffn_norm"], x), cfg)
     return x, {"k": k, "v": v}
+
+
+def _slot_train(p, x: torch.Tensor, cfg: ModelConfig, ffn: str) -> torch.Tensor:
+    return _slot_apply_full(p, x, cfg, ffn, train=True)[0]
 
 
 def _slot_apply_decode(p, x: torch.Tensor, cfg: ModelConfig, ffn: str,
@@ -99,21 +115,37 @@ def _slot_apply_decode(p, x: torch.Tensor, cfg: ModelConfig, ffn: str,
 
 
 def stack_apply_full(stack, x: torch.Tensor, cfg: ModelConfig,
-                     caches: Dict[str, Dict[str, torch.Tensor]]) -> torch.Tensor:
-    """Run the stack over the sequence, group by group, filling the caches.
+                     caches: Optional[Dict[str, Dict[str, torch.Tensor]]] = None,
+                     *, train: bool = False) -> torch.Tensor:
+    """Run the stack over the sequence, group by group.
 
-    Each layer's k and v go straight into rows ``:S`` of its group of
-    ``caches`` (``init_caches``' sequence-major ``(G, S_max, B, KV, hd)``
-    tensors), so the stacked ``(G, B, S, KV, hd)`` copies the reference
-    builds never exist.
+    Prefill (``train=False``): the flash kernel's attention, and each
+    layer's k and v go straight into rows ``:S`` of its group of ``caches``
+    (``init_caches``' sequence-major ``(G, S_max, B, KV, hd)`` tensors), so
+    the stacked ``(G, B, S, KV, hd)`` copies the reference builds never
+    exist.  Training (``train=True``, no caches): the differentiable tiled
+    attention, each slot under ``torch.utils.checkpoint`` unless
+    ``cfg.remat == "none"``, so a slot's backward recomputes its forward
+    from its input and holds only that slot's activations.
     """
+    if train != (caches is None):
+        raise ValueError("stack_apply_full fills caches on the prefill and "
+                         "none in training")
+    kinds = slot_kinds(cfg)
+    groups = {s: _unbind(stack[f"slot_{s}"], cfg.n_groups) for s in range(len(kinds))}
     for g in range(cfg.n_groups):
-        for s, (_, ffn) in enumerate(slot_kinds(cfg)):
-            x, c = _slot_apply_full(_index(stack[f"slot_{s}"], g), x, cfg, ffn)
-            dst = caches[f"slot_{s}"]
-            S = c["k"].shape[1]
-            dst["k"][g, :S] = c["k"].transpose(0, 1)
-            dst["v"][g, :S] = c["v"].transpose(0, 1)
+        for s, (_, ffn) in enumerate(kinds):
+            p = groups[s][g]
+            if train and cfg.remat != "none":
+                x = checkpoint(_slot_train, p, x, cfg, ffn, use_reentrant=False)
+            elif train:
+                x = _slot_train(p, x, cfg, ffn)
+            else:
+                x, c = _slot_apply_full(p, x, cfg, ffn, train=False)
+                dst = caches[f"slot_{s}"]
+                S = c["k"].shape[1]
+                dst["k"][g, :S] = c["k"].transpose(0, 1)
+                dst["v"][g, :S] = c["v"].transpose(0, 1)
     return x
 
 
@@ -121,8 +153,10 @@ def stack_apply_decode(stack, x: torch.Tensor, cfg: ModelConfig, caches,
                        pos: int) -> torch.Tensor:
     """One token through the stack; every cache is written in place at
     ``pos``."""
+    kinds = slot_kinds(cfg)
+    params = [_unbind(stack[f"slot_{s}"], cfg.n_groups) for s in range(len(kinds))]
+    cache = [_unbind(caches[f"slot_{s}"], cfg.n_groups) for s in range(len(kinds))]
     for g in range(cfg.n_groups):
-        for s, (_, ffn) in enumerate(slot_kinds(cfg)):
-            x = _slot_apply_decode(_index(stack[f"slot_{s}"], g), x, cfg, ffn,
-                                   _index(caches[f"slot_{s}"], g), pos)
+        for s, (_, ffn) in enumerate(kinds):
+            x = _slot_apply_decode(params[s][g], x, cfg, ffn, cache[s][g], pos)
     return x

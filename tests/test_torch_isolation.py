@@ -67,6 +67,41 @@ ENTRY_POINTS = {
 }
 
 
+
+
+def _smoke():
+    from repro_torch.configs import get_smoke
+    return get_smoke("llama3.2-3b")
+
+
+def _trainer(core):
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamW
+    from repro_torch.train import Trainer
+    return Trainer(model=build_model(_smoke()), opt=AdamW(lr=lambda s: 1e-3))
+
+
+def _adamw_init(core):
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamW
+    return AdamW(lr=lambda s: 1e-3).init(build_model(_smoke()).init())
+
+
+def _pipeline(core):
+    from repro_torch.data import SyntheticPipeline
+    from repro_torch.models import ShapeConfig
+    return SyntheticPipeline(_smoke(), ShapeConfig("t", 8, 1, "train"))
+
+
+def _launch_train(core):
+    from repro_torch.launch import train
+    return train.main(["--arch", "llama3.2-3b", "--smoke", "--steps", "1"])
+
+
+ENTRY_POINTS.update({"Trainer": _trainer, "AdamW.init": _adamw_init,
+                     "SyntheticPipeline": _pipeline, "launch.train": _launch_train})
+
+
 @pytest.mark.parametrize("entry", sorted(ENTRY_POINTS))
 def test_entry_points_default_to_the_card(entry):
     """Without ``device=`` every entry point targets the card, never the CPU."""
