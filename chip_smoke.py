@@ -72,7 +72,27 @@ Phases, each of which must pass or the script exits non-zero:
    store) with bitwise equal losses and final params checksums.  Timed:
    those three runs' step wall times, each due tick's host ms, a profiler
    trace of steps 7-9 (the fused update's device time, stream and overlap,
-   the device-busy share), peak memory and the model-FLOP share.
+   the device-busy share), peak memory and the model-FLOP share;
+10. recovery: llama3.2-3b at full width with its depth cut to 2 layers
+   (each checkpoint writes the whole state, 7.47 GB), phase 9's batch,
+   data and store, a CheckpointManager(keep=2) in a temporary directory
+   (free space checked first, removed at the end).  16 steps with a
+   non-blocking save every 8 (each right after a due tick, ordered after
+   its update by the store); a restore_verified of step 8 into a fresh
+   trainer and 8 more steps whose losses and final params checksums equal
+   the uninterrupted run's bitwise; the corruption demo on the live state
+   (flush, a flipped lane, scrub, parity repair in place, a clean
+   rescrub); four faulty checkpoints beside the good one (one lane:
+   ok_repaired and the repaired leaves equal to the saved ones; two blocks
+   of a stripe: unrecoverable, multi_corrupt, fall back; a checksum word:
+   meta_checksum, fall back; a byte of state.npz: file_checksum or
+   load_failed, fall back); SIGUSR1 and PreemptionHandler.drain (its
+   flush_seconds against the store's estimate_flush, PERF.md section 2's
+   limit of 2x, reported); the training launcher with --ckpt-dir,
+   --ckpt-every, --inject-corruption and then --resume.  Timed: the save's
+   file checksum, device-to-host copy and write, the restore's read and
+   verify, each restore_verified, the demo's scrub and repair; the peak
+   memory and the phase's wall time, with the card's name and power limit.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 the per-kernel JSON record.  All data comes from ``--seed``.
@@ -83,12 +103,15 @@ import argparse
 import contextlib
 import dataclasses
 import gc
+import io
 import json
+import math
 import os
 import statistics
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 # Deterministic cuBLAS for phase 9's train steps (determinism mode), read
@@ -99,7 +122,7 @@ import torch  # noqa: E402
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
-from repro_torch.common import flatten_dict  # noqa: E402
+from repro_torch.common import flatten_dict, replace_leaves  # noqa: E402
 from repro_torch.configs import get_arch  # noqa: E402
 from repro_torch.core import LeafPolicy, ProtectedStore, RedundancyPolicy  # noqa: E402
 from repro_torch.core import bits, blocks  # noqa: E402
@@ -143,6 +166,13 @@ TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, OBS_STEPS = "llama3.2-3b", 1, 4
 TRAIN_PERIOD, TRAIN_DEADLINE, TRAIN_SCRUB = 8, 16, 16
 TRAIN_TRACE = (7, 9)                    # the due tick at 8 and the step after it
 TRAIN_CORRUPT = ("m/stack/slot_0/ffn/wi", "params/stack/slot_0/attn/wq")
+
+# Recovery (phase 10): llama3.2-3b at full width with its depth cut to 2
+# layers (each checkpoint writes the whole state: 7.5 GB at depth 2, 40.2 GB
+# at 28), phase 9's batch, data and store; a checkpoint every 8 steps.
+REC_LAYERS, REC_STEPS, REC_CKPT_EVERY, REC_PREEMPT_AT = 2, 16, 8, 3
+REC_LEAF = "params/stack/slot_0/attn/wk"   # the leaf the checkpoint faults corrupt
+REC_DISK_CKPTS = 3                          # at most on disk at once (keep=2, +1)
 
 SPECIALS = [0x7FC00000, 0x7F800000, 0xFF800000, 0x7F800001, 0x00000000, 0xFFFFFFFF]
 
@@ -1298,6 +1328,333 @@ def train_corruption(store, leaves: dict, red: dict) -> dict:
     return {n: b for n, (b, _) in saved.items()}
 
 
+def rec_state_bytes(structs: dict, store) -> int:
+    """Bytes of one checkpoint of the recovery phase's TrainState: the
+    protected leaves and every redundancy field."""
+    leaf = sum(math.prod(s.shape) * s.dtype.itemsize for s in structs.values())
+    red = sum(4 * (m.n_blocks + m.n_stripes * m.lanes_per_block + 2 * m.n_dirty_words + 1)
+              for m in store.protected_metas.values())
+    return leaf + red
+
+
+def params_checksums(state) -> dict:
+    """A K1 checksum of every params leaf (the resume's bitwise check)."""
+    return {n: ck_ops.block_checksums(blocks.to_lanes(p, blocks.make_meta(p)))
+            for n, p in flatten_dict(state.params).items()}
+
+
+def leaves_equal(a: dict, b: dict) -> bool:
+    return a.keys() == b.keys() and all(
+        torch.equal(blocks.to_lanes(v, blocks.make_meta(v)),
+                    blocks.to_lanes(b[n], blocks.make_meta(b[n]))) for n, v in a.items())
+
+
+def rec_save_times(ckpt) -> dict:
+    """The latest save's parts (ms) and their rates (GB/s)."""
+    r = ckpt.last_save
+    gb = r["bytes"] / 1e9
+    return {"gb": gb, **{f"{k}_ms": r[f"{k}_s"] * 1e3 for k in ("checksum", "copy", "write")},
+            **{f"{k}_gb_per_s": gb / r[f"{k}_s"] for k in ("checksum", "copy", "write")}}
+
+
+def rec_restore(ckpt, trainer_of, label: str, want: list, **kw):
+    """``restore_verified`` into a fresh trainer (a new store, as a restart
+    has); checks ``tried`` is one of the lists in ``want`` and returns the
+    state, the trainer, the report and the times (the whole call, and the
+    file read and verify of the candidate that was returned)."""
+    tr = trainer_of()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)      # multi_corrupt's warning
+        state = ckpt.restore_verified(tr.state_struct(), tr.store, **kw)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    rep = ckpt.last_restore_report
+    check(rep.tried in want, f"{label}: restore_verified tried {rep.tried}, expected "
+                             f"one of {want}")
+    check(state is not None, f"{label}: nothing restored")
+    r = ckpt.last_restore
+    gb = r["bytes"] / 1e9
+    return state, tr, rep, {"restore_verified_ms": ms, "gb": gb,
+                            "read_ms": r["read_s"] * 1e3, "verify_ms": r["verify_s"] * 1e3,
+                            "read_gb_per_s": gb / r["read_s"],
+                            "verify_gb_per_s": gb / r["verify_s"]}
+
+
+def rec_fault(ckpt, state, step: int, case: str, g):
+    """Save ``state`` as ``step`` with one fault: a lane of one block of
+    REC_LEAF (``single``), two blocks of one stripe (``multi``), a word of
+    that leaf's checksums (``meta``), or a byte in the middle of state.npz
+    (``npz_byte``).  The live state is not touched (the faults go into
+    clones).  Returns what was corrupted."""
+    meta = blocks.make_meta(protected_leaves(state.params, state.opt)[REC_LEAF])
+    leaf = flatten_dict(state.params)[REC_LEAF[len("params/"):]].clone()
+    lanes = blocks.to_lanes(leaf, meta)
+    check(lanes.data_ptr() == leaf.data_ptr(), f"{REC_LEAF}: lane view is a copy")
+    stripe = int(torch.randint(0, meta.n_blocks // STRIPE, (1,), generator=g, device=DEVICE))
+    b0 = stripe * STRIPE
+    red = state.red
+    if case == "single":
+        lanes[b0 + 1, 7] ^= 0x1000
+    elif case == "multi":
+        lanes[b0, 7] ^= 0x1000
+        lanes[b0 + 2, 99] ^= 0x1
+    elif case == "meta":
+        r = red[REC_LEAF]
+        ck = r.checksums.clone()
+        ck[b0] ^= 0x10000
+        red = dict(red, **{REC_LEAF: dataclasses.replace(r, checksums=ck)})
+    if case in ("single", "multi"):
+        params = replace_leaves(state.params, {REC_LEAF[len("params/"):]: leaf})
+    else:
+        params = state.params
+    faulty = dataclasses.replace(state, params=params, red=red)
+    ckpt.save(step, faulty, blocking=True)
+    if case == "npz_byte":
+        f = Path(ckpt.dir) / f"step_{step}" / "state.npz"
+        with open(f, "r+b") as fh:
+            fh.seek(f.stat().st_size // 2)
+            byte = fh.read(1)
+            fh.seek(-1, 1)
+            fh.write(bytes([byte[0] ^ 0xFF]))
+    return {"case": case, "step": step, "stripe": stripe, "block": b0}
+
+
+def phase_recovery(seed: int) -> dict:
+    """Phase 10: the recovery path on llama3.2-3b at full width, 2 layers.
+
+    Train 16 steps with a non-blocking save every 8 (each right after a
+    due tick, its update on the side stream); resume from step 8 into a
+    fresh trainer and check steps 9-16 bitwise; the corruption demo on the
+    live state; four corrupted checkpoints classified by
+    ``restore_verified``; an in-process preemption (SIGUSR1, drain); and
+    the launcher itself with its recovery flags.  Returns the phase's
+    record (its launch counts under ``launches``)."""
+    import shutil
+    import signal
+    import tempfile
+    from repro_torch.ckpt import CheckpointManager, PreemptionHandler
+    from repro_torch.launch import train as launcher
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(get_arch(TRAIN_ARCH), n_layers=REC_LAYERS)
+    got = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_ff, cfg.padded_vocab,
+           cfg.param_dtype, cfg.moment_dtype)
+    check(got == (3072, 24, 8, 8192, 129024, "bfloat16", "float32"),
+          f"{TRAIN_ARCH} is not at full width: {got}")
+    model = build_model(cfg, DEVICE)
+    data = SyntheticPipeline(cfg, ShapeConfig("train_4k_batch1", TRAIN_SEQ, TRAIN_BATCH,
+                                              "train"), seed=seed, device=DEVICE)
+    opt = AdamW(lr=warmup_cosine(1e-3, 10, REC_STEPS), moment_dtype=cfg.moment_dtype)
+    meta = Model(cfg, torch.device("meta")).init()
+    structs = protected_structs(meta, opt.init(meta))
+
+    def trainer_of():
+        return train_trainer(model, opt, structs, "async")
+
+    g = torch.Generator(device=DEVICE).manual_seed(seed + 10)
+    d = tempfile.mkdtemp(prefix="vilamb_ckpt_")
+    launch_dir = tempfile.mkdtemp(prefix="vilamb_launch_")
+    handlers = {s: signal.getsignal(s) for s in (signal.SIGTERM, signal.SIGUSR1)}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    try:
+        trainer = trainer_of()
+        ckpt_gb = rec_state_bytes(structs, trainer.store) / 1e9
+        free_gb = shutil.disk_usage(d).free / 1e9
+        check(free_gb > REC_DISK_CKPTS * ckpt_gb * 1.1,
+              f"phase 10 needs {REC_DISK_CKPTS} checkpoints of {ckpt_gb:.2f} GB on disk "
+              f"({REC_DISK_CKPTS * ckpt_gb * 1.1:.1f} GB with a tenth spare) in {d}; "
+              f"{free_gb:.1f} GB are free")
+        ckpt = CheckpointManager(d, keep=2, device=DEVICE)
+        saves = {}
+
+        # 1. Train REC_STEPS steps, saving every REC_CKPT_EVERY without blocking.
+        losses: list = []
+
+        def on_step(st, metrics):
+            losses.append(metrics["loss"])
+            if st.step % REC_CKPT_EVERY == 0:
+                ckpt.save(st.step, st, blocking=False, store=trainer.store)
+                saves[st.step] = ckpt.last_save
+        state = trainer.init_state(torch.Generator(device=DEVICE).manual_seed(seed))
+        state = trainer.run(state, data, REC_STEPS, on_step=on_step)
+        ckpt.wait()
+        save_ms = rec_save_times(ckpt)
+        check(ckpt.steps() == [REC_CKPT_EVERY, REC_STEPS], f"checkpoints {ckpt.steps()}")
+        loss_bits = torch.stack(losses).view(torch.int32).clone()
+        check(bool(torch.isfinite(torch.stack(losses)).all()), "non-finite losses")
+        want_sums = params_checksums(state)
+
+        # 2. Resume from the step-8 checkpoint (saved right after a due tick).
+        res, tr2, _, restore_ms = rec_restore(ckpt, trainer_of, "resume",
+                                              [[(REC_CKPT_EVERY, "ok")]], step=REC_CKPT_EVERY)
+        check(res.step == REC_CKPT_EVERY, f"resumed at step {res.step}")
+        res_losses: list = []
+        res = tr2.run(res, data, REC_STEPS - REC_CKPT_EVERY,
+                      on_step=lambda st, m: res_losses.append(m["loss"]))
+        check(torch.equal(torch.stack(res_losses).view(torch.int32),
+                          loss_bits[REC_CKPT_EVERY:]),
+              f"losses after the resume differ: {torch.stack(res_losses).tolist()} vs "
+              f"{torch.stack(losses)[REC_CKPT_EVERY:].tolist()}")
+        got_sums = params_checksums(res)
+        check(all(torch.equal(v, want_sums[n]) for n, v in got_sums.items()),
+              "final params checksums differ after the resume")
+        del res, tr2, res_losses
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # 3. The corruption demo on the live state, as --inject-corruption.
+        store = trainer.store
+        state = trainer.flush(state)
+        leaves = protected_leaves(state.params, state.opt)
+        name = sorted(store.protected_metas)[0]
+        with torch.no_grad():
+            lanes = blocks.to_lanes(leaves[name], store.metas[name])
+            check(lanes.data_ptr() == leaves[name].data_ptr(), f"{name}: lane view is a copy")
+            lanes[0, 0] += 0xDEAD
+        mm, scrub_ms = timed(lambda: store.scrub(leaves, state.red))
+        detected = sum(int(v.sum()) for v in mm.values())
+        (repaired, fixed, lost), repair_ms = timed(
+            lambda: store.repair(leaves, state.red, mm))
+        residual = sum(int(v.sum()) for v in store.scrub(repaired, state.red).values())
+        demo = {"leaf": name, "detected": detected, "repaired": fixed, "unrecoverable": lost,
+                "residual": residual, "scrub_ms": scrub_ms, "repair_ms": repair_ms}
+        check((detected, fixed, lost, residual) == (1, 1, 0, 0),
+              f"corruption demo: {demo}")
+        check(all(repaired[n] is leaves[n] for n in leaves), "repair did not work in place")
+
+        # 4. Corrupted checkpoints, each beside the good step-16 one.
+        live = protected_leaves(state.params, state.opt)
+        faults = {}
+        good = (REC_STEPS, "ok")
+        cases = (("single", [[(REC_STEPS + 1, "ok_repaired")]]),
+                 ("multi", [[(REC_STEPS + 2, "unrecoverable"), good]]),
+                 ("meta", [[(REC_STEPS + 3, "meta_checksum"), good]]),
+                 ("npz_byte", [[(REC_STEPS + 4, "file_checksum"), good],
+                               [(REC_STEPS + 4, "load_failed"), good]]))
+        for i, (case, want) in enumerate(cases, start=1):
+            step = REC_STEPS + i
+            fault = rec_fault(ckpt, state, step, case, g)
+            rst, _, rep, times = rec_restore(ckpt, trainer_of, case, want)
+            fault.update(tried=rep.tried, repaired_blocks=rep.repaired_blocks,
+                         lost_blocks=rep.lost_blocks,
+                         unrecoverable=[(u.leaf, u.stripe, list(u.blocks), u.reason)
+                                        for u in rep.unrecoverable], **times)
+            if case == "single":
+                check(rep.repaired_blocks == 1, f"single: {rep.repaired_blocks} repaired")
+                check(leaves_equal(protected_leaves(rst.params, rst.opt), live),
+                      "single: the repaired restore differs from the saved leaves")
+            if case == "multi":
+                check(fault["unrecoverable"] == [(REC_LEAF, fault["stripe"],
+                                                  [fault["block"], fault["block"] + 2],
+                                                  "multi_corrupt")],
+                      f"multi: {fault['unrecoverable']}")
+            shutil.rmtree(Path(d) / f"step_{step}")
+            faults[case] = fault
+            del rst
+            gc.collect()
+            torch.cuda.empty_cache()
+
+        # 5. Preemption in-process: SIGUSR1, then the drain.
+        state = trainer.run(state, data, REC_PREEMPT_AT)
+        handler = PreemptionHandler().install()
+        os.kill(os.getpid(), signal.SIGUSR1)
+        check(handler.requested, "SIGUSR1 did not request the drain")
+        est = store.estimate_flush(state.red)
+        state = handler.drain(trainer, state, ckpt)
+        drain = {"flush_s": handler.flush_seconds, "estimate_s": est.seconds,
+                 "ratio": handler.flush_seconds / est.seconds,
+                 "dirty_bytes": est.dirty_bytes, "stripe_bytes": est.stripe_bytes,
+                 "write_bytes": est.write_bytes,
+                 "copy_gb_per_s": store.copy_bytes_per_sec() / 1e9,
+                 "save": rec_save_times(ckpt)}
+        check(ckpt.steps()[-1] == state.step, f"drain saved {ckpt.steps()}")
+        check(sum(int(v.sum()) for v in trainer.scrub_fn(state).values()) == 0,
+              "the drained state does not scrub clean")
+        del trainer, store, state, leaves, repaired, live, mm
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # 6. The launcher itself: checkpoints, the demo, then --resume.
+        cli = ["--arch", TRAIN_ARCH, "--smoke", "--ckpt-dir", launch_dir, "--device", DEVICE,
+               "--log-every", "4"]
+        outs = []
+        for extra in (["--steps", "8", "--ckpt-every", "4", "--inject-corruption", "6"],
+                      ["--steps", "4", "--resume"]):
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                launcher.main(cli + extra)
+            outs.append(buf.getvalue())
+        check("[vilamb] injected corruption: detected=1 repaired=1 unrecoverable=0 "
+              "residual=0" in outs[0], f"launcher: {outs[0]}")
+        check("[train] resumed from step 8" in outs[1] and "[train] step 12 loss" in outs[1],
+              f"launcher --resume: {outs[1]}")
+        torch.cuda.synchronize()
+        launches = read_launches()
+        for kname in ("checksum", "parity", "fused_update"):
+            check(launches[kname] > 0, f"{kname} kernel never launched on the recovery path")
+    finally:
+        for sig, h in handlers.items():
+            signal.signal(sig, h)
+        shutil.rmtree(d, ignore_errors=True)
+        shutil.rmtree(launch_dir, ignore_errors=True)
+    return {"reduced": {"n_layers": [28, REC_LAYERS],
+                        "why": "each checkpoint writes the whole state: "
+                               f"{ckpt_gb:.2f} GB at depth {REC_LAYERS}, about 40 GB at 28; "
+                               "phase 9 covers the full depth"},
+            "checkpoint_gb": ckpt_gb, "disk_free_gb": free_gb,
+            "losses": torch.stack(losses).tolist(), "save": save_ms,
+            "saves_in_run": {s: {k: v for k, v in r.items() if k.endswith("_s")}
+                             for s, r in saves.items()},
+            "resume": restore_ms, "demo": demo, "faults": faults, "drain": drain,
+            "launcher": [o.strip().splitlines() for o in outs], "launches": launches,
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
+            "wall_s": time.perf_counter() - t_phase}
+
+
+def print_recovery(rec: dict) -> None:
+    """Phase 10's lines: its times, checks and the card."""
+    sv, rs, dr = rec["save"], rec["resume"], rec["drain"]
+    print(f"recovery ({rec['wall_s']:.1f} s): {TRAIN_ARCH} at full width, depth cut to "
+          f"{REC_LAYERS} ({rec['reduced']['why']}); launches {rec['launches']}; peak "
+          f"{rec['peak_mem_gb']:.2f} GiB; losses {[round(x, 4) for x in rec['losses']]}")
+    print(f"recovery: save of step {REC_STEPS} ({sv['gb']:.3f} GB): file checksum "
+          f"{sv['checksum_ms']:.1f} ms ({sv['checksum_gb_per_s']:.1f} GB/s), device-to-host "
+          f"{sv['copy_ms']:.1f} ms ({sv['copy_gb_per_s']:.2f} GB/s), write "
+          f"{sv['write_ms']:.1f} ms ({sv['write_gb_per_s']:.2f} GB/s)")
+    print(f"recovery: restore_verified of step {REC_CKPT_EVERY} {rs['restore_verified_ms']:.1f} "
+          f"ms: read {rs['read_ms']:.1f} ms ({rs['read_gb_per_s']:.2f} GB/s), verify "
+          f"{rs['verify_ms']:.1f} ms ({rs['verify_gb_per_s']:.1f} GB/s); steps "
+          f"{REC_CKPT_EVERY + 1}-{REC_STEPS} after the resume bitwise equal to the "
+          f"uninterrupted run (losses and final params checksums)")
+    d = rec["demo"]
+    print(f"recovery: injected corruption in {d['leaf']}: detected={d['detected']} "
+          f"repaired={d['repaired']} unrecoverable={d['unrecoverable']} "
+          f"residual={d['residual']}; scrub {d['scrub_ms']:.2f} ms, repair "
+          f"{d['repair_ms']:.2f} ms")
+    for case, f in rec["faults"].items():
+        print(f"recovery: checkpoint fault {case}: tried {f['tried']}, repaired "
+              f"{f['repaired_blocks']}, lost {f['lost_blocks']} {f['unrecoverable']}; "
+              f"restore_verified {f['restore_verified_ms']:.1f} ms")
+    print(f"recovery: drain after SIGUSR1: flush_seconds {dr['flush_s'] * 1e3:.3f} ms "
+          f"against estimate_flush {dr['estimate_s'] * 1e3:.3f} ms (ratio "
+          f"{dr['ratio']:.2f}: PERF.md section 2's limit of 2 "
+          f"{'held' if dr['ratio'] <= 2 else 'MISSED'}; copy rate "
+          f"{dr['copy_gb_per_s']:.1f} GB/s); "
+          f"blocking save {dr['save']['checksum_ms'] + dr['save']['copy_ms'] + dr['save']['write_ms']:.1f} ms")
+    print(f"recovery: launcher: {rec['launcher']}")
+
+
+def smi_line() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return smi.stdout.strip().splitlines()[0]
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1305,10 +1662,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True)
-    print(smi.stdout.strip().splitlines()[0])
+    print(smi_line())
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}", flush=True)
 
@@ -1437,10 +1791,20 @@ def main() -> int:
           f"and no store; lazy embedding rows bit-identical; full check, scrub and "
           f"recovery passed")
     print(json.dumps({"train": train}))
+    train_launches = m["launches"]
+    del train
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    rec = phase_recovery(args.seed)
+    print_recovery(rec)
+    print(smi_line())
+    print(json.dumps({"recovery": rec}))
     for row in kernels:
         by_path = {"heap": heap_launches.get(row["name"], 0),
                    "serving": serve_launches[row["name"]],
-                   "training": m["launches"][row["name"]]}
+                   "training": train_launches[row["name"]],
+                   "recovery": rec["launches"][row["name"]]}
         row["launches"] = sum(by_path.values())
         row["launches_by_path"] = by_path
     print(json.dumps({"kernels": kernels}))

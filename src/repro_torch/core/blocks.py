@@ -152,6 +152,13 @@ def stripe_dirty_mask(meta: BlockMeta, block_dirty: torch.Tensor) -> torch.Tenso
     return padded.view(meta.n_stripes, meta.stripe_data_blocks).any(dim=1)
 
 
+def global_stripe_id(meta: BlockMeta, block: int) -> int:
+    """Stripe id of a block id: the reference's name for the formula that
+    repair grouping and clean-stripe planning share.  The port is
+    machine-local (one shard), so it is ``block // P``."""
+    return int(block) // meta.stripe_data_blocks
+
+
 def _row_geometry(meta: BlockMeta, row_dims: int):
     """(row_lanes, blocks_per_row) for rows over the first ``row_dims`` axes."""
     row_elems = (math.prod(meta.shape[row_dims:])

@@ -35,8 +35,16 @@ def red_from_numpy(red: Mapping[str, Any],
     return out
 
 
-def red_to_numpy(red: RedundancyState) -> Dict[str, Dict[str, np.ndarray]]:
-    """Inverse of :func:`red_from_numpy`: uint32 numpy arrays per field."""
+def red_to_numpy(red: RedundancyState, store=None) -> Dict[str, Dict[str, np.ndarray]]:
+    """Inverse of :func:`red_from_numpy`: uint32 numpy arrays per field.
+
+    Pass the ``store`` that owns ``red`` when an update may be in flight (on
+    the card, right after a due tick): its checksums and parity are being
+    refreshed in place on the store's side stream, and the copy is then
+    ordered after that update (``store.await_inflight()``).  Without it
+    the copy may mix old and new entries."""
+    if store is not None:
+        store.await_inflight()
     return {name: {f: getattr(r, f).detach().cpu().numpy().view(np.uint32)
                    for f in FIELDS}
             for name, r in red.items()}

@@ -24,7 +24,8 @@ pending update's own arrays.  Stream-ordering rule: ``red``'s
 update only on the stream that called ``settle``, ``flush`` or an
 adopting ``tick`` (or a store reader such as ``verify_meta``, which
 makes its stream wait on the update on the device); any other stream
-must be ordered after that call before it reads them.  The store runs on
+must be ordered after that call, or call ``await_inflight`` (which
+adopts nothing), before it reads them.  The store runs on
 the GPU unless the caller passes ``device="cpu"``, where dispatch runs
 to completion and the live view keeps the previous epoch's arrays, as
 the reference's does.
@@ -935,6 +936,21 @@ class ProtectedStore:
         return sum(self._scrub_group(g, {n: leaves[n] for n in g.names}, red)[0]
                    for g in self._protected())
 
+    def await_inflight(self) -> "ProtectedStore":
+        """Order the current stream after every in-flight update, on the
+        device (no host wait, no adoption, so the schedule is unchanged).
+
+        The rule for readers of ``red`` outside the store (a checkpoint, a
+        copy to the host): on the card a due tick's update refreshes the
+        live view's checksums and parity in place on the side stream, so
+        call this on the stream that reads them first.  What is read is
+        then the live view after the update: new checksums, parity and
+        meta-checksum, with ``shadow`` still marking the in-flight blocks
+        (consistent and conservative).  A no-op on the CPU."""
+        for g in self._protected():
+            self._await_update(g)
+        return self
+
     def verify_meta(self, red: RedundancyState) -> Dict[str, torch.Tensor]:
         """Checksum-of-checksums check per leaf; an in-flight update's
         checksums are read only after it finished (a device-side wait)."""
@@ -954,6 +970,19 @@ class ProtectedStore:
                 self._await_update(g)
                 return g.engine.recover_block(leaf, r, name, block_id)
         raise KeyError(f"{name} is not parity-protected")
+
+    def repair(self, leaves: Mapping[str, torch.Tensor], red: RedundancyState,
+               mismatches: Mapping[str, Any],
+               details: Optional[List[Any]] = None) -> Tuple[Dict, int, int]:
+        """Parity-rebuild every detected-corrupt block, in place; returns
+        ``(leaves, n_fixed, n_lost)`` (see
+        :func:`~repro_torch.ckpt.failure.repair_corruption`).  Each rebuild
+        goes through :meth:`recover_block`, so it never reads parity that
+        an in-flight update is still rewriting.  ``details`` (optional
+        list) collects one :class:`~repro_torch.core.repairs.UnrecoverableBlock`
+        per refused stripe."""
+        from ..ckpt.failure import repair_corruption
+        return repair_corruption(self, leaves, red, mismatches, details=details)
 
     def vulnerable_masks(self, red: RedundancyState) -> Dict[str, torch.Tensor]:
         """Per-leaf bool[n_blocks] masks of the vulnerability window."""

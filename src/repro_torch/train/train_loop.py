@@ -30,6 +30,7 @@ from typing import Any, Callable, Dict, Optional
 import torch
 
 from ..common import flatten_dict, replace_leaves
+from ..core.state import empty_leaf_red
 from ..core.store import ProtectedStore
 from ..optim.adamw import AdamW
 from .state import TrainState, protected_leaves, replace_protected
@@ -172,6 +173,17 @@ class Trainer:
         if self.store is not None:
             red = self.store.init(protected_leaves(params, opt_state))
         return TrainState.create(params, opt_state, red)
+
+    def state_struct(self) -> TrainState:
+        """A TrainState of meta tensors with the shapes and dtypes of
+        :meth:`init_state`'s (the template ``CheckpointManager.restore_into``
+        fills; the reference uses ``jax.eval_shape``)."""
+        params = dataclasses.replace(self.model, device=torch.device("meta")).init()
+        red = {}
+        if self.store is not None:
+            red = {n: empty_leaf_red(m, device="meta")
+                   for n, m in self.store.protected_metas.items()}
+        return TrainState.create(params, self.opt.init(params), red)
 
     def scrub_check(self, state: TrainState) -> int:
         """Scrub with the paper's double-check (delegated to the store)."""

@@ -52,8 +52,11 @@ def assert_red_equal(jred, tred, msg=""):
 
 
 def jnp_leaves(np_leaves):
+    """The leaves as jax arrays of their own: on the CPU ``jnp.asarray``
+    aliases a numpy buffer, so an in-place numpy write after an async
+    dispatch could reach a program that has not run yet."""
     import jax.numpy as jnp
-    return {k: jnp.asarray(v) for k, v in np_leaves.items()}
+    return {k: jnp.asarray(np.array(v)) for k, v in np_leaves.items()}
 
 
 # Adversarial payloads: float32 NaN/Inf patterns, zeros and saturated words

@@ -24,7 +24,7 @@ import torch
 
 import repro.core.store as jstore_mod
 import repro_torch.core.store as tstore_mod
-from _torch_helpers import assert_red_equal
+from _torch_helpers import assert_red_equal, jnp_leaves
 from repro.core import ALL as JALL
 from repro.core import LeafPolicy as JLeafPolicy
 from repro.core import ProtectedStore as JStore
@@ -92,7 +92,10 @@ class Pair:
         self.check("init")
 
     def jl(self):
-        return {k: jnp.asarray(v) for k, v in self.state.items()}
+        """The reference's leaves: copies, since ``jnp.asarray`` aliases a
+        numpy buffer on the CPU and ``write`` updates ``state`` in place
+        while a dispatched update may not have read it yet."""
+        return jnp_leaves(self.state)
 
     def tl(self):
         return convert.leaves_from_numpy(self.state, device="cpu")
@@ -357,7 +360,7 @@ def test_attach_precompiles_update_variants(monkeypatch):
                 ("redundancy_step_queued", False): "queued"}
     for async_on, precompile in ((True, True), (False, True), (True, False)):
         jpol, tpol = _policies(async_tick=async_on, precompile=precompile)
-        js = JStore(jpol).attach({k: jnp.asarray(v) for k, v in _np_leaves().items()})
+        js = JStore(jpol).attach(jnp_leaves(_np_leaves()))
         ran.clear()
         ProtectedStore(tpol, device="cpu").attach(convert.leaves_from_numpy(_np_leaves(), "cpu"))
         label = next(iter(js.groups))

@@ -98,8 +98,25 @@ def _launch_train(core):
     return train.main(["--arch", "llama3.2-3b", "--smoke", "--steps", "1"])
 
 
+def _checkpoint_manager(core):
+    import tempfile
+    from repro_torch.ckpt import CheckpointManager
+    with tempfile.TemporaryDirectory() as d:
+        return CheckpointManager(d)
+
+
+def _launch_train_resume(core):
+    import tempfile
+    from repro_torch.launch import train
+    with tempfile.TemporaryDirectory() as d:
+        return train.main(["--arch", "llama3.2-3b", "--smoke", "--steps", "1",
+                           "--ckpt-dir", d, "--resume"])
+
+
 ENTRY_POINTS.update({"Trainer": _trainer, "AdamW.init": _adamw_init,
-                     "SyntheticPipeline": _pipeline, "launch.train": _launch_train})
+                     "SyntheticPipeline": _pipeline, "launch.train": _launch_train,
+                     "CheckpointManager": _checkpoint_manager,
+                     "launch.train --resume": _launch_train_resume})
 
 
 @pytest.mark.parametrize("entry", sorted(ENTRY_POINTS))

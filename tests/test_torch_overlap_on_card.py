@@ -290,3 +290,73 @@ def test_failed_side_dispatch_reraises_on_card(cuda_device, monkeypatch):
     assert rep.updated
     with pytest.raises(RuntimeError, match="launch failed"):
         store.settle(red, {"heap": heap})
+
+
+def test_export_mid_flight_holds_one_epoch_on_card(cuda_device, tmp_path):
+    """Right after a due tick, with the update held behind a long kernel on
+    the side stream, a checkpoint saved and a host copy taken from another
+    stream (both passed the store) hold the live view after the update: the
+    restored state passes ``verify_meta`` and scrubs clean, and the host
+    copy equals the settled one.  A copy that is not ordered after the
+    update reads the old checksums (the hazard the store argument closes)."""
+    from repro_torch.ckpt import CheckpointManager
+    from repro_torch.core import convert
+    from repro_torch.train import TrainState
+    heap = _heap(cuda_device)
+    store = ProtectedStore(_policy(True)).attach({"params": {"heap": heap}})
+    red = store.init({"params/heap": heap})
+    g = torch.Generator(device=cuda_device).manual_seed(6)
+    rows = torch.randperm(ROWS, generator=g, device=cuda_device)[:1024]
+    heap.index_copy_(0, rows, torch.randn((1024, ROW), generator=g, device=cuda_device))
+    ev = torch.zeros(ROWS, dtype=torch.bool, device=cuda_device)
+    ev.index_fill_(0, rows, True)
+    red = store.on_write(red, events={"params/heap": ev})
+    old = red["params/heap"].checksums.clone()
+    _delay_side(store)
+    red, rep = store.tick({"params/heap": heap}, red, 1)
+    pending = next(iter(store.groups.values())).pending
+    assert rep.updated and not pending.done.query()
+    state = TrainState(params={"heap": heap}, opt={"m": {}, "v": {}, "count": 0},
+                       red=red, step=1)
+    other = torch.cuda.Stream(cuda_device)
+    other.wait_stream(torch.cuda.current_stream(cuda_device))
+    with torch.cuda.stream(other):
+        unordered = red["params/heap"].checksums.cpu()
+        assert not pending.done.query()
+        host = convert.red_to_numpy(red, store)
+        CheckpointManager(tmp_path, device=cuda_device).save(1, state, store=store)
+    assert torch.equal(unordered, old.cpu())             # read before the update ran
+    torch.cuda.synchronize()
+    settled = convert.red_to_numpy(red)
+    for f in FIELDS:
+        assert (host["params/heap"][f] == settled["params/heap"][f]).all(), f
+    assert not torch.equal(red["params/heap"].checksums.cpu(), old.cpu())
+    fresh = ProtectedStore(_policy(True)).attach({"params": {"heap": heap}})
+    template = TrainState(params={"heap": torch.empty_like(heap)},
+                          opt={"m": {}, "v": {}, "count": 0},
+                          red={"params/heap": red["params/heap"]}, step=0)
+    mgr = CheckpointManager(tmp_path, device=cuda_device)
+    got = mgr.restore_into(template)
+    assert all(bool(v) for v in fresh.verify_meta(got.red).values())
+    assert int(fresh.scrub({"params/heap": got.params["heap"]}, got.red)
+               ["params/heap"].sum()) == 0
+    assert torch.equal(got.params["heap"], heap)
+    restored = mgr.restore_verified(template, fresh)
+    assert mgr.last_restore_report.tried == [(1, "ok")] and restored.step == 1
+
+
+@pytest.mark.parametrize("shape,dtype", [((3, 5), torch.float32), ((5, 3), torch.bfloat16),
+                                         ((7,), torch.uint8), ((), torch.int32),
+                                         ((4097, 33), torch.bfloat16)])
+def test_file_checksum_on_card(cuda_device, shape, dtype):
+    """The checkpoint file checksum computed on the card equals its plain
+    version (the host fold over the same bytes), chunked or not."""
+    import numpy as np
+    from repro_torch.ckpt import checkpoint as ck
+    g = torch.Generator(device=cuda_device).manual_seed(7)
+    n = max(1, int(np.prod(shape)))
+    t = torch.randint(0, 256, (n * dtype.itemsize,), dtype=torch.uint8, generator=g,
+                      device=cuda_device).view(dtype)[:n].reshape(shape)
+    want = ck._np_checksum(t.cpu().reshape(-1).view(torch.uint8).numpy())
+    for chunk in (ck.CHUNK_WORDS, 1000, 3):
+        assert ck.file_checksum(t, chunk) == want

@@ -12,7 +12,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_helpers import assert_masks_equal, assert_red_equal
+from _torch_helpers import assert_masks_equal, assert_red_equal, jnp_leaves
 from repro.core import LeafPolicy as JLeafPolicy
 from repro.core import ProtectedStore as JStore
 from repro.core import RedundancyPolicy as JPolicy
@@ -27,14 +27,14 @@ def _stores(policy_kw, leaf_kw, rules, np_state):
     tpol = RedundancyPolicy(default=LeafPolicy(**leaf_kw),
                             rules=tuple((p, LeafPolicy(**kw)) for p, kw in rules),
                             async_tick=False, **policy_kw)
-    js = JStore(jpol).attach({k: jnp.asarray(v) for k, v in np_state.items()})
+    js = JStore(jpol).attach(jnp_leaves(np_state))
     ts = ProtectedStore(tpol, device="cpu").attach(
         convert.leaves_from_numpy(np_state, device="cpu"))
     return js, ts
 
 
 def _both(np_state):
-    return ({k: jnp.asarray(v) for k, v in np_state.items()},
+    return (jnp_leaves(np_state),
             convert.leaves_from_numpy(np_state, device="cpu"))
 
 

@@ -23,6 +23,12 @@ largest entry:
   without a store: bitwise.
 """
 import dataclasses
+import json
+import os
+import pathlib
+import signal
+import subprocess
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -56,6 +62,7 @@ from repro_torch.train import (TrainState, Trainer, make_train_step, protected_l
                                protected_structs, replace_protected)
 from repro_torch.train.train_loop import loss_and_grads
 
+ROOT = pathlib.Path(__file__).resolve().parents[1]
 ARCHS = ["llama3.2-3b", "olmo-1b", "glm4-9b", "nemotron-4-15b"]
 RTOL = ATOL = 1e-5
 L = 512                                   # lanes per block of the smoke stores
@@ -508,10 +515,89 @@ def test_launcher_trains_on_the_cpu(capsys):
     assert state.step == 4 and "[train] step 4 loss" in out and "alarms=0" in out
 
 
-@pytest.mark.parametrize("flag,item", [(["--ckpt-dir", "x"], "item 9"),
-                                       (["--ckpt-every", "2"], "item 9"),
-                                       (["--resume"], "item 9"),
-                                       (["--inject-corruption", "3"], "item 6")])
-def test_launcher_refuses_unported_flags(flag, item):
-    with pytest.raises(NotImplementedError, match=item):
-        launcher.main(["--arch", "llama3.2-3b", "--smoke", "--device", "cpu"] + flag)
+LAUNCH = ["--arch", "llama3.2-3b", "--smoke", "--seq", "32", "--batch", "2",
+          "--device", "cpu"]
+
+
+def test_launcher_injects_and_repairs_corruption(capsys):
+    """Flush, a flipped lane in block 0 of the first protected leaf, scrub,
+    parity repair in place, a clean rescrub; training goes on.  The
+    preemption handler is released on return."""
+    before = signal.getsignal(signal.SIGTERM), signal.getsignal(signal.SIGUSR1)
+    state = launcher.main(LAUNCH + ["--steps", "4", "--inject-corruption", "2"])
+    out = capsys.readouterr().out
+    assert "[vilamb] injected corruption: detected=1 repaired=1 unrecoverable=0 " \
+           "residual=0" in out
+    assert state.step == 4 and "alarms=0" in out
+    assert (signal.getsignal(signal.SIGTERM), signal.getsignal(signal.SIGUSR1)) == before
+
+
+def test_launcher_writes_checkpoints_every_k_steps(tmp_path, capsys):
+    from repro_torch.ckpt import CheckpointManager
+    launcher.main(LAUNCH + ["--steps", "6", "--ckpt-dir", str(tmp_path),
+                            "--ckpt-every", "2"])
+    mgr = CheckpointManager(tmp_path, device="cpu")
+    assert mgr.steps() == [2, 4, 6]
+    man = json.loads((tmp_path / "step_4" / "manifest.json").read_text())
+    assert man["step"] == 4 and "red/params/embed/checksums" in man["leaves"]
+
+
+def test_launcher_resumes_bitwise(tmp_path, capsys):
+    """Four steps, a checkpoint, then ``--resume`` for four more: the same
+    losses and final params as eight uninterrupted steps (the schedule's
+    warm-up runs ten steps, so ``--steps`` does not change it here)."""
+    def losses(out):
+        return [ln for ln in out.splitlines() if ln.startswith("[train] step")]
+    whole = launcher.main(LAUNCH + ["--steps", "8", "--log-every", "1"])
+    want = losses(capsys.readouterr().out)
+    launcher.main(LAUNCH + ["--steps", "4", "--log-every", "1", "--ckpt-dir",
+                            str(tmp_path), "--ckpt-every", "4"])
+    first = losses(capsys.readouterr().out)
+    resumed = launcher.main(LAUNCH + ["--steps", "4", "--log-every", "1", "--ckpt-dir",
+                                      str(tmp_path), "--resume"])
+    out = capsys.readouterr().out
+    assert "[train] resumed from step 4" in out
+    assert first + losses(out) == want
+    assert resumed.step == whole.step == 8
+    for n, p in flatten_dict(whole.params).items():
+        assert torch.equal(p, flatten_dict(resumed.params)[n]), n
+
+
+def test_launcher_resume_without_a_checkpoint_starts_fresh(tmp_path, capsys):
+    state = launcher.main(LAUNCH + ["--steps", "1", "--ckpt-dir", str(tmp_path),
+                                    "--resume"])
+    assert state.step == 1 and "resumed" not in capsys.readouterr().out
+
+
+def test_launcher_drains_on_sigusr1_with_exit_code_42(tmp_path):
+    """SIGUSR1 (the preemption test hook) after the handler is installed:
+    the launcher flushes, checkpoints and exits 42; the checkpoint restores
+    verified."""
+    code = (
+        "import os, signal\n"
+        "from repro_torch.ckpt import failure\n"
+        "install = failure.PreemptionHandler.install\n"
+        "def preempted(self):\n"
+        "    install(self)\n"
+        "    os.kill(os.getpid(), signal.SIGUSR1)\n"
+        "    return self\n"
+        "failure.PreemptionHandler.install = preempted\n"
+        "from repro_torch.launch import train\n"
+        f"train.main({LAUNCH + ['--steps', '6', '--ckpt-dir', str(tmp_path)]!r})\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 42, out.stderr
+    assert "[train] preempted: flushed in" in out.stdout
+    assert "checkpointed at step 6" in out.stdout
+    from repro_torch.ckpt import CheckpointManager
+    mgr = CheckpointManager(tmp_path, device="cpu")
+    assert mgr.steps() == [6]
+    cfg = get_smoke("llama3.2-3b")
+    opt = AdamW(lr=lambda s: 1e-3)
+    mp = Model(cfg, torch.device("meta")).init()
+    store = ProtectedStore(RedundancyPolicy.single("vilamb"), device="cpu").attach(
+        protected_structs(mp, opt.init(mp)))          # the launcher's geometry
+    tr = Trainer(model=build_model(cfg, "cpu"), opt=opt, store=store)
+    st = mgr.restore_verified(tr.state_struct(), tr.store)
+    assert st.step == 6 and mgr.last_restore_report.tried == [(6, "ok")]
