@@ -33,7 +33,7 @@ Phases, each of which must pass or the script exits non-zero:
    then a chunked plain recompute of all checksums and parity, bitwise;
 6. the flash-attention kernel against its plain version at small shapes
    (S in {1, 17, 128, 129, 255, 383, 1000}: around the kernel's 128-row
-   tiles; hd in {64, 128}, H/KV in {1, 3, 4}, causal and full, bf16),
+   tiles; hd in {64, 128}, H/KV in {1, 3, 4, 16}, causal and full, bf16),
    held to |got - want| <= 4e-3 + 1e-2 |want| and a
    relative L2 error ||got - want|| / ||want|| <= 1e-2, with the mean
    |want| printed beside each case's errors;
@@ -93,6 +93,37 @@ Phases, each of which must pass or the script exits non-zero:
    file checksum, device-to-host copy and write, the restore's read and
    verify, each restore_verified, the demo's scrub and repair; the peak
    memory and the phase's wall time, with the card's name and power limit.
+11. MoE serving: qwen3-moe-235b-a22b at full width (d 4,096, 64 query and
+   4 KV heads of 64, 128 experts, top-8, expert width 1,536, vocab 151,936
+   padded to 153,600, untied; random bf16 weights from the seed) with its
+   depth cut to 12 of 94 layers, which one card holds (30.68 G params, 57.2
+   GiB; 14 layers would leave under 8 GiB for the KV caches and the
+   prefill), through ``Server.generate`` with phase 7's traffic and store
+   (batch 8, 4,096-token prompts, 64 new tokens, the KV caches under
+   vilamb T=16, deadline 32, scrub every 16).  Checked: the launch counts
+   (flash once a layer), tokens identical with the overlapped store, the
+   blocking store and no store, a clean scrub, one corrupted K-cache lane
+   found and repaired, a chunked plain recompute of every cache checksum
+   and parity row, and layer 0's attention (hd 64, 16 query heads a KV
+   head) against its plain version.  Timed: prefill and decode, a traced
+   decode (device ms and launches a token), flash at this prefill's shape
+   beside its plain version and scaled_dot_product_attention, the peak;
+12. MoE training: qwen3-moe-235b-a22b at full width with its depth cut to 2
+   layers (6.16 G params; bf16 params and bf16 Adam moments, 37 GB, under
+   vilamb T=8, deadline 16, scrub every 16: 9.2 GB of parity; three layers
+   would need ~88 GB), phase 9's batch of 1 x 4,096, data and schedule
+   (AdamW(warmup_cosine(1e-3, 10, 24))): 8 steps each with the overlapped,
+   the blocking and no store, losses bitwise equal, and each step's share
+   of expert slabs routed to (recorded: with random weights and the zipf
+   stream, 30-50% of the slabs at 4,096 tokens).  Then one step of 1 x 16
+   tokens after
+   the due update is adopted: every slab no token was routed to keeps its
+   params, m and v bit for bit, its blocks are never marked dirty, and the
+   update that follows (the flush, K3 over the dirty stripes) processes
+   exactly the routed slabs' stripes, the embedding rows' and the
+   ALL-dirty leaves'; a scrub is clean.  Timed: the median step, the due
+   ticks' host ms, a trace of steps 7-8 (the fused update's device time),
+   the peak.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 the per-kernel JSON record.  All data comes from ``--seed``.
@@ -173,6 +204,14 @@ TRAIN_CORRUPT = ("m/stack/slot_0/ffn/wi", "params/stack/slot_0/attn/wq")
 REC_LAYERS, REC_STEPS, REC_CKPT_EVERY, REC_PREEMPT_AT = 2, 16, 8, 3
 REC_LEAF = "params/stack/slot_0/attn/wk"   # the leaf the checkpoint faults corrupt
 REC_DISK_CKPTS = 3                          # at most on disk at once (keep=2, +1)
+
+# MoE (phases 11 and 12): qwen3-moe-235b-a22b at full width, depth cut to
+# what one card holds (serving 12 of 94 layers, training 2); one layer is
+# 2,452,103,168 params, the embedding and the head 1,258,291,200.
+MOE_ARCH, MOE_SERVE_LAYERS, MOE_TRAIN_LAYERS = "qwen3-moe-235b-a22b", 12, 2
+MOE_LAYER_PARAMS, MOE_EMBED_HEAD_PARAMS = 2_452_103_168, 1_258_291_200
+MOE_SPARSE_SEQ = 16                      # the sparse step's tokens (x top-8)
+MOE_TRACE = (7, 8)                       # the due tick at 8
 
 SPECIALS = [0x7FC00000, 0x7F800000, 0xFF800000, 0x7F800001, 0x00000000, 0xFFFFFFFF]
 
@@ -269,21 +308,24 @@ def phase_kernels(g) -> dict:
     return err
 
 
-def record_k3_streams():
+def record_k3(count_stripes: bool = False):
     """Wrap the fused update's wrapper so that every launch records the
-    stream it was made on; returns the record and a function that puts
-    the wrapper back."""
-    streams: list = []
+    stream it was made on, its lanes' address and, with ``count_stripes``,
+    the number of stripes in its queue (a host wait: for a check only, off
+    the timed path); returns the records ``(stream, lanes address, stripes
+    or None)`` and a function that puts the wrapper back."""
+    calls: list = []
     launch = fu_ops.fused_update
 
-    def record(*a, **kw):
-        streams.append(torch.cuda.current_stream())
-        return launch(*a, **kw)
+    def record(lanes, checksums, parity, block_dirty, stripe_dirty, *a, **kw):
+        calls.append((torch.cuda.current_stream(), lanes.data_ptr(),
+                      int(stripe_dirty.sum()) if count_stripes else None))
+        return launch(lanes, checksums, parity, block_dirty, stripe_dirty, *a, **kw)
 
     def restore():
         fu_ops.fused_update = launch
     fu_ops.fused_update = record
-    return streams, restore
+    return calls, restore
 
 
 def heap_policy(async_tick: bool) -> RedundancyPolicy:
@@ -420,7 +462,7 @@ def phase_main(g) -> dict:
     policy = heap_policy(async_tick=True)
     check(RedundancyPolicy().async_tick and policy.async_tick,
           "the overlapped tick is not the default")
-    k3_streams, restore_k3 = record_k3_streams()
+    k3_streams, restore_k3 = record_k3()
     torch.cuda.synchronize()
     ck_ops.LAUNCHES = par_ops.LAUNCHES = fu_ops.LAUNCHES = 0
     torch.cuda.reset_peak_memory_stats()
@@ -444,13 +486,13 @@ def phase_main(g) -> dict:
         n = len(k3_streams)
         red = heap_steps(store, state, red, plan, range(first, last + 1), rec["async"],
                          k3_streams)
-        check(all(s == side for s in k3_streams[n:]),
+        check(all(c[0] == side for c in k3_streams[n:]),
               "a fused update of the overlapped store ran off its side stream")
         n = len(k3_streams)
         with uncounted():
             twin_red = heap_steps(twin, twin_state, twin_red, plan, range(first, last + 1),
                                   rec["blocking"], k3_streams)
-        check(all(s == torch.cuda.current_stream() for s in k3_streams[n:]),
+        check(all(c[0] == torch.cuda.current_stream() for c in k3_streams[n:]),
               "a fused update of the blocking store ran off the caller's stream")
         if last < STEPS - 1:
             red = store.settle(red, state, step=last)
@@ -689,7 +731,7 @@ def phase_flash_small(g) -> list:
     cases, KV = [], 2
     for S in (1, 17, 128, 129, 255, 383, 1000):
         for hd in (64, 128):
-            for group in (1, 3, 4):
+            for group in (1, 3, 4, 16):
                 for causal in (True, False):
                     q, k, v = (torch.randn((2, S, n, hd), generator=g, device=DEVICE)
                                .to(torch.bfloat16) for n in (KV * group, KV, KV))
@@ -911,7 +953,8 @@ def phase_serve(g) -> dict:
     with torch.inference_mode():
         out["red"], checks = serve_checks(g, store, flatten_dict(stats["caches"]),
                                           stats["red"])
-        out["layer0_err"], out["layer0_qkv"] = layer0_attention(model, params, batch)
+        out["layer0_qkv"] = layer0_qkv(model, params, batch)
+        out["layer0_err"] = layer0_err(*out["layer0_qkv"])
     decode_ms = sum(rec["decode_ms"]) + sum(t["ms"] for t in rec["ticks"])
     bare_decode_ms = sum(bare_rec["decode_ms"])
     mean = {k: sum(v) / len(v) for k, v in walls.items()}
@@ -963,54 +1006,62 @@ def serve_checks(g, store, leaves: dict, red: dict):
     red, flush_ms = timed(lambda: store.flush(leaves, red, step=GEN))
     name = "slot_0/k"
     meta = store.metas[name]
-    lanes = blocks.to_lanes(leaves[name], meta)
-    check(lanes.data_ptr() == leaves[name].data_ptr(), "cache lane view is not a view")
-    bad = int(torch.randint(0, meta.n_blocks, (1,), generator=g, device=DEVICE))
-    saved = lanes[bad].clone()
-    lanes[bad, 99] ^= 0xBAD
+    leaf = leaves[name]
+    # The leaf's own words: its lane view where that is a view (llama's
+    # caches fill whole blocks), its flat words otherwise (qwen3-moe's end
+    # inside a block, so the store works on a padded copy).
+    view = blocks.to_lanes(leaf, meta).data_ptr() == leaf.data_ptr()
+    words = leaf.view(-1).view(torch.int32)
+    L = meta.lanes_per_block
+    bad = int(torch.randint(0, words.numel() // L, (1,), generator=g, device=DEVICE))
+    saved = words[bad * L:(bad + 1) * L].clone()
+    words[bad * L + 99] ^= 0xBAD
     masks, scrub2_ms = timed(lambda: store.scrub(leaves, red))
     flagged = {n: torch.nonzero(m).flatten().tolist() for n, m in masks.items()}
     check(flagged[name] == [bad] and all(not v for n, v in flagged.items() if n != name),
           f"scrub flagged {flagged}, expected [{bad}] in {name}")
-    (fixed, ok), recover_ms = timed(
-        lambda: store.recover_block(leaves[name], red[name], name, bad))
-    check(ok and fixed.data_ptr() == leaves[name].data_ptr(),
-          "recover_block refused or copied")
-    check(torch.equal(lanes[bad], saved), "recovered cache block differs from the original")
+    (fixed, ok), recover_ms = timed(lambda: store.recover_block(leaf, red[name], name, bad))
+    check(ok and (fixed.data_ptr() == leaf.data_ptr()) == view,
+          "recover_block refused, or copied a leaf whose lane view is a view")
+    if not view:
+        leaf.copy_(fixed)
+    check(torch.equal(words[bad * L:(bad + 1) * L], saved),
+          "recovered cache block differs from the original")
     masks, rescrub_ms = timed(lambda: store.scrub(leaves, red))
     check(sum(int(m.sum()) for m in masks.values()) == 0, "rescrub after repair flags blocks")
     check(all(bool(v) for v in store.verify_meta(red).values()), "verify_meta failed")
     return red, {"scrub_ms": scrub_ms, "flush_ms": flush_ms,
                  "flush_dirty_blocks_slot0_k": stats["dirty_blocks"],
-                 "corrupted_block": bad, "scrub_flagged_ms": scrub2_ms,
+                 "corrupted_block": bad, "cache_lane_view": view,
+                 "scrub_flagged_ms": scrub2_ms,
                  "recover_ms": recover_ms, "rescrub_ms": rescrub_ms}
 
 
-def layer0_attention(model, params, batch):
-    """Layer 0's prefill attention, kernel against plain, for one sequence at
-    S = 4,096; returns the error and the whole batch's layer-0 q, k, v (the
-    prefill's shapes, for phase 8)."""
+def layer0_qkv(model, params, batch):
+    """Layer 0's prefill q, k, v of the whole batch (the prefill's shapes)."""
     p = params["stack"]["slot_0"]
     x = params["embed"][batch["tokens"].long()]
     h = layers.rmsnorm(x, p["mixer_norm"]["scale"][0])
     pos = torch.arange(PROMPT, device=DEVICE)[None, :]
-    q, k, v = attention._qkv({n: w[0] for n, w in p["attn"].items()}, h, model.cfg, pos)
-    e = flash_err(fa_ops.flash_attention(q[:1], k[:1], v[:1]),
-                  fa_ref.attention(q[:1], k[:1], v[:1]), "layer 0, one sequence")
-    return e, (q, k, v)
+    return attention._qkv({n: w[0] for n, w in p["attn"].items()}, h, model.cfg, pos)
 
 
-def phase_flash_time(serve: dict, err: float):
+def layer0_err(q, k, v) -> dict:
+    """Layer 0's prefill attention, kernel against plain, for one sequence
+    at S = 4,096."""
+    return flash_err(fa_ops.flash_attention(q[:1], k[:1], v[:1]),
+                     fa_ref.attention(q[:1], k[:1], v[:1]), "layer 0, one sequence")
+
+
+def flash_times(q, k, v) -> dict:
     """The flash kernel at the prefill's shapes (layer 0's q, k, v of all 8
     sequences): against its plain version, timed beside it and beside
     scaled_dot_product_attention (the library column; the port never calls
-    it).  Returns the kernel's JSON row and a few more numbers."""
-    q, k, v = serve["layer0_qkv"]
+    it), with its bound, TFLOP/s and share of the bound."""
     B, S, H, hd = q.shape
     with torch.inference_mode():
         got, want = fa_ops.flash_attention(q, k, v), fa_ref.attention(q, k, v)
-        prefill_err = flash_err(got, want, "the prefill's shapes")
-        err = max(err, prefill_err["max_abs_err"])
+        prefill_err = flash_err(got, want, f"the prefill's shapes {[B, S, H, hd]}")
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
 
         def sdpa():
@@ -1027,15 +1078,24 @@ def phase_flash_time(serve: dict, err: float):
     flops = 4 * B * H * hd * S * (S + 1) // 2
     nbytes = sum(t.numel() * t.element_size() for t in (q, k, v, q))
     bms, by = bound(nbytes, flops, BF16_FLOPS_PER_SEC)
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+            "library_ms": library_ms, "shape": [B, S, H, k.shape[2], hd],
+            "tflops": flops / (ms / 1e3) / 1e12, "share_of_bound": bms / ms,
+            "library_tflops": flops / (library_ms / 1e3) / 1e12,
+            "err_vs_plain": prefill_err, "sdpa_max_abs_err_vs_plain": sdpa_err}
+
+
+def phase_flash_time(serve: dict, err: float):
+    """Phase 8: the flash kernel at llama3.2-3b's prefill shapes.  Returns
+    the kernel's JSON row and the timing record."""
+    t = flash_times(*serve["layer0_qkv"])
+    err = max(err, t["err_vs_plain"]["max_abs_err"])
     return ({"name": "flash_attn", "route": "cuda",
-            "source": "src/repro_torch/csrc/flash_attn.cu",
-            "replaces": "src/repro/kernels/flash_attn/flash_attn.py:92",
-            "launches": serve["launches"]["flash_attn"], "max_abs_err": err,
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
-            "library_ms": library_ms}, {
-            "shape": [B, S, H, k.shape[2], hd], "tflops": flops / (ms / 1e3) / 1e12,
-            "share_of_bound": bms / ms, "library_tflops": flops / (library_ms / 1e3) / 1e12,
-            "err_vs_plain": prefill_err, "sdpa_max_abs_err_vs_plain": sdpa_err})
+             "source": "src/repro_torch/csrc/flash_attn.cu",
+             "replaces": "src/repro/kernels/flash_attn/flash_attn.py:92",
+             "launches": serve["launches"]["flash_attn"], "max_abs_err": err,
+             **{k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                  "library_ms")}}, t)
 
 
 def busy_share(prof, window_us: float) -> dict:
@@ -1130,7 +1190,7 @@ def phase_train(seed: int) -> dict:
     embed_names = ("params/embed", "m/embed", "v/embed")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    k3_streams, restore_k3 = record_k3_streams()
+    k3_streams, restore_k3 = record_k3()
     reset_launches()
     try:
         trainer = train_trainer(model, opt, structs, "async")
@@ -1176,7 +1236,7 @@ def phase_train(seed: int) -> dict:
     check(trainer.corruption_alarms == 0 and scrub_mm == 0,
           f"alarms {trainer.corruption_alarms}, scrub after flush {scrub_mm}")
     side = store._side_stream()
-    check(tick_k3 and all(st == side for st in tick_k3),
+    check(tick_k3 and all(c[0] == side for c in tick_k3),
           "a fused update of a due tick ran off the training store's side stream")
     check(launches["flash_attn"] == 0, "training launched the forward-only flash kernel")
     for name in ("checksum", "parity", "fused_update"):
@@ -1647,6 +1707,342 @@ def print_recovery(rec: dict) -> None:
     print(f"recovery: launcher: {rec['launcher']}")
 
 
+def moe_config(n_layers: int):
+    """qwen3-moe-235b-a22b at its published widths, ``n_layers`` deep."""
+    cfg = get_arch(MOE_ARCH)
+    got = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd, cfg.n_experts, cfg.top_k,
+           cfg.expert_d_ff, cfg.vocab_size, cfg.padded_vocab, cfg.tie_embeddings,
+           cfg.param_dtype, cfg.moment_dtype, cfg.remat)
+    check(got == (4096, 64, 4, 64, 128, 8, 1536, 151936, 153600, False, "bfloat16",
+                  "bfloat16", "full"), f"{MOE_ARCH} is not at full width: {got}")
+    return dataclasses.replace(cfg, n_layers=n_layers)
+
+
+def n_params_of(params) -> int:
+    return sum(p.numel() for p in flatten_dict(params).values())
+
+
+def phase_serve_moe(g) -> dict:
+    """Phase 11: serve qwen3-moe at full width, 12 layers, with the KV
+    caches under vilamb; check the run and time it, then flash at this
+    prefill's shape (after the weights are freed: the plain version's fp32
+    scores of one sequence are 4.3 GB)."""
+    dev = torch.device(DEVICE)
+    t_phase = time.perf_counter()
+    cfg = moe_config(MOE_SERVE_LAYERS)
+    model = build_model(cfg, dev)
+    t0 = time.perf_counter()
+    params = model.init(g)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = n_params_of(params)
+    check(n_params == MOE_SERVE_LAYERS * MOE_LAYER_PARAMS + MOE_EMBED_HEAD_PARAMS
+          + cfg.d_model, f"{n_params} params")
+    max_len = PROMPT + GEN + 1
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (SERVE_BATCH, PROMPT),
+                                     generator=g, device=dev, dtype=torch.int32)}
+    policy = RedundancyPolicy.single("vilamb", period_steps=PERIOD,
+                                     max_vulnerable_steps=DEADLINE)
+
+    def new_store(async_tick=True):
+        return ProtectedStore(dataclasses.replace(policy, async_tick=async_tick),
+                              device=dev).attach(model.cache_shapes(SERVE_BATCH, max_len))
+
+    Server(model=model, max_len=max_len).generate(params, batch, 2)     # warm-up
+
+    # The main path, every step timed, with the counts read around it.
+    store = new_store()
+    check(store.policy.async_tick, "the MoE serving store is not on the overlapped tick")
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    tokens, stats, rec, wall_s = generate(model, params, batch, store, True)
+    launches = read_launches()
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    check(launches["flash_attn"] == cfg.n_layers,
+          f"flash launched {launches['flash_attn']} times in the prefill, want {cfg.n_layers}")
+    for name in ("checksum", "parity", "fused_update"):
+        check(launches[name] > 0, f"{name} kernel never launched while serving the MoE model")
+    check(tuple(tokens.shape) == (SERVE_BATCH, GEN), f"tokens {tuple(tokens.shape)}")
+    check(stats["mismatches"] == 0, f"scrub ticks found {stats['mismatches']} mismatches")
+    due = [t["step"] for t in rec["ticks"] if t["updated"]]
+    check(due and all(b - a <= DEADLINE for a, b in zip([0] + due, due)),
+          f"due ticks at {due}")
+
+    # Observational: the same tokens with the blocking store and no store.
+    walls = {"async": wall_s}
+    for kind in ("blocking", "none"):
+        toks, _, _, walls[kind] = generate(model, params, batch,
+                                           None if kind == "none" else new_store(False))
+        check(torch.equal(toks, tokens), f"MoE tokens differ with the {kind} store")
+    prof = profile_decode(model, params, batch, new_store())
+    with torch.inference_mode():
+        leaves = flatten_dict(stats["caches"])
+        red, checks = serve_checks(g, store, leaves, stats["red"])
+        phase_full_check(store, leaves, red)
+        qkv = tuple(t.clone() for t in layer0_qkv(model, params, batch))
+    decode_ms = sum(rec["decode_ms"]) + sum(t["ms"] for t in rec["ticks"])
+    out = {"launches": launches, "n_params": n_params, "init_s": init_s,
+           "params_gib": sum(p.numel() * p.element_size()
+                             for p in flatten_dict(params).values()) / 2**30,
+           "cache_gb": sum(m.data_bytes for m in store.metas.values()) / 1e9,
+           "prefill_ms": rec["prefill_ms"][0],
+           "decode_ms_per_token": decode_ms / (GEN - 1),
+           "decode_tokens_per_s": SERVE_BATCH * (GEN - 1) / (decode_ms / 1e3),
+           "generate_s": walls, "due_tick_steps": due,
+           "due_tick_ms": [t["ms"] for t in rec["ticks"] if t["updated"]],
+           "decode_profile": {k: v for k, v in prof.items()
+                              if k != "top_kernels_ms_per_token"},
+           "decode_top_kernels_ms_per_token": prof["top_kernels_ms_per_token"],
+           "peak_mem_gib": peak_gb, **checks}
+    del model, params, store, stats, leaves, red, batch, tokens
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["layer0_err"] = layer0_err(*qkv)
+    out["flash"] = flash_times(*qkv)
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
+class _Recorder:
+    """Wraps ``model.dirty_events_train``: keeps each step's expert-slab
+    mask of slot 0 (which ``(G, E)`` slabs the step routed tokens to)."""
+
+    def __init__(self, model):
+        self.model, self.fn, self.masks = model, model.dirty_events_train, []
+        model.dirty_events_train = self
+
+    def __call__(self, batch, aux):
+        events = self.fn(batch, aux)
+        self.masks.append(events["stack/slot_0/moe/wi"].clone())
+        return events
+
+    def close(self):
+        self.model.dirty_events_train = self.fn
+
+
+def moe_sparse_step(trainer, state, data, rec: _Recorder) -> tuple:
+    """The step of MOE_SPARSE_SEQ tokens after the due update is adopted:
+    the slabs it routes no token to are copied to the host before it and
+    held bit for bit after it; the expert leaves' dirty blocks are exactly
+    the routed slabs'; the flush that follows hands K3 exactly the routed
+    slabs' stripes, the embedding rows' and the ALL-dirty leaves'; a scrub
+    is clean, and every checksum and parity row equals a plain recompute.
+    Returns the state and the step's record."""
+    store = trainer.store
+    state = trainer.settle(state)
+    check(all(not bool((r.dirty | r.shadow).any()) for r in state.red.values()),
+          "blocks are dirty or in flight after the due update was adopted")
+    batch = data.get(state.step)
+    with torch.no_grad():
+        _, aux = trainer.model.loss(state.params, batch)
+    routed = aux["expert_counts"][:, 0, :] > 0                     # (G, E)
+    cold = (~routed).nonzero().tolist()
+    leaves = protected_leaves(state.params, state.opt)
+    slab_names = [n for n in leaves if "/moe/w" in n]
+    hot = tuple(routed.nonzero()[0].tolist())
+    before = {(n, gi, e): leaves[n][gi, e].to("cpu", copy=True)
+              for n in slab_names for gi, e in cold}
+    hot_before = {n: leaves[n][hot].to("cpu", copy=True) for n in slab_names}
+    state = trainer.run(state, data, 1)
+    check(torch.equal(rec.masks[-1], routed),
+          "the step's routing differs from its forward's without gradients")
+    events = rec.fn(batch, aux)
+    leaves = protected_leaves(state.params, state.opt)
+    for (n, gi, e), t in before.items():
+        check(torch.equal(leaves[n][gi, e].cpu().view(torch.int16), t.view(torch.int16)),
+              f"{n}: slab ({gi}, {e}), routed no token, changed")
+    for n, t in hot_before.items():
+        check(not torch.equal(leaves[n][hot].cpu().view(torch.int16), t.view(torch.int16)),
+              f"{n}: slab {hot}, routed tokens, did not change")
+    want_stripes, marked_ok = {}, True
+    expanded = store.expand_events(events)
+    for n, meta in store.metas.items():
+        r = state.red[n]
+        ev = expanded[n]
+        want = (torch.ones(meta.n_blocks, dtype=torch.bool, device=DEVICE)
+                if isinstance(ev, str) else
+                blocks.row_mask_block_mask(meta, ev, row_dims=ev.dim()))
+        marked = bits.unpack(r.dirty | r.shadow, meta.n_blocks)
+        marked_ok &= torch.equal(marked, want)
+        want_stripes[n] = int(blocks.stripe_dirty_mask(meta, want).sum())
+    check(marked_ok, "the dirty blocks after the sparse step are not exactly its events'")
+    ptrs = {blocks.to_lanes(leaves[n], store.metas[n]).data_ptr(): n for n in slab_names}
+    calls, restore = record_k3(count_stripes=True)
+    try:
+        state, flush_ms = timed(lambda: trainer.flush(state))
+    finally:
+        restore()
+    got = {}
+    for _, ptr, count in calls:
+        if ptr in ptrs:
+            got[ptrs[ptr]] = got.get(ptrs[ptr], 0) + count
+    check(all(got.get(n, 0) == want_stripes[n] for n in slab_names),
+          f"K3's stripes of the expert leaves {got} != the routed slabs' "
+          f"{ {n: want_stripes[n] for n in slab_names} }")
+    check(sum(c[2] for c in calls) == sum(want_stripes.values()),
+          f"K3 processed {sum(c[2] for c in calls)} stripes, want "
+          f"{sum(want_stripes.values())}")
+    mm = trainer.scrub_check(state)
+    check(mm == 0, f"scrub after the sparse step's update: {mm} mismatches")
+    with uncounted():
+        phase_full_check(store, protected_leaves(state.params, state.opt), state.red)
+    meta = store.metas[slab_names[0]]
+    return state, {
+        "tokens": MOE_SPARSE_SEQ, "slabs": routed.numel(),
+        "slabs_routed": int(routed.sum()), "slabs_untouched": len(cold),
+        "untouched_share": len(cold) / routed.numel(),
+        "stripes_per_slab": meta.n_stripes // routed.numel(),
+        "k3_launches": len(calls), "k3_stripes": sum(c[2] for c in calls),
+        "stripes_total": sum(m.n_stripes for m in store.metas.values()),
+        "slab_leaf_stripes": {n: want_stripes[n] for n in slab_names},
+        "flush_ms": flush_ms, "host_copy_gb": sum(t.numel() * 2 for t in before.values()) / 1e9}
+
+
+def phase_train_moe(seed: int) -> dict:
+    """Phase 12: train qwen3-moe at full width, 2 layers: the main path
+    (the overlapped store, 8 steps traced at 7-8, then the sparse step),
+    then 8 steps each with the blocking and no store."""
+    from torch.profiler import ProfilerActivity, profile
+    t_phase = time.perf_counter()
+    cfg = moe_config(MOE_TRAIN_LAYERS)
+    model = build_model(cfg, DEVICE)
+    data = SyntheticPipeline(cfg, ShapeConfig("train_4k_batch1", TRAIN_SEQ, TRAIN_BATCH,
+                                              "train"), seed=seed, device=DEVICE)
+    sparse = SyntheticPipeline(cfg, ShapeConfig("sparse", MOE_SPARSE_SEQ, 1, "train"),
+                               seed=seed + 1, device=DEVICE)
+    opt = AdamW(lr=warmup_cosine(1e-3, 10, TRAIN_STEPS), moment_dtype=cfg.moment_dtype)
+    meta = Model(cfg, torch.device("meta")).init()
+    structs = protected_structs(meta, opt.init(meta))
+    n_params = n_params_of(meta)
+    check(n_params == MOE_TRAIN_LAYERS * MOE_LAYER_PARAMS + MOE_EMBED_HEAD_PARAMS
+          + cfg.d_model, f"{n_params} params")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    k3_streams, restore_k3 = record_k3()
+    reset_launches()
+    rec = _Recorder(model)
+    try:
+        trainer = train_trainer(model, opt, structs, "async")
+        store = trainer.store
+        ticks = host_timed_ticks(store)
+        state = trainer.init_state(torch.Generator(device=DEVICE).manual_seed(seed))
+        steps: dict = {}
+        on_step = step_recorder(trainer, steps)
+        k3_first = len(k3_streams)
+        state = trainer.run(state, data, MOE_TRACE[0] - 1, on_step=on_step)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            steps["last"] = time.perf_counter()
+            state = trainer.run(state, data, MOE_TRACE[1] - MOE_TRACE[0] + 1,
+                                on_step=on_step)
+            torch.cuda.synchronize()
+        window_us = (time.perf_counter() - t0) * 1e6
+        tick_k3 = k3_streams[k3_first:]
+        restore_k3()
+        with uncounted():
+            main_sums = params_checksums(state)
+        state, sparse_rec = moe_sparse_step(trainer, state, sparse, rec)
+        torch.cuda.synchronize()
+        launches = read_launches()
+    finally:
+        restore_k3()
+        rec.close()
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    losses = torch.stack(steps["losses"]).float()
+    check(len(steps["losses"]) == OBS_STEPS and bool(torch.isfinite(losses).all()),
+          f"losses {losses.tolist()}")
+    due = [t["step"] for t in ticks if t["updated"]]
+    check(due == [8], f"due ticks {due}")
+    check(trainer.corruption_alarms == 0, f"alarms {trainer.corruption_alarms}")
+    side = store._side_stream()
+    check(tick_k3 and all(c[0] == side for c in tick_k3),
+          "a fused update of a due tick ran off the MoE training store's side stream")
+    check(launches["flash_attn"] == 0, "training launched the forward-only flash kernel")
+    for name in ("checksum", "parity", "fused_update"):
+        check(launches[name] > 0, f"{name} kernel never launched while training the MoE model")
+    leaves = protected_leaves(state.params, state.opt)
+    main = {
+        "losses": losses.tolist(), "loss_bits": losses.view(torch.int32).clone(),
+        "step_wall_ms": steps["wall_ms"],
+        "median_step_ms": statistics.median(steps["wall_ms"][2:MOE_TRACE[0] - 1]),
+        "slabs_routed_share": [float(m.float().mean()) for m in rec.masks],
+        "due_ticks": [{k: t[k] for k in ("step", "ms", "dispatch_ms", "scrub_ms")}
+                      for t in ticks if t["updated"]],
+        "trace_steps_7_8": {**stream_overlap(prof), **busy_share(prof, window_us)},
+        "launches": launches, "peak_mem_gib": peak_gib, "n_params": n_params,
+        "memory_gb": {"state": sum(t.numel() * t.element_size() for t in leaves.values()) / 1e9,
+                      "parity": sum(r.parity.numel() * 4 for r in state.red.values()) / 1e9,
+                      "leaves": len(leaves)},
+        "sparse_step": sparse_rec, "k3_launches_on_side_stream": len(tick_k3)}
+    del trainer, store, state, leaves, prof, on_step
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    obs = {}
+    for kind in ("blocking", "none"):
+        obs[kind] = train_observe(model, data, opt, structs, seed, kind)
+        gc.collect()
+        torch.cuda.empty_cache()
+        check(torch.equal(obs[kind]["loss_bits"], main["loss_bits"]),
+              f"MoE losses differ between the overlapped store and {kind}: "
+              f"{main['losses']} vs {obs[kind]['losses']}")
+        check(obs[kind]["checksums"].keys() == main_sums.keys()
+              and all(torch.equal(v, main_sums[n]) for n, v in obs[kind]["checksums"].items()),
+              f"final MoE params checksums differ between the overlapped store and {kind}")
+        obs[kind]["median_step_ms"] = statistics.median(obs[kind]["step_wall_ms"][2:MOE_TRACE[0] - 1])
+        del obs[kind]["loss_bits"], obs[kind]["checksums"]
+    del main["loss_bits"]
+    return {"main": main, "observe": obs, "phase_s": time.perf_counter() - t_phase}
+
+
+def print_serve_moe(r: dict) -> None:
+    f = r["flash"]
+    print(f"serve moe ({r['phase_s']:.1f} s): {MOE_ARCH} full width, {MOE_SERVE_LAYERS} "
+          f"layers, {r['n_params']} params ({r['params_gib']:.2f} GiB, drawn in "
+          f"{r['init_s']:.1f} s), KV caches {r['cache_gb']:.3f} GB; launches "
+          f"{r['launches']}; peak {r['peak_mem_gib']:.2f} GiB")
+    print(f"serve moe: prefill {r['prefill_ms']:.1f} ms; decode "
+          f"{r['decode_ms_per_token']:.2f} ms/token ({r['decode_tokens_per_s']:.1f} "
+          f"tokens/s); traced decode {r['decode_profile']['launches_per_token']:.0f} "
+          f"launches and {r['decode_profile']['device_busy_ms_per_token']} ms of device "
+          f"time a token; generate s {r['generate_s']}; due ticks {r['due_tick_steps']} "
+          f"{[round(x, 2) for x in r['due_tick_ms']]} ms")
+    print(f"serve moe: tokens identical with the overlapped, blocking and no store; "
+          f"scrub clean; block {r['corrupted_block']} of slot_0/k corrupted, found and "
+          f"repaired; full check passed; layer-0 attention within bounds of plain: "
+          f"{r['layer0_err']}")
+    print(f"flash at the MoE prefill's shape {f['shape']}: {f['ms']:.4f} ms, "
+          f"{f['tflops']:.1f} TFLOP/s, {100 * f['share_of_bound']:.1f}% of its "
+          f"{f['bound_ms']:.4f} ms bound ({f['bound_by']}); "
+          f"scaled_dot_product_attention {f['library_ms']:.4f} ms; plain "
+          f"{f['plain_ms']:.2f} ms", flush=True)
+
+
+def print_train_moe(r: dict) -> None:
+    m, sp = r["main"], r["main"]["sparse_step"]
+    print(f"train moe ({r['phase_s']:.1f} s): {MOE_ARCH} full width, {MOE_TRAIN_LAYERS} "
+          f"layers, {m['n_params']} params, batch {TRAIN_BATCH} x {TRAIN_SEQ}; "
+          f"{m['memory_gb']['leaves']} protected leaves ({m['memory_gb']['state']:.2f} GB, "
+          f"{m['memory_gb']['parity']:.2f} GB parity); launches {m['launches']}; peak "
+          f"{m['peak_mem_gib']:.2f} GiB")
+    print(f"train moe: losses {[round(x, 4) for x in m['losses']]}, bitwise equal with "
+          f"the blocking and no store; share of expert slabs routed to, each step: "
+          f"{m['slabs_routed_share']}")
+    print(f"train moe: median step (3-6) overlapped {m['median_step_ms']:.1f} ms, "
+          + ", ".join(f"{k} {o['median_step_ms']:.1f} ms" for k, o in r["observe"].items())
+          + f"; due ticks {m['due_ticks']}")
+    tr = {k: v for k, v in m["trace_steps_7_8"].items() if k != "top_kernels_ms"}
+    print(f"train moe: trace of steps 7-8: {tr}")
+    print(f"train moe: the {sp['tokens']}-token step routed {sp['slabs_routed']} of "
+          f"{sp['slabs']} slabs ({sp['slabs_untouched']} untouched: params, m and v "
+          f"bit-identical, never marked dirty); its update's K3: {sp['k3_launches']} "
+          f"launches over {sp['k3_stripes']} of {sp['stripes_total']} stripes (the "
+          f"routed slabs', the embedding rows' and the ALL-dirty leaves'; expert "
+          f"leaves {sp['slab_leaf_stripes']}), flush {sp['flush_ms']:.2f} ms; scrub "
+          f"clean; full check passed", flush=True)
+
+
 def smi_line() -> str:
     """The card's name and power limit, as nvidia-smi gives them."""
     smi = subprocess.run(
@@ -1800,11 +2196,23 @@ def main() -> int:
     print_recovery(rec)
     print(smi_line())
     print(json.dumps({"recovery": rec}))
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    moe_serve = phase_serve_moe(g)
+    print_serve_moe(moe_serve)
+    print(json.dumps({"serve_moe": moe_serve}))
+    moe_train = phase_train_moe(args.seed)
+    print_train_moe(moe_train)
+    print(smi_line())
+    print(json.dumps({"train_moe": moe_train}))
     for row in kernels:
         by_path = {"heap": heap_launches.get(row["name"], 0),
                    "serving": serve_launches[row["name"]],
                    "training": train_launches[row["name"]],
-                   "recovery": rec["launches"][row["name"]]}
+                   "recovery": rec["launches"][row["name"]],
+                   "serving_moe": moe_serve["launches"][row["name"]],
+                   "training_moe": moe_train["main"]["launches"][row["name"]]}
         row["launches"] = sum(by_path.values())
         row["launches_by_path"] = by_path
     print(json.dumps({"kernels": kernels}))

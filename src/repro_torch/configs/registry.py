@@ -1,8 +1,9 @@
 """Architecture registry: ``--arch <id>`` resolves here.
 
-The port serves the dense attention-only archs.  The reference's other
-archs need a mixer, FFN or front end the port does not have yet; asking for
-one raises ``NotImplementedError`` naming its ``ROADMAP.md`` item.
+The port serves and trains the attention-only archs, dense and MoE.  The
+reference's other archs need a mixer or front end the port does not have
+yet; asking for one raises ``NotImplementedError`` naming its
+``ROADMAP.md`` item.
 """
 from __future__ import annotations
 
@@ -17,13 +18,13 @@ _ARCH_MODULES = {
     "nemotron-4-15b": "nemotron_4_15b",
     "glm4-9b": "glm4_9b",
     "llama3.2-3b": "llama3_2_3b",
+    "qwen3-moe-235b-a22b": "qwen3_moe_235b_a22b",
+    "arctic-480b": "arctic_480b",
 }
 
 # The reference's other archs, by the kinds they need that the port does
 # not have yet (``models.transformer.NOT_PORTED`` names their items).
 NEEDS: Dict[str, Tuple[str, ...]] = {
-    "qwen3-moe-235b-a22b": ("moe",),
-    "arctic-480b": ("moe",),
     "jamba-1.5-large-398b": ("mamba", "moe"),
     "xlstm-1.3b": ("mlstm", "slstm"),
     "seamless-m4t-medium": ("enc_dec",),

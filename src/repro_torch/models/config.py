@@ -1,7 +1,9 @@
 """Model configuration: the port's own copy of ``repro.models.config``.
 
 The fields that fix a model's shapes and arithmetic are kept with the
-reference's names and defaults, so a config and its weights carry across.
+reference's names and defaults, so a config and its weights carry across;
+the MoE fields among them (expert count, top-k, expert width, the dense
+residual, the capacity factor).
 Of the other kinds' fields, only those that ``layer_kind``, ``ffn_kind``
 and ``group_size`` read are here, so that an unported kind is recognised
 and refused; each later slice adds the fields of the code it ports.
@@ -47,7 +49,11 @@ class ModelConfig:
 
     # --- MoE ---
     n_experts: int = 0
+    top_k: int = 0
+    moe_d_ff: int = 0           # expert hidden width (0: d_ff)
     moe_every: int = 1          # MoE FFN every k-th layer
+    dense_residual: bool = False  # arctic: a dense FFN beside the MoE
+    capacity_factor: float = 1.25
 
     # --- hybrid: one attention layer per `attn_every` layers ---
     attn_every: int = 0
@@ -82,6 +88,10 @@ class ModelConfig:
     @property
     def padded_vocab(self) -> int:
         return pad_vocab(self.vocab_size)
+
+    @property
+    def expert_d_ff(self) -> int:
+        return self.moe_d_ff or self.d_ff
 
     def layer_kind(self, i: int) -> str:
         """Mixer kind of layer i: attn | mamba | mlstm | slstm."""

@@ -1,9 +1,10 @@
 """Top-level Model: init, loss, prefill and decode, plus Vilamb dirty events.
 
-The port of ``repro.models.model`` for dense decoder-only models.
+The port of ``repro.models.model`` for decoder-only models, dense and MoE.
 ``build_model(cfg)`` returns a :class:`Model` on the card unless the caller
 passes ``device="cpu"``.  The model reports which embedding rows a train
-step touched (``dirty_events_train``) and which KV-cache pages a decode
+step touched, and which expert slabs its tokens were routed to
+(``dirty_events_train``), and which KV-cache pages a decode
 step wrote (``dirty_events_decode``), feeding the store's bitvectors (the
 paper's dirty bits, generated at the writer).
 """
@@ -135,23 +136,23 @@ class Model:
              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """Training loss of a batch ``{"tokens", "labels"}`` (B, S) int.
 
-        Returns ``(loss, aux)``, aux ``{"ce", "aux_loss", "expert_counts",
-        "logits_mean"}``; a dense model has no router, so ``aux_loss`` is 0
-        and ``expert_counts`` zeros ``(G, group_size, 1)`` int32.
+        Returns ``(loss, aux)``: the loss is ``ce + 0.01 * aux_loss``, aux
+        ``{"ce", "aux_loss", "expert_counts", "logits_mean"}`` with
+        ``expert_counts`` ``(G, group_size, max(E, 1))`` int32, each slot's
+        tokens per expert; a dense model has no router, so its ``aux_loss``
+        is 0 and its counts zeros.
         """
         cfg = self.cfg
         _, norm = make_norm(cfg)
         x = self._embed(params, batch["tokens"])
-        x = tfm.stack_apply_full(params["stack"], x, cfg, train=True)
+        x, (counts, aux_loss) = tfm.stack_apply_full(params["stack"], x, cfg, train=True)
         logits = self._logits(params, norm(params["final_norm"], x))
         ce = cross_entropy(logits, batch["labels"], cfg.vocab_size)
-        aux_loss = torch.zeros((), dtype=torch.float32, device=x.device)
         with torch.no_grad():
             logits_mean = logits.abs().mean(dtype=torch.float32)
         return ce + 0.01 * aux_loss, {
             "ce": ce, "aux_loss": aux_loss, "logits_mean": logits_mean,
-            "expert_counts": torch.zeros((cfg.n_groups, cfg.group_size, 1),
-                                         dtype=torch.int32, device=x.device)}
+            "expert_counts": counts}
 
     # ---------------------------------------------------------------- caches
     def cache_shapes(self, batch: int, max_len: int) -> Dict[str, Dict[str, ShapeDtype]]:
@@ -179,7 +180,7 @@ class Model:
         x = self._embed(params, batch["tokens"])
         B, S, _ = x.shape
         caches = self.init_caches(B, max_len)
-        x = tfm.stack_apply_full(params["stack"], x, self.cfg, caches)
+        x, _ = tfm.stack_apply_full(params["stack"], x, self.cfg, caches)
         x = norm(params["final_norm"], x[:, -1:])
         return self._logits(params, x)[:, 0], caches, S
 
@@ -199,16 +200,24 @@ class Model:
     def dirty_events_train(self, batch: Dict[str, torch.Tensor],
                            aux: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         """Dirty events of the sparse leaves after a train step: a presence
-        row mask over ``padded_vocab`` for ``embed`` (lazy AdamW leaves its
-        untouched rows bit-identical).  The train loop expands them to the
-        params and both moments and marks every other leaf ALL-dirty.  A
-        dense model has no expert slabs (MoE is ROADMAP.md, Queue 1 item 2).
-        """
+        row mask over ``padded_vocab`` for ``embed``, and for each MoE slot
+        ``s`` a ``(G, E)`` mask of the expert slabs that received tokens
+        (``aux["expert_counts"][:, s] > 0``) for its ``moe/wi``, ``wg`` and
+        ``wo``.  Lazy AdamW leaves untouched rows and slabs bit-identical.
+        The train loop expands the events to the params and both moments
+        and marks every other leaf ALL-dirty."""
+        cfg = self.cfg
         tokens = batch["tokens"]
-        presence = torch.zeros((self.cfg.padded_vocab,), dtype=torch.bool,
+        presence = torch.zeros((cfg.padded_vocab,), dtype=torch.bool,
                                device=tokens.device)
         presence.index_fill_(0, tokens.reshape(-1).long(), True)
-        return {"embed": presence}
+        events = {"embed": presence}
+        for s, (_, ffn) in enumerate(tfm.slot_kinds(cfg)):
+            if ffn == "moe":
+                ev = aux["expert_counts"][:, s, :] > 0
+                for w in ("wi", "wg", "wo"):
+                    events[f"stack/slot_{s}/moe/{w}"] = ev
+        return events
 
     def dirty_events_decode(self, caches, pos: int) -> Dict[str, torch.Tensor]:
         """KV-cache page dirty events for a decode step at ``pos``.

@@ -7,9 +7,11 @@ A Python loop over groups takes the place of ``lax.scan``; each stacked
 leaf is split into its groups once per call (``unbind``), so the backward
 stacks each leaf's gradient once instead of adding a full-size zero tensor
 per group.  Training checkpoints each slot (``cfg.remat``), as the
-reference's per-slot ``jax.checkpoint`` does.  Other mixers (Mamba, mLSTM,
-sLSTM) and MoE FFNs raise ``NotImplementedError`` naming their
-``ROADMAP.md`` item.
+reference's per-slot ``jax.checkpoint`` does.  A slot's FFN is dense or
+MoE (``models/moe.py``; arctic's dense residual beside it); the full
+forward returns every slot's expert counts and the summed aux loss, as
+the reference's scan does.  Other mixers (Mamba, mLSTM, sLSTM) raise
+``NotImplementedError`` naming their ``ROADMAP.md`` item.
 """
 from __future__ import annotations
 
@@ -19,6 +21,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from . import attention as attn_mod
+from . import moe as moe_mod
 from .config import ModelConfig
 from .layers import ffn_apply, ffn_init, make_norm
 
@@ -26,7 +29,6 @@ from .layers import ffn_apply, ffn_init, make_norm
 # owner of these strings: the registry refers to them for the archs it
 # does not serve.
 NOT_PORTED = {
-    "moe": "MoE FFNs: ROADMAP.md, Queue 1 item 2",
     "mamba": "Mamba mixers: ROADMAP.md, Queue 1 item 3",
     "mlstm": "mLSTM mixers: ROADMAP.md, Queue 1 item 4",
     "slstm": "sLSTM mixers: ROADMAP.md, Queue 1 item 4",
@@ -74,7 +76,12 @@ def _slot_init(gen, cfg: ModelConfig, mixer: str, ffn: str, dtype: torch.dtype,
                          "attn": attn_mod.attn_init(gen, cfg, dtype, device, lead)}
     if ffn != "none":
         p["ffn_norm"] = norm_init(cfg.d_model, device, lead)
-        p["ffn"] = ffn_init(gen, cfg, cfg.d_ff, dtype, device, lead)
+        if ffn == "moe":
+            p["moe"] = moe_mod.moe_init(gen, cfg, dtype, device, lead)
+            if cfg.dense_residual:
+                p["dense_res"] = ffn_init(gen, cfg, cfg.d_ff, dtype, device, lead)
+        else:
+            p["ffn"] = ffn_init(gen, cfg, cfg.d_ff, dtype, device, lead)
     return p
 
 
@@ -86,21 +93,38 @@ def stack_init(gen, cfg: ModelConfig, n_groups: int, dtype: torch.dtype,
 
 
 # -------------------------------------------------------------------- apply
-def _slot_apply_full(p, x: torch.Tensor, cfg: ModelConfig, ffn: str,
-                     train: bool) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Full-sequence slot (prefill or training).  Returns ``(x, {"k", "v"})``,
-    k and v (B, S, KV, hd) for the cache."""
+def _ffn(p, h: torch.Tensor, cfg: ModelConfig, ffn: str):
+    """The slot's FFN on ``h`` (B, S, d): ``(y, counts (E,) int32, aux)``
+    for MoE (its dense residual added), ``(y, None, None)`` for a dense
+    FFN, which has no router."""
+    if ffn == "moe":
+        B, S, d = h.shape
+        y, counts, aux = moe_mod.moe_apply(p["moe"], h.reshape(B * S, d), cfg)
+        y = y.reshape(B, S, d)
+        if cfg.dense_residual:
+            y = y + ffn_apply(p["dense_res"], h, cfg)
+        return y, counts, aux
+    return ffn_apply(p["ffn"], h, cfg), None, None
+
+
+def _slot_apply_full(p, x: torch.Tensor, cfg: ModelConfig, ffn: str, train: bool):
+    """Full-sequence slot (prefill or training).  Returns ``(x, {"k", "v"},
+    counts, aux)``, k and v (B, S, KV, hd) for the cache, counts and aux
+    None without a router."""
     _, norm = make_norm(cfg)
     y, (k, v) = attn_mod.causal_attention(p["attn"], norm(p["mixer_norm"], x), cfg,
                                           train=train)
     x = x + y
+    counts = aux = None
     if ffn != "none":
-        x = x + ffn_apply(p["ffn"], norm(p["ffn_norm"], x), cfg)
-    return x, {"k": k, "v": v}
+        y, counts, aux = _ffn(p, norm(p["ffn_norm"], x), cfg, ffn)
+        x = x + y
+    return x, {"k": k, "v": v}, counts, aux
 
 
-def _slot_train(p, x: torch.Tensor, cfg: ModelConfig, ffn: str) -> torch.Tensor:
-    return _slot_apply_full(p, x, cfg, ffn, train=True)[0]
+def _slot_train(p, x: torch.Tensor, cfg: ModelConfig, ffn: str):
+    x, _, counts, aux = _slot_apply_full(p, x, cfg, ffn, train=True)
+    return x, counts, aux
 
 
 def _slot_apply_decode(p, x: torch.Tensor, cfg: ModelConfig, ffn: str,
@@ -110,14 +134,18 @@ def _slot_apply_decode(p, x: torch.Tensor, cfg: ModelConfig, ffn: str,
     x = x + attn_mod.decode_attention(
         p["attn"], norm(p["mixer_norm"], x), cfg, cache["k"], cache["v"], pos)
     if ffn != "none":
-        x = x + ffn_apply(p["ffn"], norm(p["ffn_norm"], x), cfg)
+        x = x + _ffn(p, norm(p["ffn_norm"], x), cfg, ffn)[0]
     return x
 
 
 def stack_apply_full(stack, x: torch.Tensor, cfg: ModelConfig,
                      caches: Optional[Dict[str, Dict[str, torch.Tensor]]] = None,
-                     *, train: bool = False) -> torch.Tensor:
-    """Run the stack over the sequence, group by group.
+                     *, train: bool = False
+                     ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
+    """Run the stack over the sequence, group by group.  Returns ``(x,
+    (counts, aux_loss))``: counts ``(G, group_size, max(E, 1))`` int32, every
+    slot's tokens per expert, and the fp32 aux loss summed over slots and
+    groups, as the reference's scan returns them.
 
     Prefill (``train=False``): the flash kernel's attention, and each
     layer's k and v go straight into rows ``:S`` of its group of ``caches``
@@ -133,20 +161,30 @@ def stack_apply_full(stack, x: torch.Tensor, cfg: ModelConfig,
                          "none in training")
     kinds = slot_kinds(cfg)
     groups = {s: _unbind(stack[f"slot_{s}"], cfg.n_groups) for s in range(len(kinds))}
+    counts, aux = [], []
     for g in range(cfg.n_groups):
+        group_aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for s, (_, ffn) in enumerate(kinds):
             p = groups[s][g]
             if train and cfg.remat != "none":
-                x = checkpoint(_slot_train, p, x, cfg, ffn, use_reentrant=False)
+                x, c, a = checkpoint(_slot_train, p, x, cfg, ffn, use_reentrant=False)
             elif train:
-                x = _slot_train(p, x, cfg, ffn)
+                x, c, a = _slot_train(p, x, cfg, ffn)
             else:
-                x, c = _slot_apply_full(p, x, cfg, ffn, train=False)
+                x, kv, c, a = _slot_apply_full(p, x, cfg, ffn, train=False)
                 dst = caches[f"slot_{s}"]
-                S = c["k"].shape[1]
-                dst["k"][g, :S] = c["k"].transpose(0, 1)
-                dst["v"][g, :S] = c["v"].transpose(0, 1)
-    return x
+                S = kv["k"].shape[1]
+                dst["k"][g, :S] = kv["k"].transpose(0, 1)
+                dst["v"][g, :S] = kv["v"].transpose(0, 1)
+            if c is None:                  # no router: zeros, as the reference's
+                c = torch.zeros((max(cfg.n_experts, 1),), dtype=torch.int32,
+                                device=x.device)
+            else:
+                group_aux = group_aux + a
+            counts.append(c)
+        aux.append(group_aux)
+    counts = torch.stack(counts).view(cfg.n_groups, len(kinds), -1)
+    return x, (counts, torch.stack(aux).sum())
 
 
 def stack_apply_decode(stack, x: torch.Tensor, cfg: ModelConfig, caches,

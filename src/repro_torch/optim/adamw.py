@@ -1,21 +1,25 @@
 """AdamW with global-norm clipping and row-sparse (lazy) updates, in place.
 
 The port of ``repro.optim.adamw``, with its fields, defaults and
-arithmetic.  Leaves named in ``row_masks`` (the embedding table) update
-only the rows the step touched: untouched rows keep params, ``m`` and
-``v`` bit-identical, so their blocks stay clean for Vilamb (paper §3.2).
-Moments are kept in ``moment_dtype``.
+arithmetic.  Leaves named in ``row_masks`` (the embedding table, MoE
+expert slabs) update only the rows or slabs the step touched: untouched
+ones keep params, ``m`` and ``v`` bit-identical, so their blocks stay clean
+for Vilamb (paper §3.2).  Moments are kept in ``moment_dtype``.
 
 Unlike the reference's functional update, :meth:`AdamW.update` writes
 params and moments in place, leaf by leaf, under ``torch.no_grad()``: a
 second copy of a 3B model's params and fp32 moments (32 GB) does not fit
 beside the first on an 80 GB card, and in place the protected leaves stay
 the same tensors from step to step.  Each leaf is walked in slices along
-its leading axis, so no fp32 temporary exceeds :data:`SLICE_ELEMS`.
+as many leading axes as it takes for no fp32 temporary to exceed
+:data:`SLICE_ELEMS` (one group of a full-width qwen3-moe expert leaf is
+805 M elements), and a lazy mask of any leading rank is cut with the same
+slices.
 """
 from __future__ import annotations
 
 import dataclasses
+import itertools
 from typing import Any, Callable, Dict, Mapping, Optional
 
 import numpy as np
@@ -28,12 +32,24 @@ SLICE_ELEMS = 1 << 28
 
 
 def _slices(leaf: torch.Tensor):
-    """Indices of leading-axis slices of ``leaf`` of at most SLICE_ELEMS
-    elements (``...``, the whole leaf, for a 0-d or small one)."""
+    """Indices of slices of ``leaf`` of at most SLICE_ELEMS elements (or one
+    innermost row, if that is larger): tuples of a slice per leading axis,
+    the last of several indices and the ones before it of one, in
+    ``leaf``'s order.  ``...``, the whole leaf, for a 0-d or small one."""
     if leaf.dim() == 0 or leaf.numel() <= SLICE_ELEMS:
         return [...]
-    step = max(1, SLICE_ELEMS // (leaf.numel() // leaf.shape[0]))
-    return [slice(i, i + step) for i in range(0, leaf.shape[0], step)]
+    inner, axis = leaf.numel(), 0
+    while True:
+        inner //= leaf.shape[axis]
+        if inner <= SLICE_ELEMS or axis == leaf.dim() - 1:
+            break
+        axis += 1
+    step = max(1, SLICE_ELEMS // inner)
+    out = []
+    for outer in itertools.product(*(range(n) for n in leaf.shape[:axis])):
+        head = tuple(slice(i, i + 1) for i in outer)
+        out += [head + (slice(i, i + step),) for i in range(0, leaf.shape[axis], step)]
+    return out
 
 
 @dataclasses.dataclass(frozen=True)
@@ -93,7 +109,8 @@ class AdamW:
                     p0 = p[sl].float()
                     p1 = p0 - lr * (step + decay * p0)
                     if mask is not None:
-                        mb = mask[sl].reshape(mask[sl].shape + (1,) * (p.dim() - mask.dim()))
+                        ms = mask[sl if sl is ... else sl[:mask.dim()]]
+                        mb = ms.reshape(ms.shape + (1,) * (p.dim() - mask.dim()))
                         p1 = torch.where(mb, p1, p0)
                         m1 = torch.where(mb, m1, m0)
                         v1 = torch.where(mb, v1, v0)

@@ -234,6 +234,17 @@ def test_flash_kernel_tile_boundaries_on_card(cuda_device, S, hd, causal):
     _card_close(got, tref.attention(q, k, v, causal=causal))
 
 
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_kernel_sixteen_query_heads_a_kv_head_on_card(cuda_device, hd, causal):
+    """16 query heads a KV head, qwen3-moe's grouping (64 / 4 heads), over
+    the ragged tail of a 128-row tile."""
+    q, k, v = _torch(_inputs(16 + hd, 2, 300, 64, 4, hd, "bfloat16"), cuda_device)
+    got = tops.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    _card_close(got, tref.attention(q, k, v, causal=causal))
+
+
 def test_flash_kernel_many_heads_on_card(cuda_device):
     """B * H = 192 query heads in 24 / 8 groups, the prefill's: the block
     order over (b, KV head), query tiles and a group's heads."""

@@ -113,6 +113,18 @@ def _launch_train_resume(core):
                            "--ckpt-dir", d, "--resume"])
 
 
+def _launch_serve_moe(core):
+    from repro_torch.launch import serve
+    return serve.main(["--arch", "qwen3-moe-235b-a22b", "--smoke"])
+
+
+def _launch_train_moe(core):
+    from repro_torch.launch import train
+    return train.main(["--arch", "arctic-480b", "--smoke", "--steps", "1"])
+
+
+ENTRY_POINTS.update({"launch.serve qwen3-moe": _launch_serve_moe,
+                     "launch.train arctic": _launch_train_moe})
 ENTRY_POINTS.update({"Trainer": _trainer, "AdamW.init": _adamw_init,
                      "SyntheticPipeline": _pipeline, "launch.train": _launch_train,
                      "CheckpointManager": _checkpoint_manager,

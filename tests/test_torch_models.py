@@ -27,9 +27,10 @@ from repro_torch.core.convert import leaves_from_numpy
 from repro_torch.models import (attention as tattn, build_model, layers as tlayers,
                                 params_from_numpy, params_to_numpy)
 
-ARCHS = ["llama3.2-3b", "glm4-9b", "olmo-1b", "nemotron-4-15b"]
-NOT_PORTED = ["qwen3-moe-235b-a22b", "arctic-480b", "jamba-1.5-large-398b",
-              "xlstm-1.3b", "seamless-m4t-medium", "internvl2-1b"]
+ARCHS = ["llama3.2-3b", "glm4-9b", "olmo-1b", "nemotron-4-15b",
+         "qwen3-moe-235b-a22b", "arctic-480b"]
+NOT_PORTED = ["jamba-1.5-large-398b", "xlstm-1.3b", "seamless-m4t-medium",
+              "internvl2-1b"]
 RTOL = ATOL = 1e-5
 B, S, STEPS = 2, 16, 8
 
@@ -288,9 +289,10 @@ def test_dirty_events_decode_match_reference(runs):
 
 
 def test_build_model_refuses_unported_kinds():
-    moe = dataclasses.replace(get_smoke("llama3.2-3b"), n_experts=4)
-    with pytest.raises(NotImplementedError, match="MoE FFNs: ROADMAP.md, Queue 1 item 2"):
-        build_model(moe, "cpu")
+    xlstm = dataclasses.replace(get_smoke("llama3.2-3b"), ssm_kind="xlstm",
+                                slstm_every=2, n_layers=4)
+    with pytest.raises(NotImplementedError, match="mLSTM mixers: ROADMAP.md, Queue 1 item 4"):
+        build_model(xlstm, "cpu")
     hybrid = dataclasses.replace(get_smoke("llama3.2-3b"), attn_every=3)
     with pytest.raises(NotImplementedError, match="Mamba mixers"):
         build_model(hybrid, "cpu")

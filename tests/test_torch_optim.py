@@ -17,7 +17,7 @@ import torch
 
 import repro_torch.optim.adamw as adamw_mod
 from repro.optim import AdamW as JAdamW, warmup_cosine as jwarmup_cosine
-from repro_torch.common import flatten_dict
+from repro_torch.common import flatten_dict, tree_map
 from repro_torch.core.convert import leaves_from_numpy, leaves_to_numpy
 from repro_torch.optim import AdamW, warmup_cosine
 
@@ -146,3 +146,58 @@ def test_init_follows_the_params_device_and_moment_dtype():
     params = {"w": torch.empty((3, 4), dtype=torch.bfloat16, device="meta")}
     st = AdamW(lr=lambda s: 1e-3, moment_dtype="bfloat16").init(params)
     assert st["m"]["w"].device.type == "meta" and st["v"]["w"].dtype == torch.bfloat16
+
+
+@pytest.mark.parametrize("moment_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("slice_elems", [60, 10])
+def test_expert_slabs_sliced_with_their_mask_change_no_bit(monkeypatch, moment_dtype,
+                                                           slice_elems):
+    """A ``(G, E, d, ff)`` expert leaf with a ``(G, E)`` slab mask, walked in
+    slices over two leading axes (60 elements: ``[g, e:e + 2]``) or three
+    (10: ``[g, e, i]``): params, moments and the grad norm bitwise those of
+    one whole slice (dyadic grads: the sum of squares is exact in any
+    order), and untouched slabs bit-identical to their inputs."""
+    G, E, d, ff = 2, 5, 4, 6
+    rng = np.random.default_rng(11)
+    mask = torch.from_numpy(rng.random((G, E)) < 0.5)
+    mask[0, 0], mask[1, 4] = True, False
+    mdt = getattr(torch, moment_dtype)
+
+    def state():
+        def r(*shape, scale=1.0):
+            return torch.from_numpy((rng.standard_normal(shape) * scale).astype(np.float32))
+        params = {"moe": {"wi": r(G, E, d, ff).to(torch.bfloat16)},
+                  "w": r(7, 9).to(torch.bfloat16)}
+        grads = {k: torch.from_numpy(rng.integers(-16, 17, p.shape).astype(np.float32)
+                                     * 2.0**-4).to(torch.bfloat16)
+                 for k, p in flatten_dict(params).items()}
+        opt = {"m": {"moe": {"wi": r(G, E, d, ff, scale=0.01).to(mdt)},
+                     "w": r(7, 9, scale=0.01).to(mdt)},
+               "v": {"moe": {"wi": r(G, E, d, ff, scale=1e-3).abs().to(mdt)},
+                     "w": r(7, 9, scale=1e-3).abs().to(mdt)}, "count": 4}
+        return params, {"moe": {"wi": grads["moe/wi"]}, "w": grads["w"]}, opt
+
+    base = state()
+    runs = []
+    for elems in (1 << 28, slice_elems):
+        monkeypatch.setattr(adamw_mod, "SLICE_ELEMS", elems)
+        params, grads, opt = (tree_map(lambda x: x.clone() if torch.is_tensor(x) else x, t)
+                              for t in base)
+        gn = AdamW(lr=lambda s: 1e-2, clip_norm=1.0, moment_dtype=moment_dtype).update(
+            grads, opt, params, {"moe/wi": mask})
+        runs.append((params, opt, gn))
+    assert len(adamw_mod._slices(base[0]["moe"]["wi"])) == {60: 6, 10: 40}[slice_elems]
+    def bits(t):
+        return t.view({2: torch.int16, 4: torch.int32}[t.element_size()])
+
+    (p1, o1, g1), (p2, o2, g2) = runs
+    assert torch.equal(bits(g1), bits(g2))
+    for a, b in ((p1, p2), (o1["m"], o2["m"]), (o1["v"], o2["v"])):
+        for n, t in flatten_dict(a).items():
+            assert torch.equal(bits(t), bits(flatten_dict(b)[n])), n
+    for before, after in ((base[0]["moe"]["wi"], p2["moe"]["wi"]),
+                          (base[2]["m"]["moe"]["wi"], o2["m"]["moe"]["wi"]),
+                          (base[2]["v"]["moe"]["wi"], o2["v"]["moe"]["wi"])):
+        assert torch.equal(bits(after[~mask]), bits(before[~mask]))
+        assert all(not torch.equal(after[g, e], before[g, e])
+                   for g, e in mask.nonzero().tolist())

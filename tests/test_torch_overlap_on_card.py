@@ -7,11 +7,19 @@ writes; after ``flush`` the two states are equal bit for bit.  The module
 imports no JAX, so on the card it runs with:
 
     PYTHONPATH=src python -m pytest -q --noconftest tests/test_torch_overlap_on_card.py
+
+The last test trains an MoE model on the card under deterministic
+algorithms, which need ``CUBLAS_WORKSPACE_CONFIG`` set before cuBLAS first
+runs: it is set here, at collection, before any test touches the card.
 """
+import dataclasses
+import os
 import time
 
 import pytest
 import torch
+
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 from repro_torch.core import ProtectedStore, RedundancyPolicy, bits, blocks
 from repro_torch.core.state import FIELDS
@@ -360,3 +368,61 @@ def test_file_checksum_on_card(cuda_device, shape, dtype):
     want = ck._np_checksum(t.cpu().reshape(-1).view(torch.uint8).numpy())
     for chunk in (ck.CHUNK_WORDS, 1000, 3):
         assert ck.file_checksum(t, chunk) == want
+
+
+def test_moe_sparse_step_touches_only_routed_slabs_on_card(cuda_device, monkeypatch):
+    """qwen3-moe's routing ratio at smoke width (16 tokens x top-8 of 128
+    experts, bf16 moments) on the overlapped store: after the due update
+    is adopted, one 16-token step leaves every slab it routed no token to
+    bit-identical in params, m and v and never marks its blocks; the flush
+    hands K3 exactly the routed slabs' stripes of each expert leaf; a
+    scrub is clean."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.data import SyntheticPipeline
+    from repro_torch.models import Model, ShapeConfig, build_model
+    from repro_torch.optim import AdamW, warmup_cosine
+    from repro_torch.train import Trainer, protected_leaves, protected_structs
+    cfg = dataclasses.replace(get_smoke("qwen3-moe-235b-a22b"), n_layers=2, n_experts=128,
+                              top_k=8, moment_dtype="bfloat16")
+    opt = AdamW(lr=warmup_cosine(1e-3, 2, 10), moment_dtype=cfg.moment_dtype)
+    meta = Model(cfg, torch.device("meta")).init()
+    store = ProtectedStore(RedundancyPolicy.single("vilamb", period_steps=2,
+                                                   lanes_per_block=128)).attach(
+        protected_structs(meta, opt.init(meta)))
+    trainer = Trainer(model=build_model(cfg), opt=opt, store=store, scrub_period_steps=0)
+    dense = SyntheticPipeline(cfg, ShapeConfig("t", 64, 4, "train"), seed=0)
+    sparse = SyntheticPipeline(cfg, ShapeConfig("s", 16, 1, "train"), seed=1)
+    state = trainer.init_state(torch.Generator(device=cuda_device).manual_seed(0))
+    state = trainer.settle(trainer.run(state, dense, 2))            # due at 2, adopted
+    assert all(not bool((r.dirty | r.shadow).any()) for r in state.red.values())
+    with torch.no_grad():
+        _, aux = trainer.model.loss(state.params, sparse.get(state.step))
+    routed = aux["expert_counts"][:, 0, :] > 0
+    assert bool(routed.any()) and not bool(routed.all())
+    slabs = {n: t.clone() for n, t in protected_leaves(state.params, state.opt).items()
+             if "/moe/w" in n}
+    state = trainer.run(state, sparse, 1)
+    leaves = protected_leaves(state.params, state.opt)
+    calls = []
+    launch = fu_ops.fused_update
+
+    def spy(lanes, checksums, parity, block_dirty, stripe_dirty, *a, **kw):
+        calls.append((lanes.data_ptr(), int(stripe_dirty.sum())))
+        return launch(lanes, checksums, parity, block_dirty, stripe_dirty, *a, **kw)
+
+    for n, t in slabs.items():
+        assert torch.equal(leaves[n][~routed].view(torch.int16), t[~routed].view(torch.int16)), n
+        assert not torch.equal(leaves[n][routed], t[routed]), n
+        meta = store.metas[n]
+        want = blocks.row_mask_block_mask(meta, routed, row_dims=2)
+        r = state.red[n]
+        assert torch.equal(bits.unpack(r.dirty | r.shadow, meta.n_blocks), want), n
+    want = {blocks.to_lanes(leaves[n], store.metas[n]).data_ptr(): int(
+        blocks.stripe_dirty_mask(store.metas[n], blocks.row_mask_block_mask(
+            store.metas[n], routed, row_dims=2)).sum()) for n in slabs}
+    monkeypatch.setattr(fu_ops, "fused_update", spy)
+    state = trainer.flush(state)
+    monkeypatch.setattr(fu_ops, "fused_update", launch)
+    got = {p: c for p, c in calls if p in want}
+    assert got == want
+    assert trainer.scrub_check(state) == 0

@@ -90,7 +90,8 @@ def _generate_both(arch, async_tick):
                                           err_msg=f"{n}.{f}")
 
 
-@pytest.mark.parametrize("arch", ["llama3.2-3b", "glm4-9b"])
+@pytest.mark.parametrize("arch", ["llama3.2-3b", "glm4-9b", "qwen3-moe-235b-a22b",
+                                  "arctic-480b"])
 def test_generate_matches_reference(arch):
     _generate_both(arch, async_tick=False)
 

@@ -63,7 +63,9 @@ from repro_torch.train import (TrainState, Trainer, make_train_step, protected_l
 from repro_torch.train.train_loop import loss_and_grads
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-ARCHS = ["llama3.2-3b", "olmo-1b", "glm4-9b", "nemotron-4-15b"]
+ARCHS = ["llama3.2-3b", "olmo-1b", "glm4-9b", "nemotron-4-15b",
+         "qwen3-moe-235b-a22b", "arctic-480b"]
+MOE_ARCHS = ["qwen3-moe-235b-a22b", "arctic-480b"]
 RTOL = ATOL = 1e-5
 L = 512                                   # lanes per block of the smoke stores
 
@@ -354,11 +356,43 @@ def test_dirty_events_train_and_bitvectors_match_reference():
     assert 0 < int(marked.sum()) < meta.n_blocks
 
 
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_dirty_events_and_bitvectors_match_reference(arch):
+    """The expert-slab masks ``counts[:, s] > 0`` (G, E) beside the embedding
+    rows, from each package's own loss, and every leaf's dirty bitvector
+    after ``on_write``, bit for bit.  Four tokens choose 8 of 8 experts
+    per layer, so some slabs stay clean."""
+    jm, jp, tm, tp = _pair(arch)
+    jb, tb = _batch(tm.cfg, B=1, S=4, ignore=False)
+    (_, jaux), _ = jax.value_and_grad(jm.loss, has_aux=True)(jp, jb)
+    _, taux, _ = loss_and_grads(tm, tp, tb)
+    jev = jm.dirty_events_train(jb, jaux)
+    tev = tm.dirty_events_train(tb, taux)
+    assert set(jev) == set(tev) == {"embed", "stack/slot_0/moe/wi", "stack/slot_0/moe/wg",
+                                    "stack/slot_0/moe/wo"}
+    for n in jev:
+        np.testing.assert_array_equal(tev[n].numpy(), np.asarray(jev[n]), err_msg=n)
+    slabs = tev["stack/slot_0/moe/wi"]
+    assert slabs.shape == (tm.cfg.n_groups, tm.cfg.n_experts) and not bool(slabs.all())
+    jopt, topt = JAdamW(lr=lambda s: 1e-3), AdamW(lr=lambda s: 1e-3)
+    js, ts = _stores(jm, tm, jopt, topt)
+    jo = jopt.init(jp)
+    to = opt_from_numpy(jax.tree_util.tree_map(np.asarray, jo), tm.cfg, "cpu")
+    from repro.train import protected_leaves as jleaves
+    jred = js.on_write(js.init(jleaves(jp, jo)), events=js.expand_events(jev))
+    tred = ts.on_write(ts.init(protected_leaves(tp, to)), events=ts.expand_events(tev))
+    for n in jred:
+        assert_bits_equal(tred[n].dirty, jred[n].dirty, n)
+    meta = ts.metas["m/stack/slot_0/moe/wo"]
+    marked = bits.unpack(tred["m/stack/slot_0/moe/wo"].dirty, meta.n_blocks)
+    assert 0 < int(marked.sum()) < meta.n_blocks
+
+
 # ---------------------------------------------------------------- Trainer
-def _trainer_pair(arch="llama3.2-3b", mode="vilamb", period=2, async_tick=False):
-    jm, _, tm, _ = _pair(arch)
-    jopt = JAdamW(lr=jwarmup_cosine(3e-3, 5, 100))
-    topt = AdamW(lr=warmup_cosine(3e-3, 5, 100))
+def _trainer_pair(arch="llama3.2-3b", mode="vilamb", period=2, async_tick=False, **kw):
+    jm, _, tm, _ = _pair(arch, **kw)
+    jopt = JAdamW(lr=jwarmup_cosine(3e-3, 5, 100), moment_dtype=tm.cfg.moment_dtype)
+    topt = AdamW(lr=warmup_cosine(3e-3, 5, 100), moment_dtype=tm.cfg.moment_dtype)
     js, ts = _stores(jm, tm, jopt, topt, mode, period, async_tick)
     jtr = JTrainer(model=jm, opt=jopt, store=js, scrub_period_steps=0)
     ttr = Trainer(model=tm, opt=topt, store=ts, scrub_period_steps=0)
@@ -388,6 +422,36 @@ def test_four_trainer_steps_match_reference():
         want = np.asarray(jf[n], np.float32)
         atol = 1e-4 if n.startswith("params/") else 1e-5 * float(np.abs(want).max())
         np.testing.assert_allclose(t.numpy(), want, rtol=0, atol=atol, err_msg=n)
+    for n in js.red:
+        assert_bits_equal(ts.red[n].dirty, js.red[n].dirty, n)
+        assert_bits_equal(ts.red[n].shadow, js.red[n].shadow, n)
+
+
+@pytest.mark.parametrize("moment_dtype", ["float32", "bfloat16"])
+def test_four_moe_trainer_steps_match_reference(moment_dtype):
+    """qwen3-moe smoke, four steps: losses and aux losses, params and both
+    moments within the tolerances above (bf16 moments: one bf16 ulp of the
+    element, at most 2^-7 of it, as both round nearly the same fp32 value,
+    plus one of the leaf's largest, 2^-8 of it, where ``b1 * m + (1 - b1) *
+    g`` cancels to near zero from operands rounded to bf16), and every
+    dirty and shadow bitvector, the expert slabs' included, bit for bit."""
+    (jtr, js, jd), (ttr, ts, td) = _trainer_pair(MOE_ARCHS[0], moment_dtype=moment_dtype)
+    jl, tl = [], []
+    js = jtr.run(js, jd, 4, on_step=lambda s, m: jl.append(
+        (float(m["loss"]), float(m["aux_loss"]))))
+    ts = ttr.run(ts, td, 4, on_step=lambda s, m: tl.append(
+        (float(m["loss"]), float(m["aux_loss"]))))
+    np.testing.assert_allclose(tl, jl, rtol=RTOL)
+    assert ts.opt["m"]["stack"]["slot_0"]["moe"]["wi"].dtype == getattr(torch, moment_dtype)
+    jf = jflatten({"params": js.params, "m": js.opt["m"], "v": js.opt["v"]})
+    tf = flatten_dict({"params": ts.params, "m": ts.opt["m"], "v": ts.opt["v"]})
+    for n, t in tf.items():
+        want = np.asarray(jf[n], np.float32)
+        bf16 = moment_dtype == "bfloat16" and not n.startswith("params/")
+        atol = 1e-4 if n.startswith("params/") else \
+            (2.0**-8 if bf16 else 1e-5) * float(np.abs(want).max())
+        rtol = 2.0**-7 if bf16 else 0
+        np.testing.assert_allclose(t.float().numpy(), want, rtol=rtol, atol=atol, err_msg=n)
     for n in js.red:
         assert_bits_equal(ts.red[n].dirty, js.red[n].dirty, n)
         assert_bits_equal(ts.red[n].shadow, js.red[n].shadow, n)
