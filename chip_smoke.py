@@ -123,7 +123,38 @@ Phases, each of which must pass or the script exits non-zero:
    exactly the routed slabs' stripes, the embedding rows' and the
    ALL-dirty leaves'; a scrub is clean.  Timed: the median step, the due
    ticks' host ms, a trace of steps 7-8 (the fused update's device time),
-   the peak.
+   the peak;
+13. faults: the port's fault battery (``repro_torch.faults``) on phase 4's
+   heap (8 GiB of 4 KiB rows beside the 64 MiB sync leaf, T=16, deadline
+   32, the overlapped tick, 4,096 random row writes a step).  At the due
+   tick of step 16, with its update held in flight behind a spin on the
+   side stream (checked unresolved at injection): 64 clean-block faults
+   from ``plan_clean_blocks`` (data bit flips and stale redundancy) and 16
+   data bit flips on window blocks, one a stripe; a checksum and a meta
+   flip on the live view caught by verify_meta; after ``settle`` the
+   oracle (every outside-window fault detected, no false positive, no
+   miss, the in-window ones classified so), every detected block rebuilt
+   bitwise, a clean rescrub, and the stripe whose parity was flipped in a
+   copy mid-flight rebuilt bitwise.  Settled after step 20: the same with
+   a fresh plan, where a detected block whose stripe holds a window block
+   must be refused as a stale stripe (and the rescrub flag exactly
+   those); a checksum and a meta flip caught by verify_meta, a parity flip
+   under which a repair fails the rescrub, a torn write across a stripe
+   boundary flagged whole.  Then measure_detection_latency over 64 steps
+   (scrub every 16; a fault on a never-written block and one on a block
+   written that step, at steps 3, 10, 17, 33, 40, 58): the clean ones found
+   at the next scrub, the in-window ones never; mttdl_measured beside the
+   closed forms.  Then the crash-point sweep on that geometry **cut to 256
+   MiB** plus a 16 MiB bf16 leaf (each replay saves and restores the whole
+   state) with the reference smoke's schedule (period 2, deadline 3, a
+   scrub at 5, held in flight at 3-4, 6 steps): every required phase
+   fires, every outcome recovered bitwise or lost within the window with
+   a clean scrub after flush, and the two crash-plus-corruption cases;
+   checkpoints in a temporary directory (free space checked first,
+   removed at the end).  Last, ``python -m repro_torch.faults --smoke`` in
+   a process of its own on the card must exit 0.  Timed: planning,
+   injection, scrub, repair, the step, each replay's drive, save and
+   restore; the peak and the phase's wall time.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 the per-kernel JSON record.  All data comes from ``--seed``.
@@ -149,6 +180,7 @@ from pathlib import Path
 # when cuBLAS first runs: set before torch touches the card.
 os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
+import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
@@ -212,6 +244,19 @@ MOE_ARCH, MOE_SERVE_LAYERS, MOE_TRAIN_LAYERS = "qwen3-moe-235b-a22b", 12, 2
 MOE_LAYER_PARAMS, MOE_EMBED_HEAD_PARAMS = 2_452_103_168, 1_258_291_200
 MOE_SPARSE_SEQ = 16                      # the sparse step's tokens (x top-8)
 MOE_TRACE = (7, 8)                       # the due tick at 8
+
+# Faults (phase 13): phase 4's heap (8 GiB of 4 KiB rows beside the 64 MiB
+# sync leaf, T=16, deadline 32) for the oracle, the in-flight checks and the
+# detection latency; the crash sweep on that geometry cut to 256 MiB plus a
+# 16 MiB bf16 leaf, since each of its ~30 replays saves and restores the
+# whole state (about 10 GB a replay at 8 GiB).
+FAULT_STEPS, FAULT_DUE, FAULT_CLEAN, FAULT_IN_WINDOW = 20, 16, 64, 16
+SIDE_SLEEP_CYCLES = 2_000_000_000       # about 1 s of one SM's clock
+LAT_STEPS, LAT_SCRUB, LAT_INJECT = 64, 16, (3, 10, 17, 33, 40, 58)
+MTTF_BLOCK_S = 1.0e9                    # benchmarks/mttdl_bench.py's figure
+SWEEP_ROWS, SWEEP_BF16_ROWS = 65_536, 4096          # 256 MiB fp32, 16 MiB bf16
+SWEEP_WRITE_ROWS, SWEEP_BF16_WRITE_ROWS = 4096, 64
+SWEEP_DISK_GB = 15                      # ~31 checkpoints of 0.36 GB, with room
 
 SPECIALS = [0x7FC00000, 0x7F800000, 0xFF800000, 0x7F800001, 0x00000000, 0xFFFFFFFF]
 
@@ -2043,6 +2088,463 @@ def print_train_moe(r: dict) -> None:
           f"clean; full check passed", flush=True)
 
 
+# ------------------------------------------------------------------ phase 13
+def hold_side_stream(store) -> None:
+    """Queue a spin of ``SIDE_SLEEP_CYCLES`` on the store's side stream: the
+    next due tick's update waits behind it, so it is still in flight on the
+    device while the host injects."""
+    with torch.cuda.stream(store._side_stream()):
+        torch.cuda._sleep(SIDE_SLEEP_CYCLES)
+
+
+def fault_step(store, state, red, rows, g, step):
+    """One step of phase 4's heap workload on ``state``: ``rows`` of the
+    heap rewritten in place with values from ``g``, the params scaled, both
+    recorded, the tick.  Returns ``(red, report)``."""
+    heap, params = state["heap"], state["params"]
+    heap.index_copy_(0, rows, torch.randn((rows.numel(), ROW), generator=g,
+                                          device=heap.device))
+    old = params.clone()
+    params.mul_(0.999)
+    ev = torch.zeros(N_ROWS, dtype=torch.bool, device=heap.device)
+    ev.index_fill_(0, rows, True)
+    red = store.on_write(red, events={"heap": ev}, old={"params": old},
+                         new={"params": params})
+    return store.tick(state, red, step)
+
+
+def in_window_specs(window, taken, n: int, rng) -> list:
+    """``n`` data bit flips on heap blocks inside ``window``, one a stripe,
+    in stripes none of the ``taken`` specs touches."""
+    from repro_torch.faults import FaultSpec
+    used = {b // STRIPE for s in taken if s.leaf == "heap" for b in s.touched_blocks}
+    out = []
+    for b in rng.permutation(np.flatnonzero(window.blocks["heap"])):
+        if len(out) == n:
+            break
+        if b // STRIPE not in used:
+            used.add(b // STRIPE)
+            out.append(FaultSpec("data_bitflip", "heap", block=int(b),
+                                 lane=int(rng.integers(ROW)), bit=int(rng.integers(32))))
+    check(len(out) == n, f"only {len(out)} window stripes free for in-window faults")
+    return out
+
+
+def flagged(masks) -> set:
+    """``{(leaf, block)}`` of every block a scrub's masks flag."""
+    return {(k, b) for k, m in masks.items() for b in torch.nonzero(m).flatten().tolist()}
+
+
+def saved_rows(store, state, specs) -> dict:
+    """``{leaf: (block ids, their pre-fault lanes)}`` for every block the
+    specs touch."""
+    out = {}
+    for leaf in sorted({s.leaf for s in specs}):
+        ids = torch.tensor(sorted({b for s in specs if s.leaf == leaf
+                                   for b in s.touched_blocks}), device=DEVICE)
+        out[leaf] = (ids, blocks.to_lanes(state[leaf], store.metas[leaf])[ids].clone())
+    return out
+
+
+def oracle_checks(store, leaves, red, specs, window, saved, label: str) -> dict:
+    """Scrub and audit the injected ``leaves`` (the oracle), then repair
+    every detected block from parity and rescrub.  A detected block whose
+    stripe holds a window block cannot be rebuilt (its parity is stale):
+    the repair must refuse it as ``vulnerable_stripe`` and the rescrub
+    flag exactly those.  Every rebuilt block equals its pre-fault lanes."""
+    from repro_torch.faults import check_detection
+    n = lambda d: sum(len(v) for v in d.values())
+    report, oracle_ms = timed(lambda: check_detection(store, leaves, red, specs,
+                                                      window=window))
+    outside = {(s.leaf, b) for s in specs for b in s.touched_blocks
+               if not window.contains(s.leaf, b)}
+    check(report.ok and n(report.expected) == len(outside),
+          f"{label}: oracle {report.summary()}")
+    masks, scrub_ms = timed(lambda: store.scrub(leaves, red))
+    details: list = []
+    (fixed_lv, fixed, lost), repair_ms = timed(
+        lambda: store.repair(leaves, red, masks, details=details))
+    refused = {(u.leaf, b) for u in details for b in u.blocks}
+    check(all(u.reason == "vulnerable_stripe" and window.stripes[u.leaf][u.stripe]
+              for u in details),
+          f"{label}: a repair refused for another reason than a stale stripe: {details}")
+    check(fixed + lost == n(report.detected), f"{label}: fixed {fixed} + lost {lost} "
+          f"!= detected {n(report.detected)}")
+    for leaf, (ids, want) in saved.items():
+        got = blocks.to_lanes(fixed_lv[leaf], store.metas[leaf])[ids]
+        same = (got == want).all(dim=1).tolist()
+        for b, ok in zip(ids.tolist(), same):
+            if b in report.detected.get(leaf, set()) and (leaf, b) not in refused:
+                check(ok, f"{label}: {leaf} block {b} not rebuilt bitwise")
+    left = flagged(store.scrub(fixed_lv, red))
+    check(left == refused, f"{label}: rescrub flags {sorted(left)[:8]}, refused "
+          f"{sorted(refused)[:8]}")
+    return {"oracle": report.summary(), "detected": n(report.detected),
+            "outside": len(outside), "in_window": n(report.in_window),
+            "in_window_detected": sum(len(report.detected.get(k, set()) & v)
+                                      for k, v in report.in_window.items()),
+            "fixed": fixed, "refused_stale_stripe": lost,
+            "oracle_ms": oracle_ms, "scrub_ms": scrub_ms, "repair_ms": repair_ms}
+
+
+def redundancy_faults(store, state, red, window) -> dict:
+    """The reference's redundancy-side cases on clean stripes: a checksum
+    flip and a meta flip caught by verify_meta (the checksum flip's block
+    flagged by scrub, nothing for the meta flip), a parity flip under which
+    a repair through its stripe fails the rescrub, and a torn write across
+    a stripe boundary with every touched block flagged."""
+    from repro_torch.faults import FaultSpec
+    clean = np.flatnonzero(~window.stripes["heap"][:-1] & ~window.stripes["heap"][1:])
+    s_ck, s_par, s_torn = (int(s) for s in clean[:3])
+    ck = FaultSpec("checksum_bitflip", "heap", block=s_ck * STRIPE, bit=31)
+    _, red_ck = store.inject(state, red, ck)
+    check(not bool(store.verify_meta(red_ck)["heap"]), "checksum flip passed verify_meta")
+    check(flagged(store.scrub(state, red_ck)) == {("heap", ck.block)},
+          "scrub did not flag exactly the checksum flip's block")
+    _, red_mc = store.inject(state, red, FaultSpec("meta_bitflip", "heap", bit=17))
+    check(not bool(store.verify_meta(red_mc)["heap"]), "meta flip passed verify_meta")
+    check(not flagged(store.scrub(state, red_mc)), "a meta flip made scrub flag blocks")
+    b = s_par * STRIPE + 1
+    _, red_par = store.inject(state, red, FaultSpec("parity_bitflip", "heap", block=b,
+                                                   lane=5, bit=9))
+    lv_bad, _ = store.inject(state, red_par, FaultSpec("data_bitflip", "heap", block=b,
+                                                      lane=3, bit=2))
+    mm = store.scrub(lv_bad, red_par)
+    check(flagged(mm) == {("heap", b)}, "scrub did not flag the parity case's block")
+    repaired, fixed, lost = store.repair(lv_bad, red_par, mm)
+    check((fixed, lost) == (1, 0), f"parity case repair {(fixed, lost)}")
+    check(flagged(store.scrub(repaired, red_par)) == {("heap", b)},
+          "a repair through a flipped parity row passed the rescrub")
+    torn = FaultSpec("torn_write", "heap", block=s_torn * STRIPE + 2,
+                     blocks=tuple(range(s_torn * STRIPE + 2, s_torn * STRIPE + 6)))
+    lv_t, _ = store.inject(state, red, torn)
+    check(flagged(store.scrub(lv_t, red)) == {("heap", x) for x in torn.blocks},
+          "the torn write's blocks were not all flagged")
+    return {"checksum_block": ck.block, "parity_block": b, "torn_blocks": list(torn.blocks)}
+
+
+def inflight_redundancy(store, state, red, window) -> dict:
+    """While the update is in flight: a checksum flip and a meta flip on
+    the live view are caught by verify_meta.  Returns the record and a
+    clean stripe whose parity is flipped in a copy of the live view."""
+    from repro_torch.faults import FaultSpec
+    clean = np.flatnonzero(~window.stripes["heap"])
+    s_ck, s_par = int(clean[0]), int(clean[1])
+    _, red_ck = store.inject(state, red, FaultSpec("checksum_bitflip", "heap",
+                                                  block=s_ck * STRIPE, bit=31))
+    _, red_mc = store.inject(state, red, FaultSpec("meta_bitflip", "heap", bit=17))
+    _, red_par = store.inject(state, red, FaultSpec("parity_bitflip", "heap",
+                                                   block=s_par * STRIPE, lane=5, bit=9))
+    caught = [not bool(store.verify_meta(r)["heap"]) for r in (red_ck, red_mc)]
+    check(all(caught), f"in flight: verify_meta missed a flip {caught}")
+    check(not torch.equal(red_par["heap"].parity[s_par], red["heap"].parity[s_par]),
+          "in flight: the parity flip did not land in its copy")
+    return {"caught_by_verify_meta": caught, "parity_stripe": s_par}
+
+
+def adopted_parity(store, state, red, s: int) -> None:
+    """After adoption: stripe ``s``'s parity row (flipped in a copy of the
+    live view while the update was in flight) equals its plain parity, and
+    a data fault in the stripe is rebuilt from it bitwise."""
+    from repro_torch.faults import FaultSpec
+    meta = store.metas["heap"]
+    lanes = blocks.to_lanes(state["heap"], meta)
+    check(torch.equal(red["heap"].parity[s],
+                      par_ref.stripe_parity(lanes[s * STRIPE:(s + 1) * STRIPE], STRIPE)[0]),
+          "the adopted parity row differs from its plain parity")
+    b = s * STRIPE + 2
+    lv, _ = store.inject(state, red, FaultSpec("data_bitflip", "heap", block=b, lane=3, bit=2))
+    fixed_lv, fixed, lost = store.repair(lv, red, store.scrub(lv, red))
+    check((fixed, lost) == (1, 0)
+          and torch.equal(blocks.to_lanes(fixed_lv["heap"], meta)[b], lanes[b]),
+          "a repair through the in-flight parity flip's stripe was not bitwise")
+
+
+def latency_run(seed: int, state: dict) -> dict:
+    """measure_detection_latency over 64 steps of the heap workload on a
+    fresh store over ``state``, a scrub every 16: one fault on a block the
+    run never writes and one on a block written that step, at each of
+    LAT_INJECT.  Then mttdl_measured beside the closed forms at the run's
+    time-averaged vulnerable stripes."""
+    from repro_torch.core import mttdl
+    from repro_torch.faults import FaultSpec
+    from repro_torch.faults.oracle import measure_detection_latency
+    store = ProtectedStore(heap_policy(async_tick=True)).attach(state)
+    meta = store.metas["heap"]
+    g = torch.Generator(device=DEVICE).manual_seed(seed + 14)
+    plan = [torch.randperm(N_ROWS, generator=g, device=DEVICE)[:ROWS_PER_STEP]
+            for _ in range(LAT_STEPS + 1)]
+    written = np.zeros(N_ROWS, bool)
+    for rows in plan[1:]:
+        written[rows.cpu().numpy()] = True
+    never = np.flatnonzero(~written)
+    rng = np.random.default_rng(seed + 14)
+    inject_at = {s: [FaultSpec("data_bitflip", "heap", block=int(rng.choice(never)),
+                               lane=int(rng.integers(ROW)), bit=int(rng.integers(32))),
+                     FaultSpec("data_bitflip", "heap", block=int(plan[s][0]),
+                               lane=int(rng.integers(ROW)), bit=int(rng.integers(32)))]
+                 for s in LAT_INJECT}
+    vuln, step_s = [], []
+
+    def drive(step, leaves, red):
+        if step == 0:
+            return state, store.init(state)
+        t = time.perf_counter()
+        red, _ = fault_step(store, leaves, red, plan[step], g, step)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t)
+        vuln.append(int(store.dirty_stats(red)["heap"]["vulnerable_stripes"]))
+        return leaves, red
+
+    records = measure_detection_latency(store, drive, inject_at, LAT_STEPS, LAT_SCRUB)
+    sec = statistics.median(step_s)
+    never_set = set(never.tolist())
+    clean = [r for r in records if r.spec.block in never_set]
+    hot = [r for r in records if r not in clean]
+    for r in clean:
+        want = -(-r.injected_step // LAT_SCRUB) * LAT_SCRUB
+        check(not r.in_window_at_injection and r.detected_step == want,
+              f"clean-block fault at {r.injected_step}: detected at {r.detected_step}, "
+              f"want {want}")
+    for r in hot:
+        check(r.in_window_at_injection and r.detected_step is None,
+              f"in-window fault at {r.injected_step}: in window "
+              f"{r.in_window_at_injection}, detected at {r.detected_step}")
+    lat = mttdl.detection_latency_stats([r.latency_steps for r in clean], step_seconds=sec)
+    v_avg = sum(vuln) / len(vuln)
+    return {
+        "latency_steps": [r.latency_steps for r in clean],
+        "latency_s": [r.latency_steps * sec for r in clean],
+        "in_window_detected": sum(r.detected_step is not None for r in hot),
+        "step_ms_median": sec * 1e3, "vulnerable_stripes_avg": v_avg,
+        "total_stripes": meta.n_stripes, "mean_latency_s": lat["mean_s"],
+        "mttdl_no_red_s": mttdl.mttdl_no_red(MTTF_BLOCK_S, meta.n_blocks),
+        "mttdl_vilamb_s": mttdl.mttdl_vilamb(MTTF_BLOCK_S, v_avg, STRIPE + 1),
+        "mttdl_measured_s": mttdl.mttdl_measured(MTTF_BLOCK_S, v_avg, STRIPE + 1,
+                                                 meta.n_stripes, lat["mean_s"]),
+    }
+
+
+def sweep_policy() -> RedundancyPolicy:
+    """The reference smoke's schedule (period 2, deadline 3) on 4 KiB rows."""
+    return RedundancyPolicy.single("vilamb", period_steps=2, max_vulnerable_steps=3,
+                                   lanes_per_block=ROW, stripe_data_blocks=STRIPE,
+                                   work_queue_frac=0.5, async_tick=True,
+                                   precompile=False)
+
+
+def sweep_leaves(seed: int) -> dict:
+    g = torch.Generator(device=DEVICE).manual_seed(seed + 15)
+    return {"heap": torch.randn((SWEEP_ROWS, ROW), generator=g, device=DEVICE),
+            "e": torch.randn((SWEEP_BF16_ROWS, 2 * ROW), generator=g,
+                             device=DEVICE).to(torch.bfloat16)}
+
+
+def sweep_mutate(rng, step: int, leaves: dict):
+    """4,096 random heap rows rewritten and 64 bf16 rows shifted a step (of
+    copies), the rows and values drawn from the machine's seeded rng."""
+    g = torch.Generator(device=DEVICE).manual_seed(int(rng.integers(2**31)))
+    out, events = dict(leaves), {}
+    for name, n, k in (("heap", SWEEP_ROWS, SWEEP_WRITE_ROWS),
+                       ("e", SWEEP_BF16_ROWS, SWEEP_BF16_WRITE_ROWS)):
+        idx = torch.as_tensor(np.sort(rng.choice(n, size=k, replace=False)), device=DEVICE)
+        v = leaves[name].clone()
+        if name == "heap":
+            v.index_copy_(0, idx, torch.randn((k, ROW), generator=g, device=DEVICE))
+        else:
+            v[idx] += 0.25 * step
+        out[name] = v
+        events[name] = torch.zeros(n, dtype=torch.bool, device=DEVICE).index_fill_(0, idx, True)
+    return out, events
+
+
+def crash_sweep_cut(seed: int, d: str) -> dict:
+    """The crash-point sweep on the cut heap (256 MiB + 16 MiB bf16) with
+    the reference smoke's schedule, then its two crash-plus-corruption
+    cases at the last dispatch crash."""
+    from repro_torch.faults import CrashPlan, CrashPointMachine, FaultSpec
+    from repro_torch.faults.__main__ import REQUIRED_PHASES
+    machine = CrashPointMachine(lambda: ProtectedStore(sweep_policy()).attach(
+                                    sweep_leaves(seed)),
+                                lambda: sweep_leaves(seed), d, seed=seed, steps=6,
+                                scrub_every=5, hold_inflight_steps=(3, 4),
+                                mutate=sweep_mutate)
+    outcomes = machine.sweep(require_phases=REQUIRED_PHASES)
+    bad = [(o.plan, o.classification, o.scrub_after_flush) for o in outcomes
+           if not o.ok or o.scrub_after_flush != 0]
+    check(not bad, f"crash sweep: {bad}")
+    for o in outcomes:
+        if o.plan.phase in ("dispatch", "coalesce"):
+            check(o.classification != "rejected", f"{o.plan}: restored meta_ck failed")
+    plan = [o.plan for o in outcomes if o.plan.phase == "dispatch"][-1]
+    window = next(o for o in outcomes if o.plan == plan).window.get("heap", set())
+    check(window, "the last dispatch crash holds no window blocks")
+    stripes = {b // STRIPE for b in window}
+    clean = next(b for b in range(SWEEP_ROWS) if b // STRIPE not in stripes)
+    cases = {}
+    for where, b in (("outside", clean), ("inside", min(window))):
+        o = machine.run_crash(plan, faults=(FaultSpec("data_bitflip", "heap", block=b,
+                                                      lane=3, bit=7),))
+        want = "recovered_bitwise" if where == "outside" else "lost_within_window"
+        check(o.classification == want and o.scrub_after_flush == 0,
+              f"crash+corruption {where} the window: {o.classification}")
+        cases[where] = o.classification
+    by: dict = {}
+    for o in outcomes:
+        by[o.classification] = by.get(o.classification, 0) + 1
+    secs = {k: [o.seconds[k] for o in outcomes] for k in ("drive_s", "save_s", "restore_s")}
+    return {"crash_points": len(outcomes), "phases": sorted({o.plan.phase for o in outcomes}),
+            "outcomes": by, "corruption": cases,
+            "replay_s": {k: {"mean": statistics.mean(v), "max": max(v)}
+                         for k, v in secs.items()}}
+
+
+def phase_faults(seed: int) -> dict:
+    """Phase 13: the fault battery on the card (see the module docstring).
+    Returns the phase's record (its launch counts under ``launches``)."""
+    import shutil
+    import tempfile
+    from repro_torch.faults import FaultInjector, vulnerability_window
+    t_phase = time.perf_counter()
+    dev = torch.device(DEVICE)
+    g = torch.Generator(device=dev).manual_seed(seed + 13)
+    rng = np.random.default_rng(seed + 13)
+    kinds = ("data_bitflip", "stale_redundancy")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    rec: dict = {}
+    state = {"heap": torch.randn((N_ROWS, ROW), generator=g, device=dev),
+             "params": torch.randn((16384, 1024), generator=g, device=dev)}
+    store = ProtectedStore(heap_policy(async_tick=True)).attach(state)
+    red = store.init(state)
+    group = next(grp for grp in store.groups.values() if "heap" in grp.names)
+
+    def rows():
+        return torch.randperm(N_ROWS, generator=g, device=dev)[:ROWS_PER_STEP]
+
+    # b. at the due tick of step 16, with its update held in flight.
+    for step in range(1, FAULT_DUE):
+        red, _ = fault_step(store, state, red, rows(), g, step)
+    hold_side_stream(store)
+    red, rep = fault_step(store, state, red, rows(), g, FAULT_DUE)
+    pending = group.pending
+    check(rep.updated and pending is not None and pending.done is not None
+          and not pending.done.query(),
+          f"step {FAULT_DUE}: no update in flight after the due tick")
+    window = vulnerability_window(store, red)
+    inj = FaultInjector(store, seed=seed)
+    t = time.perf_counter()
+    specs = inj.plan_clean_blocks(red, FAULT_CLEAN, kinds=kinds)
+    plan_ms = (time.perf_counter() - t) * 1e3
+    specs += in_window_specs(window, specs, FAULT_IN_WINDOW, rng)
+    # The injection is issued while the update runs on the side stream and
+    # is ordered after it on the device (ProtectedStore.inject); the store
+    # must not have adopted it.  (The host may wait for the update inside
+    # the injections: PERF.md, section 7.)
+    in_flight = pending.done is not None and not pending.done.query()
+    check(in_flight, "the update finished before the faults were injected")
+    t = time.perf_counter()
+    lv2, red2 = inj.inject_many(state, red, specs)
+    inject_host_ms = (time.perf_counter() - t) * 1e3
+    check(group.pending is pending, "the injection resolved the in-flight update")
+    saved = saved_rows(store, state, specs)       # the injection wrote copies
+    flight = inflight_redundancy(store, state, red, window)
+    red = store.settle(red2, lv2, step=FAULT_DUE)
+    check(all(bool(v) for v in store.verify_meta(red).values()),
+          "after settle the adopted view fails verify_meta")
+    rec["inflight"] = oracle_checks(store, lv2, red, specs, window, saved, "in flight")
+    check(rec["inflight"]["in_window_detected"] == FAULT_IN_WINDOW
+          and rec["inflight"]["refused_stale_stripe"] == 0,
+          f"in flight: {rec['inflight']}")
+    adopted_parity(store, state, red, flight["parity_stripe"])
+    rec["inflight"].update(flight, plan_clean_ms=plan_ms, inject_host_ms=inject_host_ms,
+                           specs=len(specs), pending_unresolved_at_injection=in_flight)
+    del lv2, red2
+
+    # a. settled, after step 20.
+    for step in range(FAULT_DUE + 1, FAULT_STEPS + 1):
+        red, _ = fault_step(store, state, red, rows(), g, step)
+    red = store.settle(red, state, step=FAULT_STEPS)
+    window = vulnerability_window(store, red)
+    inj = FaultInjector(store, seed=seed + 1)
+    specs = inj.plan_clean_blocks(red, FAULT_CLEAN, kinds=kinds)
+    specs += in_window_specs(window, specs, FAULT_IN_WINDOW, rng)
+    (lv2, _), inject_ms = timed(lambda: inj.inject_many(state, red, specs))
+    saved = saved_rows(store, state, specs)
+    rec["settled"] = oracle_checks(store, lv2, red, specs, window, saved, "settled")
+    check(rec["settled"]["in_window_detected"] == 0, f"settled: {rec['settled']}")
+    rec["settled"].update(inject_ms_per_fault=inject_ms / len(specs), specs=len(specs),
+                          window_blocks=int(window.blocks["heap"].sum()),
+                          window_stripes=window.n_vulnerable_stripes())
+    del lv2
+    rec["redundancy"] = redundancy_faults(store, state, red, window)
+    del store, red, saved
+    torch.cuda.empty_cache()
+
+    # c. detection latency and MTTDL.
+    rec["latency"] = latency_run(seed, state)
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # d. the crash sweep on the cut heap.
+    d = tempfile.mkdtemp(prefix="vilamb_crash_")
+    try:
+        free_gb = shutil.disk_usage(d).free / 1e9
+        check(free_gb > SWEEP_DISK_GB, f"phase 13 needs {SWEEP_DISK_GB} GB on disk "
+              f"in {d}; {free_gb:.1f} GB are free")
+        rec["sweep"] = crash_sweep_cut(seed, d)
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    torch.cuda.synchronize()
+    rec["launches"] = read_launches()
+    for name in ("checksum", "parity", "fused_update"):
+        check(rec["launches"][name] > 0, f"{name} kernel never launched in phase 13")
+    rec["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 2**30
+
+    # e. the battery's entry point, on the card, in a process of its own.
+    env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent / "src"))
+    t = time.perf_counter()
+    cli = subprocess.run([sys.executable, "-m", "repro_torch.faults", "--smoke"],
+                         capture_output=True, text=True, env=env, timeout=600,
+                         cwd=str(Path(__file__).resolve().parent))
+    rec["cli"] = {"rc": cli.returncode, "s": time.perf_counter() - t,
+                  "lines": cli.stdout.strip().splitlines()}
+    check(cli.returncode == 0 and "fault battery OK" in cli.stdout,
+          f"python -m repro_torch.faults --smoke exited {cli.returncode}: "
+          f"{cli.stdout[-2000:]} {cli.stderr[-2000:]}")
+    rec["wall_s"] = time.perf_counter() - t_phase
+    return rec
+
+
+def print_faults(rec: dict) -> None:
+    """Phase 13's lines."""
+    print(f"faults ({rec['wall_s']:.1f} s): launches {rec['launches']}; peak "
+          f"{rec['peak_mem_gb']:.2f} GiB")
+    for key in ("inflight", "settled"):
+        r = {k: (round(v, 3) if isinstance(v, float) else v) for k, v in rec[key].items()}
+        print(f"faults: 8 GiB heap, {key}: {r}")
+    print(f"faults: redundancy-side (settled): {rec['redundancy']}")
+    lat = rec["latency"]
+    print(f"faults: detection latency (scrub every {LAT_SCRUB}): "
+          f"{lat['latency_steps']} steps = {[round(x, 4) for x in lat['latency_s']]} s at "
+          f"{lat['step_ms_median']:.2f} ms a step; in-window faults detected "
+          f"{lat['in_window_detected']} of {len(LAT_INJECT)}")
+    print(f"faults: MTTDL at V = {lat['vulnerable_stripes_avg']:.1f} of "
+          f"{lat['total_stripes']} stripes (MTTF_block {MTTF_BLOCK_S:g} s): measured "
+          f"{lat['mttdl_measured_s']:.6g} s, vilamb {lat['mttdl_vilamb_s']:.6g} s, no "
+          f"redundancy {lat['mttdl_no_red_s']:.6g} s (uplift "
+          f"{lat['mttdl_measured_s'] / lat['mttdl_no_red_s']:.1f}x measured, "
+          f"{lat['mttdl_vilamb_s'] / lat['mttdl_no_red_s']:.1f}x closed form)")
+    sw = rec["sweep"]
+    print(f"faults: crash sweep on 256 MiB + 16 MiB bf16: {sw['crash_points']} crash "
+          f"points over {len(sw['phases'])} phases, outcomes {sw['outcomes']}, with "
+          f"corruption {sw['corruption']}; per replay (s) {sw['replay_s']}")
+    for line in rec["cli"]["lines"]:
+        print(f"faults: cli | {line}")
+
+
 def smi_line() -> str:
     """The card's name and power limit, as nvidia-smi gives them."""
     smi = subprocess.run(
@@ -2206,13 +2708,21 @@ def main() -> int:
     print_train_moe(moe_train)
     print(smi_line())
     print(json.dumps({"train_moe": moe_train}))
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    fl = phase_faults(args.seed)
+    print_faults(fl)
+    print(smi_line())
+    print(json.dumps({"faults": fl}))
     for row in kernels:
         by_path = {"heap": heap_launches.get(row["name"], 0),
                    "serving": serve_launches[row["name"]],
                    "training": train_launches[row["name"]],
                    "recovery": rec["launches"][row["name"]],
                    "serving_moe": moe_serve["launches"][row["name"]],
-                   "training_moe": moe_train["main"]["launches"][row["name"]]}
+                   "training_moe": moe_train["main"]["launches"][row["name"]],
+                   "faults": fl["launches"][row["name"]]}
         row["launches"] = sum(by_path.values())
         row["launches_by_path"] = by_path
     print(json.dumps({"kernels": kernels}))

@@ -5,7 +5,9 @@ checkpoint written by either package restores in the other:
 ``step_N/manifest.json`` and ``step_N/state.npz``, one array ``a{i}`` per
 leaf in the reference's flatten order of ``TrainState`` (key paths
 ``params/...``, ``opt/count``, ``opt/m/...``, ``opt/v/...``,
-``red/<leaf>/<field>``, ``step``), bf16 leaves stored as ``uint16`` and
+``red/<leaf>/<field>``, ``step``) or of the crash machine's
+``StoreState`` (``leaves/<leaf>``, ``red/<leaf>/<field>``, ``step``),
+bf16 leaves stored as ``uint16`` and
 named in the manifest's ``bf16`` list, the redundancy fields as
 ``uint32``, ``step`` and ``count`` as int32 0-d arrays.
 
@@ -91,22 +93,33 @@ def _path_str(kp) -> str:
     return "/".join(str(k) for k in kp)
 
 
+def _is_store_state(state) -> bool:
+    """A crash checkpoint's ``StoreState`` (``leaves``, ``red``, ``step``:
+    a raw store's protected leaves, flat by name) rather than a
+    ``TrainState``."""
+    return hasattr(state, "leaves") and not hasattr(state, "params")
+
+
 def state_leaves(state) -> Dict[str, Any]:
-    """Every leaf of a ``TrainState`` by the reference's key path, in the
-    order ``jax.tree_util`` flattens the reference's ``TrainState``: the
-    fields in declaration order, dict keys sorted, each ``LeafRedundancy``
-    in field order.  Empty subtrees have no leaves; ``step`` and ``count``
-    stay Python ints."""
+    """Every leaf of a ``TrainState`` or a ``StoreState`` by the reference's
+    key path, in the order ``jax.tree_util`` flattens the reference's
+    dataclass: the fields in declaration order, dict keys sorted, each
+    ``LeafRedundancy`` in field order.  Empty subtrees have no leaves;
+    ``step`` and ``count`` stay Python ints."""
     out: Dict[str, Any] = {}
-    for k, v in flatten_dict(state.params).items():
-        out[_path_str(("params", k))] = v
-    for key in sorted(state.opt):
-        sub = state.opt[key]
-        if isinstance(sub, dict):
-            for k, v in flatten_dict(sub).items():
-                out[_path_str(("opt", key, k))] = v
-        else:
-            out[_path_str(("opt", key))] = sub
+    if _is_store_state(state):
+        for k in sorted(state.leaves):
+            out[_path_str(("leaves", k))] = state.leaves[k]
+    else:
+        for k, v in flatten_dict(state.params).items():
+            out[_path_str(("params", k))] = v
+        for key in sorted(state.opt):
+            sub = state.opt[key]
+            if isinstance(sub, dict):
+                for k, v in flatten_dict(sub).items():
+                    out[_path_str(("opt", key, k))] = v
+            else:
+                out[_path_str(("opt", key))] = sub
     for name in sorted(state.red):
         for f in FIELDS:
             out[_path_str(("red", name, f))] = getattr(state.red[name], f)
@@ -117,13 +130,18 @@ def state_leaves(state) -> Dict[str, Any]:
 def state_from_leaves(template, flat: Dict[str, Any]):
     """Inverse of :func:`state_leaves`: ``template``'s structure with every
     leaf taken from ``flat``."""
+    red = {name: LeafRedundancy(**{f: flat[f"red/{name}/{f}"] for f in FIELDS})
+           for name in template.red}
+    if _is_store_state(template):
+        return dataclasses.replace(
+            template, leaves={k: flat[f"leaves/{k}"] for k in template.leaves},
+            red=red, step=flat["step"])
+
     def sub(prefix):
         return {k[len(prefix) + 1:]: v for k, v in flat.items()
                 if k.startswith(prefix + "/")}
     opt = {key: replace_leaves(v, sub(f"opt/{key}")) if isinstance(v, dict)
            else flat[f"opt/{key}"] for key, v in template.opt.items()}
-    red = {name: LeafRedundancy(**{f: flat[f"red/{name}/{f}"] for f in FIELDS})
-           for name in template.red}
     return dataclasses.replace(template, params=replace_leaves(template.params,
                                                                sub("params")),
                                opt=opt, red=red, step=flat["step"])
@@ -528,8 +546,8 @@ class CheckpointManager:
 
     def restore_into(self, state_struct: Any,
                      step: Optional[int] = None) -> Optional[Any]:
-        """Rebuild a state like ``state_struct`` (a ``TrainState`` whose
-        leaves carry the shapes, e.g. meta tensors from
+        """Rebuild a state like ``state_struct`` (a ``TrainState`` or a
+        ``StoreState`` whose leaves carry the shapes, e.g. meta tensors from
         ``Trainer.state_struct``) from the newest verified checkpoint.  The
         port is machine-local, so the reference's ``shardings`` argument
         has no counterpart."""

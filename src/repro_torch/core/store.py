@@ -292,7 +292,8 @@ class ProtectedStore:
         deadline- or scrub-forced resolution); ``blocking_update``;
         ``scrub``; ``tick``; ``flush``; ``settle``.  ``info['red']`` is the
         live redundancy view at that instant.  Exceptions raised by a hook
-        propagate.
+        propagate.  Hooks fire at host level only, never inside a step that
+        ``torch.compile`` traces.
         """
         self._phase_hooks.append(fn)
 
@@ -300,6 +301,8 @@ class ProtectedStore:
         self._phase_hooks.remove(fn)
 
     def _phase(self, name: str, **info) -> None:
+        if torch.compiler.is_compiling():
+            return
         for fn in list(self._phase_hooks):
             fn(name, info)
 
@@ -983,6 +986,18 @@ class ProtectedStore:
         per refused stripe."""
         from ..ckpt.failure import repair_corruption
         return repair_corruption(self, leaves, red, mismatches, details=details)
+
+    def inject(self, leaves: Mapping[str, torch.Tensor], red: RedundancyState,
+               spec) -> Tuple[Dict[str, torch.Tensor], RedundancyState]:
+        """Apply one ``repro_torch.faults.FaultSpec`` functionally (test and
+        battery hook), placed in block-lane space against this store's
+        geometry.  Returns new ``(leaves, red)``; the written leaf or field
+        is a copy and the inputs are untouched.  The copies are ordered
+        after every in-flight update (``await_inflight``): on the card the
+        update refreshes the live view's checksums and parity in place."""
+        from ..faults.inject import apply_fault
+        self.await_inflight()
+        return apply_fault(self.metas, leaves, red, spec)
 
     def vulnerable_masks(self, red: RedundancyState) -> Dict[str, torch.Tensor]:
         """Per-leaf bool[n_blocks] masks of the vulnerability window."""

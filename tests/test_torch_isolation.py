@@ -123,6 +123,12 @@ def _launch_train_moe(core):
     return train.main(["--arch", "arctic-480b", "--smoke", "--steps", "1"])
 
 
+def _faults_smoke(core):
+    from repro_torch.faults import __main__ as faults_cli
+    return faults_cli.main(["--smoke"])
+
+
+ENTRY_POINTS.update({"faults --smoke": _faults_smoke})
 ENTRY_POINTS.update({"launch.serve qwen3-moe": _launch_serve_moe,
                      "launch.train arctic": _launch_train_moe})
 ENTRY_POINTS.update({"Trainer": _trainer, "AdamW.init": _adamw_init,
