@@ -52,7 +52,11 @@ Phases, each of which must pass or the script exits non-zero:
    profiler trace of four decode steps with and without the store, and
    one of decode steps 16-19 (the due tick with its scrub) with the
    overlapped and the blocking store, with the fused update's stream
-   overlap;
+   overlap.  Then one more ``generate`` (phase 14d) with the caches under
+   the same store with the scrub off, the scrub patroller at 64 MiB a tick
+   and the health governor at its defaults: tokens identical to no store,
+   the last health report HEALTHY, no patrol mismatch; its blocks patrolled
+   and wall time;
 8. the flash kernel at the prefill's shapes against its plain version,
    timed beside the plain version and torch's scaled_dot_product_attention,
    with its TFLOP/s and share of its bound;
@@ -152,9 +156,36 @@ Phases, each of which must pass or the script exits non-zero:
    a clean scrub after flush, and the two crash-plus-corruption cases;
    checkpoints in a temporary directory (free space checked first,
    removed at the end).  Last, ``python -m repro_torch.faults --smoke`` in
-   a process of its own on the card must exit 0.  Timed: planning,
-   injection, scrub, repair, the step, each replay's drive, save and
-   restore; the peak and the phase's wall time.
+   a process of its own on the card must exit 0 (its four passes, the
+   scrub patroller's detection the fourth).  Timed: planning, injection,
+   scrub, repair, the step, each replay's drive, save and restore; the
+   peak and the phase's wall time;
+14. patrol and health, on phase 4's heap (8 GiB of 4 KiB rows beside the
+   64 MiB sync leaf, vilamb T=16, deadline 32, the overlapped tick, 4,096
+   random row writes a step, no scheduled scrub).  a. The scrub patroller
+   at 64 MiB a probe (16,384 blocks, ~137 ticks a sweep) and at 512 MiB
+   (~17): after 16 steps and a settle, 8 data bit flips from
+   ``plan_clean_blocks`` on stripes the run never writes; ticks until each
+   is detected by the patrol alone and rebuilt, and a sweep is done
+   (within two sweeps plus 16 ticks): patrol mismatches equal the faults,
+   every row bitwise, a clean scrub after flush, coverage 1.0.  Timed: the
+   quiet tick's host ms with a probe and without the patroller, the
+   repair ticks', K1 on a window against its bound, the latencies in
+   ticks and seconds, and ``mttdl_measured`` at phase 13's V beside its
+   scrub-every-16 figure.  b. The due update of step 16 held behind a
+   spin on the side stream: the quiet tick of step 17 dispatches a probe
+   over a window with a corrupted clean block and returns with the update
+   still in flight; the next tick lands it and repairs the block (its
+   host ms recorded: the repair's stripe check waits for the update); the
+   probe's verdicts equal a plain recompute once the update finished.  c. The health governor (``dispatch_timeout_s`` 0.3 s,
+   ``backpressure="error"``, ``violation_mode="report"``) beside a
+   blocking twin, the update of step 16 held behind three spins: a
+   forced resolve inside the margin (rung 2), retries then their
+   exhaustion (rung 1), ``BackpressureError`` from ``on_write`` (rung 3),
+   a blocking update every tick until HEALTHY again (rung 4), an excursion
+   forced on the group's clock reported as a violation; verify_meta clean
+   and every field equal to the twin's after flush.  The phase's launch
+   counts and phase 14d's are the kernel line's "patrol" path.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 the per-kernel JSON record.  All data comes from ``--seed``.
@@ -257,6 +288,15 @@ MTTF_BLOCK_S = 1.0e9                    # benchmarks/mttdl_bench.py's figure
 SWEEP_ROWS, SWEEP_BF16_ROWS = 65_536, 4096          # 256 MiB fp32, 16 MiB bf16
 SWEEP_WRITE_ROWS, SWEEP_BF16_WRITE_ROWS = 4096, 64
 SWEEP_DISK_GB = 15                      # ~31 checkpoints of 0.36 GB, with room
+
+# Patrol and health (phase 14): phase 4's heap again; the patroller at two
+# byte budgets (16,384 and 131,072 of its 4 KiB blocks a probe), 8 faults on
+# stripes the run never writes; the governor's ladder with the update of
+# step 16 held behind GOV_SPINS spins (~1 s each) and a dispatch timeout
+# well inside them.
+PATROL_BUDGETS = (64 << 20, 512 << 20)
+PATROL_FAULTS, PATROL_SETTLE = 8, 16
+GOV_TIMEOUT_S, GOV_SPINS, GOV_MAX_STEPS = 0.3, 3, 96
 
 SPECIALS = [0x7FC00000, 0x7F800000, 0xFF800000, 0x7F800001, 0x00000000, 0xFFFFFFFF]
 
@@ -983,6 +1023,8 @@ def phase_serve(g) -> dict:
         if st is not None:
             host_ticks[kind].extend(trec["ticks"])
 
+    patrol_serve = serve_patrolled(model, params, batch, policy, tokens)
+
     prof = {"store": profile_decode(model, params, batch, new_store()),
             "none": profile_decode(model, params, batch),
             "async_due": profile_decode(model, params, batch, new_store(), first=PERIOD - 1),
@@ -994,7 +1036,7 @@ def phase_serve(g) -> dict:
           "the overlapped store's fused update ran on the foreground's stream")
 
     out = {"model": model, "params": params, "batch": batch, "store": store,
-           "caches": stats["caches"], "launches": launches}
+           "caches": stats["caches"], "launches": launches, "patrolled": patrol_serve}
     with torch.inference_mode():
         out["red"], checks = serve_checks(g, store, flatten_dict(stats["caches"]),
                                           stats["red"])
@@ -1039,6 +1081,49 @@ def phase_serve(g) -> dict:
         **checks,
     }
     return out
+
+
+def serve_patrolled(model, params, batch, policy, tokens) -> dict:
+    """Phase 14d, inside phase 7: one more ``generate`` with the caches
+    under ``policy`` with the scheduled scrub off, the patroller at 64 MiB
+    a tick and the health governor at its defaults.  Tokens equal to the
+    run with no store, the last health report HEALTHY, no patrol mismatch.
+    Its launch counts are read around it (the kernel line's "patrol"
+    path)."""
+    from repro_torch.health import HEALTHY, HealthPolicy
+    pol = dataclasses.replace(policy, patrol_bytes_per_tick=PATROL_BUDGETS[0],
+                              health=HealthPolicy())
+    store = ProtectedStore(pol, device=DEVICE).attach(
+        model.cache_shapes(SERVE_BATCH, PROMPT + GEN + 1))
+    mism: list = []
+    tick = store.tick
+
+    def counted(*a, **kw):
+        red, report = tick(*a, **kw)
+        mism.append(report.patrol_mismatches)
+        return red, report
+    store.tick = counted
+    srv = Server(model=model, store=store, max_len=PROMPT + GEN + 1)
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    toks, stats = srv.generate(params, batch, GEN, scrub_every=0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    pat = store.patroller
+    check(torch.equal(toks, tokens), "tokens differ with the patrolled store")
+    check(stats["health"] is not None and stats["health"].worst == HEALTHY
+          and stats["health_actions"] == 0, f"serving health: {stats['health']}")
+    check(sum(mism) == 0 and not pat.detections and not pat.unrecoverable,
+          f"the patrol flagged {sum(mism)} blocks while serving")
+    check(launches["checksum"] > 0 and launches["flash_attn"] == model.cfg.n_layers,
+          f"patrolled serving launches {launches}")
+    bpb = next(iter(store.metas.values())).bytes_per_block
+    return {"generate_s": wall, "blocks_patrolled": pat.blocks_scanned,
+            "bytes_patrolled_gb": pat.blocks_scanned * bpb / 1e9,
+            "probe_ticks": len(mism), "launches": launches,
+            "health": stats["health"].worst}
 
 
 def serve_checks(g, store, leaves: dict, red: dict):
@@ -2097,10 +2182,10 @@ def hold_side_stream(store) -> None:
         torch.cuda._sleep(SIDE_SLEEP_CYCLES)
 
 
-def fault_step(store, state, red, rows, g, step):
-    """One step of phase 4's heap workload on ``state``: ``rows`` of the
-    heap rewritten in place with values from ``g``, the params scaled, both
-    recorded, the tick.  Returns ``(red, report)``."""
+def heap_write(store, state, red, rows, g):
+    """The writes of one step of phase 4's heap workload on ``state``:
+    ``rows`` of the heap rewritten in place with values from ``g``, the
+    params scaled, both recorded.  Returns ``red``."""
     heap, params = state["heap"], state["params"]
     heap.index_copy_(0, rows, torch.randn((rows.numel(), ROW), generator=g,
                                           device=heap.device))
@@ -2108,9 +2193,14 @@ def fault_step(store, state, red, rows, g, step):
     params.mul_(0.999)
     ev = torch.zeros(N_ROWS, dtype=torch.bool, device=heap.device)
     ev.index_fill_(0, rows, True)
-    red = store.on_write(red, events={"heap": ev}, old={"params": old},
-                         new={"params": params})
-    return store.tick(state, red, step)
+    return store.on_write(red, events={"heap": ev}, old={"params": old},
+                          new={"params": params})
+
+
+def fault_step(store, state, red, rows, g, step):
+    """One step of phase 4's heap workload: its writes, then the tick.
+    Returns ``(red, report)``."""
+    return store.tick(state, heap_write(store, state, red, rows, g), step)
 
 
 def in_window_specs(window, taken, n: int, rng) -> list:
@@ -2545,6 +2635,400 @@ def print_faults(rec: dict) -> None:
         print(f"faults: cli | {line}")
 
 
+def patrol_plan(g, steps: int) -> tuple:
+    """``steps + 1`` steps of 4,096 random heap rows from ``g`` (index 0
+    unused), and the host mask of the stripes none of them touches."""
+    dev = torch.device(DEVICE)
+    plan = [torch.randperm(N_ROWS, generator=g, device=dev)[:ROWS_PER_STEP]
+            for _ in range(steps + 1)]
+    touched = torch.zeros(N_ROWS // STRIPE, dtype=torch.bool, device=dev)
+    for rows in plan[1:]:
+        touched.index_fill_(0, rows // STRIPE, True)
+    return plan, (~touched).cpu().numpy()
+
+
+def patrol_run(seed: int, state: dict, budget: int, g) -> dict:
+    """Phase 14a at one byte budget: the heap workload under a store whose
+    patroller checksums ``budget`` bytes a probe (no scheduled scrub).
+    After PATROL_SETTLE steps and a settle, PATROL_FAULTS data bit flips
+    from ``plan_clean_blocks`` on stripes the run never writes; ticks until
+    the patrol alone has detected and repaired each one and finished a
+    sweep, within two sweeps plus 16 ticks.  Every probe is compared in
+    its tick's report: no mismatch but the faults'.  Then 8 steps with the
+    patroller set aside (the quiet tick without a probe), a flush, a clean
+    scrub and every faulted row equal to its pre-fault bytes."""
+    from repro_torch.faults import FaultInjector
+    dev = torch.device(DEVICE)
+    store = ProtectedStore(dataclasses.replace(heap_policy(async_tick=True),
+                                               patrol_bytes_per_tick=budget)).attach(state)
+    red = store.init(state)
+    pat, meta = store.patroller, store.metas["heap"]
+    w = pat.window["heap"]
+    check(pat.targets == ["heap"] and w == budget // (ROW * 4),
+          f"patrol targets {pat.targets}, window {w}")
+    # A sweep in ticks: two a probe (its dispatch, then the tick its masks
+    # land on: the foreground's queue holds the probe's event past the
+    # next tick), none on the busy tick of each period.
+    sweep_ticks = math.ceil(2 * -(-meta.n_blocks // w) * PERIOD / (PERIOD - 1))
+    budget_ticks = 2 * sweep_ticks + 16
+    plan, never = patrol_plan(g, PATROL_SETTLE + budget_ticks + 8)
+    ticks: list = []
+
+    def step_(step):
+        nonlocal red
+        red = heap_write(store, state, red, plan[step], g)
+        t = time.perf_counter()
+        red, rep = store.tick(state, red, step)
+        ticks.append({"step": step, "ms": (time.perf_counter() - t) * 1e3,
+                      "updated": bool(rep.updated), "probe": bool(rep.patrolled),
+                      "repaired": bool(rep.repaired), "mismatches": rep.patrol_mismatches})
+        state.update(rep.repaired)
+        return rep
+
+    for step in range(1, PATROL_SETTLE + 1):
+        step_(step)
+    red = store.settle(red, state, step=PATROL_SETTLE)
+    inj = FaultInjector(store, seed=seed)
+    # A whole budget of writes leaves ~1% of the stripes untouched: plan
+    # enough candidates to find PATROL_FAULTS among them.
+    specs = [s for s in inj.plan_clean_blocks(red, 4096, kinds=("data_bitflip",))
+             if s.leaf == "heap" and never[s.block // STRIPE]][:PATROL_FAULTS]
+    check(len(specs) == PATROL_FAULTS, f"only {len(specs)} clean blocks on stripes "
+          "the run never writes")
+    ids = torch.tensor([s.block for s in specs], device=dev)
+    saved = state["heap"][ids].clone()
+    lv, red = inj.inject_many(state, red, specs)
+    state.update(lv)
+    del lv
+    check(not torch.equal(state["heap"][ids], saved), "the faults did not land")
+    for s in specs:
+        pat.expect_injection("heap", s.block, PATROL_SETTLE)
+    cursor0 = pat.cursor["heap"]
+    k1_before = ck_ops.LAUNCHES
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step = PATROL_SETTLE
+    while not (len(pat.latencies) == PATROL_FAULTS and not pat._repair_queue
+               and pat.coverage()["heap"] == 1.0):
+        step += 1
+        check(step <= PATROL_SETTLE + budget_ticks,
+              f"patrol at {budget >> 20} MiB: {len(pat.latencies)} of {PATROL_FAULTS} "
+              f"faults detected, {len(pat._repair_queue)} queued, coverage "
+              f"{pat.coverage()['heap']:.3f} after {budget_ticks} ticks "
+              f"({sum(t['probe'] for t in ticks[PATROL_SETTLE:])} probes; cursor "
+              f"{cursor0} at injection, {pat.cursor['heap']} now; undetected "
+              f"{sorted(b for _, b in pat._expected)})")
+        step_(step)
+    torch.cuda.synchronize()
+    loop_s = time.perf_counter() - t0
+    loop = ticks[PATROL_SETTLE:]
+    k1 = ck_ops.LAUNCHES - k1_before
+    probes = sum(t["probe"] for t in loop)
+    mism = sum(t["mismatches"] for t in loop)
+    check(mism == PATROL_FAULTS, f"patrol at {budget >> 20} MiB: {mism} mismatches for "
+          f"{PATROL_FAULTS} faults")
+    check(not pat.unrecoverable, f"unrecoverable: {pat.unrecoverable}")
+    check(k1 >= probes > 0, f"{k1} checksum launches for {probes} probes")
+    aside, store.patroller = store.patroller, None
+    for _ in range(8):
+        step += 1
+        step_(step)
+    store.patroller = aside
+    red = store.flush(state, red, step)
+    check(store.scrub_check(state, red) == 0, "scrub after the patrol's repairs not clean")
+    check(torch.equal(state["heap"][ids], saved), "a faulted row was not rebuilt bitwise")
+    step_s = loop_s / len(loop)
+    lat = pat.latency_stats(step_seconds=step_s)
+    quiet = lambda pred: [t["ms"] for t in pred]
+    probe_ms = quiet(t for t in loop if t["probe"] and not t["updated"] and not t["repaired"])
+    bare_ms = quiet(t for t in ticks[-8:] if not t["updated"])
+    repair_ms = quiet(t for t in loop if t["repaired"])
+    # K1 on one window at the main path's shape, outside the counts.
+    lanes = state["heap"].view(torch.int32)
+    start = meta.n_blocks - w
+    win = lanes[start:]
+    with uncounted():
+        got = ck_ops.block_checksums(win, start)
+        check(torch.equal(got, ck_ref.block_checksums(win, start))
+              and torch.equal(got, red["heap"].checksums[start:]),
+              "the probe window's checksums differ from the plain version's")
+        k1_ms = per_call_ms(lambda: ck_ops.block_checksums(win, start), 20)
+        plain_ms = per_call_ms(lambda: ck_ref.block_checksums(win, start), 2)
+    k1_bound, k1_by = bound(w * ROW * 4 + w * 4, w * ROW * 12)
+    del store, red, aside, saved
+    return {"budget_mib": budget >> 20, "window_blocks": w, "sweep_ticks_est": sweep_ticks,
+            "tick_budget": budget_ticks, "ticks": len(loop), "probes": probes,
+            "cursor_at_injection": cursor0,
+            "k1_launches": k1, "blocks_patrolled": pat.blocks_scanned,
+            "mismatches": mism, "latency_ticks": list(pat.latencies),
+            "latency_s": [x * step_s for x in pat.latencies], "step_ms": step_s * 1e3,
+            "mean_latency_s": lat["mean_s"], "max_latency_s": lat["max_s"],
+            "quiet_tick_probe_host_ms_median": statistics.median(probe_ms),
+            "quiet_tick_no_patrol_host_ms_median": statistics.median(bare_ms),
+            "repair_tick_host_ms": repair_ms,
+            "k1_window_ms": k1_ms, "k1_window_plain_ms": plain_ms,
+            "k1_window_bound_ms": k1_bound, "k1_window_bound_by": k1_by}
+
+
+def held_probe(seed: int, state: dict, g) -> dict:
+    """Phase 14b: the due update of step 16 held behind a spin on the side
+    stream; the quiet tick of step 17 dispatches a probe of a window that
+    holds a corrupted clean block.  The tick must return without waiting
+    for the update (still in flight after it).  The tick of step 18 lands
+    the probe and repairs the block: the repair's stripe check reads on the
+    host after ordering the stream after the update, so that tick waits
+    for it (recorded).  The probe's verdicts equal a plain recompute of the
+    window (its lanes copied before the repair) against the checksums once
+    the update finished, and the row is rebuilt bitwise."""
+    from repro_torch.faults import FaultSpec
+    store = ProtectedStore(dataclasses.replace(
+        heap_policy(async_tick=True), patrol_bytes_per_tick=PATROL_BUDGETS[0])).attach(state)
+    red = store.init(state)
+    pat, meta = store.patroller, store.metas["heap"]
+    w = pat.window["heap"]
+    plan, _ = patrol_plan(g, FAULT_DUE + 2)
+    written = torch.zeros(N_ROWS, dtype=torch.bool, device=DEVICE)
+    for rows in plan[1:]:
+        written.index_fill_(0, rows, True)
+    for step in range(1, FAULT_DUE):
+        red, _ = fault_step(store, state, red, plan[step], g, step)
+    start = min(pat.cursor["heap"], meta.n_blocks - w)
+    blk = start + int(torch.nonzero(~written[start:start + w])[0])
+    before = state["heap"][blk].clone()
+    lv, red = store.inject(state, red, FaultSpec("data_bitflip", "heap", block=blk,
+                                                 lane=5, bit=13))
+    state.update(lv)
+    del lv
+    red = heap_write(store, state, red, plan[FAULT_DUE], g)
+    hold_side_stream(store)
+    red, rep = store.tick(state, red, FAULT_DUE)
+    pending = next(grp for grp in store.groups.values() if "heap" in grp.names).pending
+
+    def held():
+        return pending is not None and pending.done is not None and not pending.done.query()
+    check(rep.updated and held(), "no update held in flight at the due tick")
+    red = heap_write(store, state, red, plan[FAULT_DUE + 1], g)
+    t = time.perf_counter()
+    red, rep = store.tick(state, red, FAULT_DUE + 1)
+    tick_ms = (time.perf_counter() - t) * 1e3
+    in_flight = held()
+    check(rep.patrolled == ("heap",), f"no probe at step {FAULT_DUE + 1}: {rep}")
+    check(in_flight, "the probe tick returned after the held update had finished")
+    _, p_start, p_w, masks, done, _ = pat._probe
+    if done is not None:
+        done.synchronize()                # the probe's own event, on the tick's stream
+    check(held(), "the probe's masks landed after the held update")
+    got = masks.clone()
+    window = state["heap"][p_start:p_start + p_w].clone()
+    view = red["heap"]
+    red = heap_write(store, state, red, plan[FAULT_DUE + 2], g)
+    t = time.perf_counter()
+    red, rep = store.tick(state, red, FAULT_DUE + 2)
+    repair_ms = (time.perf_counter() - t) * 1e3
+    repair_in_flight = held()
+    found = [(d.leaf, d.block, d.step) for d in pat.detections]
+    check(list(rep.repaired) == ["heap"] and found == [("heap", blk, FAULT_DUE + 2)],
+          f"step {FAULT_DUE + 2}: repaired {list(rep.repaired)}, detections {found}")
+    torch.cuda.synchronize()
+    clean = ~bits.unpack(view.dirty | view.shadow, meta.n_blocks)[p_start:p_start + p_w]
+    fresh = ck_ref.block_checksums(window.view(torch.int32), p_start)
+    mism = clean & (fresh != view.checksums[p_start:p_start + p_w])
+    check(p_start == start and torch.equal(got[0], mism.cpu())
+          and torch.equal(got[1], clean.cpu()),
+          "the probe's verdicts under the held update differ from the plain recompute")
+    flagged_blocks = (torch.nonzero(got[0]).flatten() + p_start).tolist()
+    check(flagged_blocks == [blk], f"the probe flagged {flagged_blocks}, want [{blk}]")
+    check(torch.equal(state["heap"][blk], before), "the probed row was not rebuilt bitwise")
+    red = store.settle(red, state, step=FAULT_DUE + 2)
+    check(all(bool(v) for v in store.verify_meta(red).values()),
+          "verify_meta after the held probe")
+    return {"probe_tick_host_ms": tick_ms, "update_in_flight_after": in_flight,
+            "repair_tick_host_ms": repair_ms,
+            "update_in_flight_after_repair_tick": repair_in_flight,
+            "window": [start, start + w], "corrupted_block": blk,
+            "clean_in_window": int(got[1].sum())}
+
+
+def governor_ladder(seed: int, g) -> dict:
+    """Phase 14c: the health governor on the 8 GiB heap (vilamb T=16,
+    deadline 32, the overlapped tick) beside a blocking twin fed the same
+    admitted writes, with the update of step 16 held behind GOV_SPINS spins
+    on the side stream.  Steps 17-47 run fast: the held update coalesces
+    the due tick of 32, and the margin at 47 forces its resolve (rung 2).
+    Each of the next ticks comes after a host sleep longer than
+    ``dispatch_timeout_s``: the still-held re-dispatch is abandoned and
+    retried (rung 1) until the retries run out, and then the breaker goes
+    CRITICAL, ``on_write`` raises BackpressureError (rung 3, the step's
+    write is skipped in both stores) and the group runs a blocking update
+    every tick (rung 4) until it is HEALTHY again.  Then an excursion forced
+    on the group's clock must show on the report's violations.  verify_meta
+    holds after every tick from step 47 on (earlier it would order the
+    foreground after the held update) and at the end, and after flush every
+    field and the heap equal the twin's bitwise."""
+    from repro_torch.core.store import TickReport
+    from repro_torch.health import (CRITICAL, HEALTHY, BackpressureError,
+                                    HealthPolicy)
+    dev = torch.device(DEVICE)
+    hp = HealthPolicy(dispatch_timeout_s=GOV_TIMEOUT_S, backpressure="error",
+                      violation_mode="report")
+    pol = RedundancyPolicy.single("vilamb", period_steps=PERIOD,
+                                  max_vulnerable_steps=DEADLINE, lanes_per_block=ROW,
+                                  stripe_data_blocks=STRIPE, health=hp)
+    heap = torch.randn((N_ROWS, ROW), generator=g, device=dev)
+    state, twin_state = {"heap": heap}, {"heap": heap.clone()}
+    store = ProtectedStore(pol).attach(state)
+    twin = ProtectedStore(dataclasses.replace(pol, async_tick=False, health=None)
+                          ).attach(twin_state)
+    with uncounted():
+        tred = twin.init(twin_state)
+    red = store.init(state)
+    hg, group = store._health, next(iter(store.groups.values()))
+    label = group.label
+    rec: dict = {"actions": [], "states": [], "rejected": [], "blocking": [],
+                 "sleeps_s": []}
+    metas = []
+    sleepy = False
+    step = 0
+    while True:
+        step += 1
+        check(step <= GOV_MAX_STEPS, f"the ladder did not recover in {GOV_MAX_STEPS} "
+              f"steps: {rec['states'][-8:]}")
+        rows = torch.randperm(N_ROWS, generator=g, device=dev)[:ROWS_PER_STEP]
+        vals = torch.randn((ROWS_PER_STEP, ROW), generator=g, device=dev)
+        ev = torch.zeros(N_ROWS, dtype=torch.bool, device=dev).index_fill_(0, rows, True)
+        try:
+            red = store.on_write(red, events={"heap": ev})
+        except BackpressureError as e:
+            check(label in e.groups, f"backpressure names {e.groups}")
+            rec["rejected"].append(step)
+        else:
+            state["heap"].index_copy_(0, rows, vals)
+            twin_state["heap"].index_copy_(0, rows, vals)
+            with uncounted():
+                tred = twin.on_write(tred, events={"heap": ev})
+        if step == FAULT_DUE:
+            for _ in range(GOV_SPINS):
+                hold_side_stream(store)
+        if sleepy:
+            time.sleep(GOV_TIMEOUT_S * 1.2)
+            rec["sleeps_s"].append(GOV_TIMEOUT_S * 1.2)
+        escalated = hg.is_sync_escalated(label)
+        red, rep = store.tick(state, red, step)
+        with uncounted():
+            tred, _ = twin.tick(twin_state, tred, step)
+        kinds = [a.kind for a in rep.health.actions]
+        rec["actions"] += [(step, a.rung, a.kind) for a in rep.health.actions]
+        rec["states"].append(rep.health.states[label])
+        if escalated:
+            check(label in rep.updated, f"step {step}: sync-escalated without an update")
+            rec["blocking"].append(step)
+        if "forced_resolve" in kinds:
+            sleepy = True                 # rung 1 from here: ticks after the timeout
+        if "retry_exhausted" in kinds:
+            sleepy = False
+        if step >= FAULT_DUE + DEADLINE - 1:
+            metas.append(torch.stack([v.reshape(()) for v in store.verify_meta(red).values()]))
+        if rec["blocking"] and rep.health.states[label] == HEALTHY and step % PERIOD == 0:
+            break
+    kinds = {k for _, _, k in rec["actions"]}
+    for want in ("forced_resolve", "retry_timeout", "retry_exhausted", "backpressure_on",
+                 "sync_escalate", "backpressure_off"):
+        check(want in kinds, f"the ladder never fired {want}: {rec['actions']}")
+    check(rec["rejected"], "on_write never raised BackpressureError")
+    check(CRITICAL in rec["states"] and rec["states"][-1] == HEALTHY,
+          f"breaker states {rec['states']}")
+    # An excursion forced on the clock: the age audit must report it.
+    now = time.monotonic()
+    group.last_update_step = step - DEADLINE - 1
+    hg.begin_tick(step, now)
+    audit = TickReport(step=step)
+    hg.end_tick(audit, step, now)
+    v = audit.health.violations
+    check(len(v) == 1 and v[0].group == label and v[0].age_steps == DEADLINE + 1
+          and audit.health.states[label] == CRITICAL,
+          f"the forced excursion was not reported: {audit.health}")
+    rec["violation"] = {"age_steps": v[0].age_steps, "deadline_steps": v[0].deadline_steps}
+    red = store.flush(state, red, step)
+    with uncounted():
+        tred = twin.flush(twin_state, tred, step)
+    metas.append(torch.stack([v.reshape(()) for v in store.verify_meta(red).values()]))
+    check(bool(torch.stack(metas).all()), "verify_meta alarmed during the ladder")
+    check(torch.equal(state["heap"], twin_state["heap"]), "the heap differs from the twin's")
+    for f in ("checksums", "parity", "dirty", "shadow", "meta_ck"):
+        check(torch.equal(getattr(red["heap"], f), getattr(tred["heap"], f)),
+              f"after flush heap.{f} differs from the blocking twin's")
+    rec.update(steps=step, verify_meta_checks=len(metas), alarms=store.corruption_alarms)
+    return rec
+
+
+def phase_patrol(seed: int, faults: dict) -> dict:
+    """Phase 14: the scrub patroller and the health governor (see the
+    module docstring).  ``faults`` is phase 13's record: its latency run's
+    V and scheduled-scrub MTTDL sit beside the patrol's.  Returns the
+    phase's record (its launch counts under ``launches``)."""
+    from repro_torch.core import mttdl
+    t_phase = time.perf_counter()
+    dev = torch.device(DEVICE)
+    g = torch.Generator(device=dev).manual_seed(seed + 14)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    state = {"heap": torch.randn((N_ROWS, ROW), generator=g, device=dev),
+             "params": torch.randn((16384, 1024), generator=g, device=dev)}
+    rec: dict = {"runs": [patrol_run(seed, state, b, g) for b in PATROL_BUDGETS]}
+    rec["held"] = held_probe(seed, state, g)
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec["ladder"] = governor_ladder(seed, g)
+    torch.cuda.synchronize()
+    rec["launches"] = read_launches()
+    for name in ("checksum", "parity", "fused_update"):
+        check(rec["launches"][name] > 0, f"{name} kernel never launched in phase 14")
+    lat = faults["latency"]
+    n_stripes = lat["total_stripes"]
+    rec["scrub_every_16"] = {"mean_latency_s": lat["mean_latency_s"],
+                             "mean_latency_steps": statistics.mean(lat["latency_steps"]),
+                             "mttdl_measured_s": lat["mttdl_measured_s"],
+                             "vulnerable_stripes_avg": lat["vulnerable_stripes_avg"]}
+    for r in rec["runs"]:
+        r["mttdl_measured_s"] = mttdl.mttdl_measured(
+            MTTF_BLOCK_S, lat["vulnerable_stripes_avg"], STRIPE + 1, n_stripes,
+            r["mean_latency_s"])
+    rec["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 2**30
+    rec["wall_s"] = time.perf_counter() - t_phase
+    return rec
+
+
+def print_patrol(rec: dict) -> None:
+    """Phase 14's lines."""
+    print(f"patrol ({rec['wall_s']:.1f} s): launches {rec['launches']}; peak "
+          f"{rec['peak_mem_gb']:.2f} GiB")
+    s16 = rec["scrub_every_16"]
+    for r in rec["runs"]:
+        print(f"patrol at {r['budget_mib']} MiB a probe ({r['window_blocks']} blocks, "
+              f"~{r['sweep_ticks_est']} ticks a sweep): {PATROL_FAULTS} faults detected and "
+              f"rebuilt bitwise in {r['ticks']} ticks ({r['probes']} probes, {r['k1_launches']} "
+              f"checksum launches, {r['mismatches']} mismatches); latency "
+              f"{r['latency_ticks']} ticks, mean {r['mean_latency_s'] * 1e3:.2f} ms at "
+              f"{r['step_ms']:.3f} ms a step (scrub every 16: mean "
+              f"{s16['mean_latency_steps']:.1f} steps, {s16['mean_latency_s'] * 1e3:.2f} ms)")
+        print(f"patrol at {r['budget_mib']} MiB: quiet tick host ms with a probe "
+              f"{r['quiet_tick_probe_host_ms_median']:.4f}, without "
+              f"{r['quiet_tick_no_patrol_host_ms_median']:.4f}; repair ticks "
+              f"{[round(x, 3) for x in r['repair_tick_host_ms']]}; K1 on a window "
+              f"{r['k1_window_ms']:.4f} ms against a {r['k1_window_bound_ms']:.4f} ms bound "
+              f"({r['k1_window_bound_by']}), plain {r['k1_window_plain_ms']:.3f} ms; MTTDL at "
+              f"V = {s16['vulnerable_stripes_avg']:.1f}: patrol {r['mttdl_measured_s']:.6g} "
+              f"s, scrub every 16 {s16['mttdl_measured_s']:.6g} s")
+    print(f"patrol: probe under the held update: {rec['held']}")
+    lad = rec["ladder"]
+    print(f"governor: {lad['steps']} steps; actions {lad['actions']}; rejected writes "
+          f"{lad['rejected']}; blocking updates {lad['blocking']}; forced excursion "
+          f"{lad['violation']}; {lad['verify_meta_checks']} verify_meta checks, all clean; "
+          f"fields equal to the blocking twin's after flush")
+
+
 def smi_line() -> str:
     """The card's name and power limit, as nvidia-smi gives them."""
     smi = subprocess.run(
@@ -2658,6 +3142,7 @@ def main() -> int:
     print(json.dumps({"serve": tm}))
     print(json.dumps({"serve_launches": serve["launches"]}))
     serve_launches = serve["launches"]
+    patrol_serve = serve["patrolled"]
     del serve
     torch.cuda.empty_cache()
 
@@ -2715,6 +3200,14 @@ def main() -> int:
     print_faults(fl)
     print(smi_line())
     print(json.dumps({"faults": fl}))
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    pt = phase_patrol(args.seed, fl)
+    print_patrol(pt)
+    print(f"serve with patrol (phase 14d): {patrol_serve}")
+    print(smi_line())
+    print(json.dumps({"patrol": pt, "serve_patrolled": patrol_serve}))
     for row in kernels:
         by_path = {"heap": heap_launches.get(row["name"], 0),
                    "serving": serve_launches[row["name"]],
@@ -2722,7 +3215,9 @@ def main() -> int:
                    "recovery": rec["launches"][row["name"]],
                    "serving_moe": moe_serve["launches"][row["name"]],
                    "training_moe": moe_train["main"]["launches"][row["name"]],
-                   "faults": fl["launches"][row["name"]]}
+                   "faults": fl["launches"][row["name"]],
+                   "patrol": pt["launches"][row["name"]]
+                   + patrol_serve["launches"][row["name"]]}
         row["launches"] = sum(by_path.values())
         row["launches_by_path"] = by_path
     print(json.dumps({"kernels": kernels}))

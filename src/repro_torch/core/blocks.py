@@ -138,6 +138,27 @@ def to_lanes(x: torch.Tensor, meta: BlockMeta) -> torch.Tensor:
     return out.view(torch.int32).view(meta.n_blocks, meta.lanes_per_block)
 
 
+def window_lanes(x: torch.Tensor, meta: BlockMeta, start: int, n: int) -> torch.Tensor:
+    """int32 ``(n, lanes_per_block)`` lane view of blocks ``[start, start +
+    n)`` of a leaf (``start + n <= n_blocks``).
+
+    A view of the leaf's own memory when those blocks lie wholly inside
+    it; otherwise (the window holds a partial last block) a copy of the
+    window alone, zero-padded past the leaf's end, as :func:`to_lanes`
+    pads.  So a bounded window never copies the rest of the leaf, where
+    :func:`to_lanes` copies a whole leaf that does not fill its blocks.
+    """
+    flat = x.contiguous().reshape(-1)
+    per_block = meta.lanes_per_block * meta.elems_per_word
+    lo, hi = start * per_block, (start + n) * per_block
+    if hi > meta.n_elems:
+        win = torch.zeros((hi - lo,), dtype=x.dtype, device=x.device)
+        win[: meta.n_elems - lo] = flat[lo:]
+    else:
+        win = flat[lo:hi]
+    return win.view(torch.int32).view(n, meta.lanes_per_block)
+
+
 def from_lanes(lanes: torch.Tensor, meta: BlockMeta) -> torch.Tensor:
     """Inverse of :func:`to_lanes` (a view of ``lanes`` where it can be)."""
     flat = lanes.reshape(-1)[: meta.n_lanes].view(meta.torch_dtype)

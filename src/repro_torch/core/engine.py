@@ -18,7 +18,7 @@ results are bitwise identical either way.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Mapping, Tuple, Union
+from typing import Any, Callable, Dict, Mapping, Tuple, Union
 
 import torch
 
@@ -313,6 +313,57 @@ class RedundancyEngine:
             fresh = checksum.block_checksums(self._lanes(leaves, name))
             out[name] = clean & (fresh != r.checksums)
         return out
+
+    def verify_window_fn(self, name: str, window: int,
+                         want_slab: bool = False) -> Callable:
+        """Bounded patrol probe over one leaf (the scrub patroller's core).
+
+        Returns ``fn(leaf, r, start)``, which checksums the ``window``
+        blocks at ``[start, start + window)`` and compares them against the
+        stored per-block checksums, exactly like :meth:`scrub` but over a
+        bounded slab: the per-tick byte budget is ``window *
+        meta.bytes_per_block``.  Outputs, machine-local (``k == 1``):
+
+        * ``mism``  bool ``(1, window)``: clean and mismatching (corrupt),
+        * ``clean`` bool ``(1, window)``: outside the vulnerability window
+          and inside the block range (the comparison is meaningful).
+
+        Window positions past ``n_blocks`` are reported not clean.  On the
+        card the window's fresh checksums are one launch of the checksum
+        kernel over the window's lanes with ``block_offset=start``; the
+        lanes are a row slice of the leaf's own memory
+        (:func:`~repro_torch.core.blocks.window_lanes`), padded only where
+        the window holds a partial last block.  Nothing here waits for the
+        device.  ``want_slab`` (the raw lanes, for cross-shard parity) is
+        not ported.
+        """
+        if want_slab:
+            raise NotImplementedError(
+                "the probe's slab feeds cross-shard parity, which is not ported "
+                "yet: ROADMAP.md, Queue 1 item 11.4 (xpar and shard rebuild)")
+        meta = self.metas[name]
+        nb = meta.n_blocks
+
+        def fn(leaf: torch.Tensor, r: LeafRedundancy, start: int):
+            if leaf.device != self.device:
+                raise ValueError(f"leaf {name!r} lies on {leaf.device}, the "
+                                 f"engine on {self.device}")
+            start = int(start)
+            n = max(0, min(window, nb - start))
+            fresh = checksum.block_checksums(
+                blocks.window_lanes(leaf, meta, start, n), block_offset=start)
+            w0, w1 = start // bits.WORD_BITS, -(-(start + n) // bits.WORD_BITS)
+            live = bits.unpack(r.dirty[w0:w1] | r.shadow[w0:w1],
+                               (w1 - w0) * bits.WORD_BITS)
+            off = start - w0 * bits.WORD_BITS
+            clean = ~live[off:off + n]
+            mism = clean & (fresh != r.checksums[start:start + n])
+            if n < window:
+                pad = torch.zeros((window - n,), dtype=torch.bool, device=leaf.device)
+                clean, mism = torch.cat([clean, pad]), torch.cat([mism, pad])
+            return mism.reshape(1, window), clean.reshape(1, window)
+
+        return fn
 
     def verify_meta(self, red: RedundancyState) -> Dict[str, torch.Tensor]:
         """Check the checksum-of-checksums (detects corrupted checksum pages)."""

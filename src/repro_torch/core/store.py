@@ -29,6 +29,11 @@ adopts nothing), before it reads them.  The store runs on
 the GPU unless the caller passes ``device="cpu"``, where dispatch runs
 to completion and the live view keeps the previous epoch's arrays, as
 the reference's does.
+
+Two background duties ride on the tick, each off unless the policy asks:
+the scrub patroller (``patrol_bytes_per_tick > 0``, :mod:`repro_torch.scrub`)
+and the freshness-SLO health governor (``health``,
+:mod:`repro_torch.health`).
 """
 from __future__ import annotations
 
@@ -112,6 +117,29 @@ class RedundancyPolicy:
     # Run every update variant once at attach (``warmup``), so that the
     # first due tick pays no kernel build or first-launch cost.
     precompile: bool = True
+    # Scrub patroller (repro_torch.scrub): ``patrol_bytes_per_tick`` > 0
+    # enables a continuous low-priority verify cursor over block space; each
+    # probe checksums at most that many bytes per tick.  Detected corruption
+    # is repaired from parity at ``patrol_repair_per_tick`` blocks a tick.
+    # Probes run on quiet ticks, and after ``patrol_max_starved_ticks``
+    # consecutive probe-less ticks on a busy one too (0 disables the floor;
+    # ``TickReport.patrol_starved_ticks`` shows the streak).  The reference's
+    # ``rebuild_bytes_per_tick``, ``shard_loss_threshold`` and
+    # ``shard_loss_min_blocks`` pace and trigger its online shard rebuild,
+    # which machine-local stores never start (ROADMAP.md, Queue 1 item
+    # 11.4); they are accepted with the reference's defaults.
+    patrol_bytes_per_tick: int = 0
+    patrol_repair_per_tick: int = 1
+    patrol_max_starved_ticks: int = 32
+    rebuild_bytes_per_tick: int = 0
+    shard_loss_threshold: float = 0.5
+    shard_loss_min_blocks: int = 4
+    # Freshness-SLO health governor (repro_torch.health): a HealthPolicy (or
+    # True for defaults) arms per-group breakers and the escalation ladder
+    # (wedged-dispatch retry, margin-forced blocking resolve, on_write
+    # backpressure, temporary sync escalation) that enforces
+    # max_vulnerable_steps/_seconds.  None (the default) keeps it off.
+    health: Optional[Any] = None
 
     def leaf_policy(self, name: str) -> LeafPolicy:
         for pattern, lp in self.rules:
@@ -205,10 +233,23 @@ class TickReport:
     # recompute ran on resolution).
     coalesced: Tuple[str, ...] = ()
     overflowed: Tuple[str, ...] = ()
-    # Leaves a background repair replaced this tick, by name: the
-    # reference's scrub patroller fills it; the port runs none yet
-    # (ROADMAP.md, Queue 1 item 11), so it stays empty.
+    # Scrub patroller: leaves probed this tick, mismatches its landed probe
+    # found, and the streak of probe-less ticks.  ``repaired`` maps leaf
+    # name -> the leaf after the patroller's parity repairs, which the
+    # caller adopts (in place, so usually the caller's own tensor; a new
+    # one where the leaf's lane view is a padded copy).  ``unrecoverable``
+    # carries repro_torch.core.repairs.UnrecoverableBlock records.
+    patrolled: Tuple[str, ...] = ()
+    patrol_mismatches: int = 0
+    patrol_starved_ticks: int = 0
     repaired: Dict[str, torch.Tensor] = dataclasses.field(default_factory=dict)
+    unrecoverable: Tuple[Any, ...] = ()
+    # The reference's active shard rebuild and remesh migration: always
+    # None here (ROADMAP.md, Queue 1 items 11.4 and 11.5).
+    rebuild: Optional[Any] = None
+    remesh: Optional[Any] = None
+    # Health governor (repro_torch.health.HealthReport; None when off).
+    health: Optional[Any] = None
 
 
 def _ready(x) -> bool:
@@ -237,6 +278,12 @@ class _Pending:
     coalesced: int = 0
     error: Optional[BaseException] = None
     done: Any = None
+    # Health-governor bookkeeping: the dispatch's wall clock (wedged-update
+    # detection) and the group's freshness clocks as they stood before this
+    # dispatch (abandoning the update rolls back to them).
+    dispatched_at: float = dataclasses.field(default_factory=time.monotonic)
+    prev_step: int = 0
+    prev_time: float = 0.0
 
 
 @dataclasses.dataclass
@@ -253,6 +300,11 @@ class _Group:
     # resolved fit signal or a flush's exact check flips it.
     pending: Optional[_Pending] = None
     predicted_fits: bool = False
+    # The completion event of the last update the health governor abandoned
+    # (the card only): it keeps rewriting the live checksums and parity in
+    # place, so readers wait for it until a later dispatch's event, recorded
+    # behind it on the side stream, takes its place.
+    abandoned: Any = None
 
 
 # ---------------------------------------------------------------------- store
@@ -277,6 +329,9 @@ class ProtectedStore:
         # Lifecycle phase hooks: host-level observation points (crash
         # replay, tests).  Empty = one truthiness check on the hot paths.
         self._phase_hooks: List[Callable[[str, Dict[str, Any]], None]] = []
+        # Background duties, built by attach when the policy asks.
+        self.patroller = None
+        self._health = None
 
     # -------------------------------------------------------------- phase hooks
     def add_phase_hook(self, fn: Callable[[str, Dict[str, Any]], None]) -> None:
@@ -345,6 +400,17 @@ class ProtectedStore:
             self.groups[label] = _Group(label, lp, tuple(names), engine)
         if self.policy.precompile:
             self.warmup()
+        self.patroller = None
+        if self.policy.patrol_bytes_per_tick > 0 and self.has_periodic:
+            # Runtime imports: both packages build on repro_torch.core.
+            from ..scrub import ScrubPatroller
+            self.patroller = ScrubPatroller(self)
+        self._health = None
+        if self.policy.health:
+            from ..health import HealthGovernor, HealthPolicy
+            hp = self.policy.health
+            self._health = HealthGovernor(
+                self, hp if isinstance(hp, HealthPolicy) else None)
         return self
 
     # ---------------------------------------------------------------- structure
@@ -426,8 +492,14 @@ class ProtectedStore:
         ``old``/``new`` (or the sparse ``row_diffs`` fast path
         ``{name: (rows, old_rows, new_rows)}`` when rows map 1:1 to blocks,
         which updates checksums and parity in place); ``none`` passes
-        through.  Leaves absent from ``events`` are left unmarked.
+        through.  Leaves absent from ``events`` are left unmarked.  With the
+        health governor on, a write while some group's breaker is CRITICAL
+        is throttled or rejected (``BackpressureError``) before anything is
+        recorded.
         """
+        if self._health is not None:
+            # Rung-3 admission control (a no-op while torch.compile traces).
+            self._health.admit(red)
         events = dict(events or {})
         row_diffs = dict(row_diffs or {})
         out = dict(red)
@@ -511,7 +583,12 @@ class ProtectedStore:
         when the live dirty stripes fit the CPU work queues (an exact
         host-side check), the full update otherwise; on the card the fused
         kernel serves both.  Bitwise identical either way.  The exact fit
-        answer seeds the speculation of later overlapped dispatches."""
+        answer seeds the speculation of later overlapped dispatches.  On the
+        card the pass rewrites the checksums and parity in place on the
+        current stream, so it first waits (on the device) for any update of
+        the group still running on the side stream, an abandoned one
+        included."""
+        self._await_update(g)
         queued = g.engine.has_queue and g.engine.queue_fits(red_sub)
         g.predicted_fits = queued or not g.engine.has_queue
         if queued:
@@ -575,13 +652,14 @@ class ProtectedStore:
         the device (a determinism hook for tests and replays that want
         "adopt, never coalesce" schedules)."""
         for g in self._protected():
-            p = g.pending
-            if p is not None and p.error is None and p.done is not None:
-                p.done.synchronize()
+            ev = self._inflight_event(g)
+            if ev is not None:
+                ev.synchronize()
         return self
 
-    def _dispatch_async_many(self, items: List[Tuple[_Group, bool]], get_leaves,
-                             out: RedundancyState, step: int) -> RedundancyState:
+    def _dispatch_async_many(self, items: List[Tuple[_Group, bool, int, float]],
+                             get_leaves, out: RedundancyState,
+                             step: int) -> RedundancyState:
         """Overlapped batched dispatch; returns the groups' live view.
 
         Every due group's update runs in one batch on the side stream
@@ -596,26 +674,31 @@ class ProtectedStore:
         the pending's own where it refreshed the old ones in place (the
         card).  A dispatch that raises (a failed build or launch) is kept
         in the pendings and re-raises at resolution; the tick never turns
-        into a blocking one on its own.
+        into a blocking one on its own.  Each item carries the group's
+        freshness clocks as they stood before the tick bumped them: the
+        health governor's abandon rolls back to these.
         """
         lv = get_leaves()
-        subs = tuple({n: lv[n] for n in g.names} for g, _ in items)
-        red_subs = tuple({n: out[n] for n in g.names} for g, _ in items)
+        subs = tuple({n: lv[n] for n in g.names} for g, *_ in items)
+        red_subs = tuple({n: out[n] for n in g.names} for g, *_ in items)
         swaps = [self._swap(rs) for rs in red_subs]
         outs, fits, done, error = None, None, None, None
         try:
             outs, fits, done = self._update_many(
-                [(g.engine, q) for g, q in items], subs, red_subs)
+                [(g.engine, q) for g, q, *_ in items], subs, red_subs)
         except Exception as e:      # re-raised by _resolve
             error = e
         host = None if error is not None else np.asarray(fits)
-        for i, (g, queued) in enumerate(items):
+        for i, (g, queued, prev_step, prev_time) in enumerate(items):
             g.pending = _Pending(
                 red=None if outs is None else outs[i],
                 fits=None if host is None else workqueue.fold_fits_host(host[i]),
-                queued=queued, step=step, error=error, done=done)
+                queued=queued, step=step, error=error, done=done,
+                prev_step=prev_step, prev_time=prev_time)
+            if done is not None:
+                g.abandoned = None      # ``done`` is recorded behind it
         view: RedundancyState = {}
-        for i, ((g, _), (snaps, fresh), rs) in enumerate(zip(items, swaps, red_subs)):
+        for i, ((g, *_), (snaps, fresh), rs) in enumerate(zip(items, swaps, red_subs)):
             for n in g.names:
                 base = rs[n]
                 if outs is not None and outs[i][n].checksums is base.checksums:
@@ -655,13 +738,37 @@ class ProtectedStore:
         g.pending = None
         return adopted, (p.queued and not fits), p.coalesced
 
-    def _await_update(self, g: _Group) -> None:
-        """Order the current stream after ``g``'s in-flight update, on the
-        device, before it reads the group's checksums, parity or
-        meta-checksum."""
+    @staticmethod
+    def _inflight_event(g: _Group):
+        """The completion event of ``g``'s update still in flight on the
+        side stream, or of the last one the health governor abandoned
+        (None on the CPU, or when nothing is in flight)."""
         p = g.pending
-        if p is not None and p.done is not None:
-            torch.cuda.current_stream(self.device).wait_event(p.done)
+        if p is not None and p.error is None and p.done is not None:
+            return p.done
+        return g.abandoned
+
+    def _await_update(self, g: _Group) -> None:
+        """Order the current stream after ``g``'s in-flight update (or the
+        abandoned one), on the device, before it reads the group's
+        checksums, parity or meta-checksum."""
+        ev = self._inflight_event(g)
+        if ev is not None:
+            torch.cuda.current_stream(self.device).wait_event(ev)
+
+    def _abandon(self, g: _Group) -> None:
+        """Drop ``g``'s in-flight update (the health governor's rung 1).
+
+        The reference drops the update's output arrays.  On the card the
+        live view's checksums and parity are the very tensors the update
+        rewrites in place on the side stream, so it keeps running: its
+        completion event stays on the group (``abandoned``) and orders every
+        later reader and blocking pass after it.  The live ``shadow`` still
+        marks the update's snapshot, so the next update covers those blocks.
+        """
+        p, g.pending = g.pending, None
+        if p is not None and p.error is None and p.done is not None:
+            g.abandoned = p.done
 
     def settle(self, red: RedundancyState,
                leaves: Optional[Mapping[str, torch.Tensor]] = None,
@@ -727,6 +834,15 @@ class ProtectedStore:
         dispatch and reads the checksums while the update refreshes the
         in-flight blocks' entries, which it masks out.
 
+        Then the background duties, when the policy asks for them: the scrub
+        patroller (a probe on quiet ticks, paced repairs; callers adopt
+        ``report.repaired``), and the health governor, which watches each
+        vilamb group's freshness and escalates (``report.health``): a
+        wedged in-flight update is abandoned and re-dispatched, a group
+        within its deadline margin stops speculating, a CRITICAL breaker
+        backpressures ``on_write``, and a group that exhausted its retries
+        runs a blocking update every tick until it recovers.
+
         Callers must adopt the returned state: it is the only live lineage.
         """
         step = int(step)
@@ -735,7 +851,7 @@ class ProtectedStore:
         report = TickReport(step=step)
         out = dict(red)
         updated, deadline, coalesced, overflowed = [], [], [], []
-        to_dispatch: List[Tuple[_Group, bool]] = []
+        to_dispatch: List[Tuple[_Group, bool, int, float]] = []
         scrub_groups: List[_Group] = []
         now = time.monotonic()
         materialized = None if callable(leaves) else leaves
@@ -750,6 +866,9 @@ class ProtectedStore:
             lv = get_leaves()
             return {n: lv[n] for n in g.names}
 
+        hg = self._health
+        if hg is not None:
+            hg.begin_tick(step, now)
         for g in self._protected():
             lp = g.policy
             if step < g.last_update_step:
@@ -758,6 +877,16 @@ class ProtectedStore:
             sp = scrub_period if scrub_period is not None else lp.scrub_period_steps
             scrub_due = bool(sp and policy_mod.should_scrub(step, sp))
             if lp.mode == "vilamb":
+                margin = sync_esc = retry = False
+                if hg is not None:
+                    # Rung 1: a wedged in-flight update is abandoned (the
+                    # freshness clocks roll back to before its dispatch) and
+                    # re-dispatched below this tick, after a bounded backoff:
+                    # ``due`` is step-aligned, so waiting for the next period
+                    # would let the breaker cool down between retries.
+                    retry = hg.check_pending(g)
+                    sync_esc = hg.is_sync_escalated(g.label)
+                    margin = hg.within_margin(g, step, now)
                 eff = min(lp.period_steps * self._governor.scale,
                           self.policy.period_cap)
                 due = policy_mod.should_update(step, eff)
@@ -766,12 +895,12 @@ class ProtectedStore:
                      and step - g.last_update_step >= lp.max_vulnerable_steps)
                     or (lp.max_vulnerable_seconds > 0
                         and now - g.last_update_time >= lp.max_vulnerable_seconds))
-                if self._async_group(g):
-                    # Resolve lazily (waiting only when a deadline or a
-                    # scrub forces settled state), then keep at most one
-                    # update in flight.
+                if self._async_group(g) and not sync_esc:
+                    # Resolve lazily (waiting only when a deadline, a scrub
+                    # or, rung 2, the governor's deadline margin forces
+                    # settled state), then keep at most one update in flight.
                     had_pending = g.pending is not None
-                    forced = overdue or scrub_due
+                    forced = overdue or scrub_due or margin
                     if had_pending and forced and self._phase_hooks:
                         self._phase("dispatcher_join", red=dict(out),
                                     group=g.label, step=step)
@@ -794,19 +923,35 @@ class ProtectedStore:
                             self._phase("adopt_forced" if forced else "adopt",
                                         red=dict(out), group=g.label, step=step,
                                         overflowed=ovf)
+                        if (had_pending and margin and hg is not None
+                                and not (overdue or scrub_due)):
+                            hg.note_forced_resolve(g.label, step)
                         if ovf:
                             overflowed.append(g.label)
-                        if ovf or due or overdue or deferred:
+                        if ovf or due or overdue or deferred or margin or retry:
+                            # The clocks before the bump below: rung 1's
+                            # abandon rolls back to them.
                             to_dispatch.append(
                                 (g, bool(not ovf and g.engine.has_queue
-                                         and g.predicted_fits)))
+                                         and g.predicted_fits),
+                                 g.last_update_step, g.last_update_time))
                             g.last_update_step = step
                             g.last_update_time = now
-                            if due or overdue:
+                            if due or overdue or margin:
                                 updated.append(g.label)
                             if overdue and not due:
                                 deadline.append(g.label)
-                elif due or overdue:
+                elif sync_esc or due or overdue or margin:
+                    if g.pending is not None:
+                        # Rung 4 engaged with an update still in flight:
+                        # adopt it first, or its later adoption would
+                        # clobber the blocking pass's newer checksums.
+                        if self._phase_hooks:
+                            self._phase("dispatcher_join", red=dict(out),
+                                        group=g.label, step=step)
+                        red_sub, _, _ = self._resolve(
+                            g, {n: out[n] for n in g.names}, wait=True)
+                        out.update(red_sub)
                     out.update(self._dispatch_blocking(
                         g, sub_of(g), {n: out[n] for n in g.names}))
                     g.last_update_step = step
@@ -822,10 +967,10 @@ class ProtectedStore:
         if to_dispatch:
             if self._phase_hooks:
                 self._phase("dispatcher_enqueue", red=dict(out), step=step,
-                            groups=tuple(g.label for g, _ in to_dispatch))
+                            groups=tuple(g.label for g, *_ in to_dispatch))
             out.update(self._dispatch_async_many(to_dispatch, get_leaves, out, step))
             if self._phase_hooks:
-                for g, _ in to_dispatch:
+                for g, *_ in to_dispatch:
                     self._phase("dispatch", red=dict(out), group=g.label,
                                 step=step, queued=g.pending.queued)
         for g in scrub_groups:
@@ -840,6 +985,19 @@ class ProtectedStore:
         report.deadline_fired = tuple(deadline)
         report.coalesced = tuple(coalesced)
         report.overflowed = tuple(overflowed)
+        if self.patroller is not None:
+            # Low-priority background duty, after every foreground decision:
+            # the patroller sees the post-dispatch live view (in-flight
+            # blocks are shadow-marked, so probes skip them) and dispatches
+            # a probe only on quiet ticks.  Its repairs land in
+            # report.repaired, which callers adopt.
+            self.patroller.on_tick(get_leaves, out, step, report,
+                                   busy=bool(updated))
+        if hg is not None:
+            # Age audit and breaker transitions; attaches report.health and
+            # raises FreshnessViolationError only when the ladder is
+            # exhausted and a deadline is still blown (violation_mode).
+            hg.end_tick(report, step, now)
         if self._phase_hooks:
             self._phase("tick", red=dict(out), step=step, report=report)
         return out, report
@@ -877,8 +1035,10 @@ class ProtectedStore:
         return out
 
     def take_repaired(self) -> Dict[str, torch.Tensor]:
-        """Leaves replaced by a background drain since the last call: the
-        port runs no shard rebuild or remesh, so none."""
+        """Leaves replaced by a background drain since the last call.  The
+        reference's drains are its shard rebuild and remesh (ROADMAP.md,
+        Queue 1 items 11.4 and 11.5); the port runs neither, so none (the
+        patroller's repairs come back on ``TickReport.repaired``)."""
         return {}
 
     def redundancy_step(self, leaves: Mapping[str, torch.Tensor],
@@ -986,6 +1146,18 @@ class ProtectedStore:
         per refused stripe."""
         from ..ckpt.failure import repair_corruption
         return repair_corruption(self, leaves, red, mismatches, details=details)
+
+    def declare_shard_lost(self, name: str, shard: int,
+                           red: Optional[RedundancyState] = None) -> None:
+        """Tell the patroller a shard of ``name`` is lost (operator signal).
+        Needs the patroller (``patrol_bytes_per_tick > 0``).  A
+        machine-local store has no cross-shard parity to rebuild from, so
+        the patroller raises the reference's ``ValueError``."""
+        if self.patroller is None:
+            raise RuntimeError(
+                "declare_shard_lost needs the scrub patroller "
+                "(set RedundancyPolicy.patrol_bytes_per_tick > 0)")
+        self.patroller.declare_shard_lost(name, shard, red)
 
     def inject(self, leaves: Mapping[str, torch.Tensor], red: RedundancyState,
                spec) -> Tuple[Dict[str, torch.Tensor], RedundancyState]:

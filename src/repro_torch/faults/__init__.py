@@ -17,11 +17,12 @@ the port's store:
   positives, and measured detection latencies for
   :mod:`repro_torch.core.mttdl`.
 
-The reference's chaos soak (``repro.faults.chaos``) needs the patroller,
-the health governor and sharded stores: ROADMAP.md, Queue 1 item 11.
+The reference's chaos soak (``repro.faults.chaos``) needs sharded
+stores, shard rebuild and remesh: ROADMAP.md, Queue 1 items 11.3-11.5.
 
 ``python -m repro_torch.faults --smoke`` runs the battery (crash sweep,
-crash plus corruption, oracle over several seeds).
+crash plus corruption, oracle over several seeds, the scrub patroller's
+detection on a settled store).
 """
 from .inject import FAULT_KINDS, FaultInjector, FaultSpec, apply_fault
 from .crashpoints import (CRASH_PHASES, CrashOutcome, CrashPlan,

@@ -12,10 +12,13 @@ cpu`` is given.  Seeded, deterministic passes:
    and one inside it (the loss must lie provably within the window).
 3. **Oracle**: scrub over injected single-stripe corruptions must detect
    100% outside the window with zero false positives, across >= 3 seeds.
+4. **Patroller**: a bitflip on a settled store must be found by the
+   background patrol alone (no scheduled scrub), repaired bitwise, and
+   leave the store clean.
 
-The reference's pass 4 (the scrub patroller) and pass 5 (a sharded
-store), and its ``--chaos`` soak, are not ported: each prints a line
-naming the ROADMAP.md item that owns it (``--chaos`` raises).
+The reference's pass 5 (a sharded store) and its ``--chaos`` soak are not
+ported: pass 5 prints a line naming the ROADMAP.md item that owns it, and
+``--chaos`` raises.
 
 Exit status 1 on any violation.
 """
@@ -44,14 +47,13 @@ REQUIRED_PHASES = ("dispatch", "coalesce", "adopt", "adopt_forced",
                    "on_write", "tick", "flush")
 
 NOT_PORTED = (
-    ("scrub patroller detection", "ROADMAP.md, Queue 1 item 11.2 (the scrub "
-     "patroller)"),
     ("sharded battery (2x2x2 mesh)", "ROADMAP.md, Queue 1 item 11.3 "
      "(sharding)"),
 )
-CHAOS_REFUSAL = ("the chaos soak needs the patroller, the health governor "
-                 "and sharded stores, which are not ported yet: ROADMAP.md, "
-                 "Queue 1 item 11 (scrub/remesh/health)")
+CHAOS_REFUSAL = ("the chaos soak needs sharded stores, shard rebuild and "
+                 "remesh, which are not ported yet: ROADMAP.md, Queue 1 item "
+                 "11.3 (sharding), with items 11.4 (xpar and shard rebuild) "
+                 "and 11.5 (remesh)")
 
 
 def _make_leaves(device):
@@ -164,6 +166,64 @@ def oracle_pass(device, seed: int, steps: int) -> int:
     return 0 if ok else 1
 
 
+def patrol_pass(device, seed: int, steps: int) -> int:
+    """Patroller detection leg: an injected bitflip on a settled store must
+    be found by the background patrol (no scheduled scrub) within about two
+    sweeps of quiet ticks, repaired bitwise, and leave the store clean."""
+    pol = RedundancyPolicy.single(
+        "vilamb", period_steps=2, lanes_per_block=128, async_tick=True,
+        patrol_bytes_per_tick=8 * 128 * 4, precompile=False)
+    leaves = _make_leaves(device)
+    store = ProtectedStore(pol, device=device).attach(leaves)
+    rng = np.random.default_rng(seed)
+    red = store.init(leaves)
+    for step in range(1, steps + 1):
+        rows = rng.choice(24, size=int(rng.integers(1, 4)), replace=False)
+        idx = torch.as_tensor(np.sort(rows), device=device)
+        w = leaves["w"].clone()
+        w[idx] += 0.5
+        leaves = dict(leaves, w=w)
+        ev = torch.zeros((24,), dtype=torch.bool, device=device).index_fill_(0, idx, True)
+        red = store.on_write(red, events={"w": ev})
+        red, _ = store.tick(leaves, red, step)
+    red = store.flush(leaves, red, steps + 1)      # settle: V -> 0
+    expected = {n: v.clone() for n, v in leaves.items()}
+    blk = 5 + seed
+    leaves, red = store.inject(leaves, red, FaultSpec(
+        kind="data_bitflip", leaf="w", block=blk, lane=3, bit=7))
+    step = steps + 2
+    store.patroller.expect_injection("w", blk, step)
+    # Round robin over both leaves, a probe landing one tick after its
+    # dispatch, plus repair pacing: two full sweeps plus slack.
+    nb = sum(store.protected_metas[n].n_blocks for n in ("w", "e"))
+    budget = 4 * (nb // 8 + 2) + 16
+    detected = repaired = False
+    for _ in range(budget):
+        red, rep = store.tick(leaves, red, step, scrub_period=0)
+        step += 1
+        if rep.repaired:
+            leaves = dict(leaves, **rep.repaired)
+            repaired = True
+        if store.patroller.latencies:
+            detected = True
+        if detected and repaired:
+            break
+    clean = store.scrub_check(leaves, red) == 0
+    bitwise = all(torch.equal(leaves[n].view(torch.uint8), expected[n].view(torch.uint8))
+                  for n in expected)
+    pat = store.patroller
+    lat = pat.latency_stats(step_seconds=1.0)
+    ok = detected and repaired and clean and bitwise
+    diag = ("" if ok else
+            f" [budget={budget} starved={pat.starved_ticks} "
+            f"sweeps={dict(pat.sweeps)} scanned={pat.blocks_scanned} "
+            f"probe_out={pat._probe is not None}]")
+    print(f"  patrol seed={seed}: detected={detected} (latency "
+          f"{lat['mean_s']:.0f} ticks) repaired={repaired} clean={clean} "
+          f"bitwise={bitwise} {'OK' if ok else 'FAIL'}{diag}")
+    return 0 if ok else 1
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--smoke", action="store_true",
@@ -182,7 +242,7 @@ def main(argv=None) -> int:
     if args.chaos or args.chaos_child:
         raise NotImplementedError(CHAOS_REFUSAL)
     if args.sharded_child:
-        raise NotImplementedError(f"the sharded battery: {NOT_PORTED[1][1]}")
+        raise NotImplementedError(f"the sharded battery: {NOT_PORTED[0][1]}")
     device = resolve_device(args.device, "python -m repro_torch.faults")
     name = (torch.cuda.get_device_name(device) if device.type == "cuda"
             else "cpu")
@@ -200,6 +260,9 @@ def main(argv=None) -> int:
     print("== vulnerability-window oracle ==")
     for seed in range(max(args.seeds, 3)):
         fails += oracle_pass(device, seed, args.steps)
+    print("== scrub patroller detection ==")
+    for seed in range(1 if args.smoke else max(args.seeds, 2)):
+        fails += patrol_pass(device, seed, args.steps)
     for what, owner in NOT_PORTED:
         print(f"== {what}: not ported, {owner} ==")
     dt = time.time() - t0

@@ -17,7 +17,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
-from ..common import flatten_dict
+from ..common import flatten_dict, unflatten_dict
 from ..core.store import ProtectedStore
 
 
@@ -71,7 +71,8 @@ class Server:
         item of ROADMAP.md)."""
         raise NotImplementedError(
             "Server.read_verified needs the store's degraded reads, which are "
-            "not ported yet: ROADMAP.md, Queue 1 item 11 (scrub/remesh/health)")
+            "not ported yet: ROADMAP.md, Queue 1 item 11.5 (remesh and "
+            "read_verified)")
 
     def generate(self, params, batch, n_tokens: int,
                  scrub_every: Optional[int] = None
@@ -82,7 +83,10 @@ class Server:
         The store's tick owns the update and scrub cadence; ``scrub_every``
         overrides the policy's scrub period for this call (``None`` defers
         to the policy, ``0`` disables scrubbing).  Decode intervals feed the
-        straggler governor.
+        straggler governor.  With the store's health governor on,
+        ``stats["health"]`` is the last tick's report and
+        ``stats["health_actions"]`` counts the ladder's actions over the
+        call; the scrub patroller's repairs are adopted as they land.
         """
         with torch.inference_mode():
             logits, caches, pos = self.prefill(params, batch)
@@ -90,6 +94,7 @@ class Server:
             token = torch.argmax(logits, dim=-1).to(torch.int32)
             out = [token]
             mismatches = 0
+            health, health_actions = None, 0
             last = time.perf_counter()
             for t in range(n_tokens - 1):
                 logits, caches, red, token = self.decode(params, caches, red, token,
@@ -102,11 +107,28 @@ class Server:
                         step_time=time.perf_counter() - last,
                         scrub_period=scrub_every)
                     mismatches += report.mismatches
+                    if report.health is not None:
+                        health = report.health
+                        health_actions += len(report.health.actions)
+                    if report.repaired:
+                        # The patroller repaired cache leaves (in place, or
+                        # into a new tensor where the lane view is a padded
+                        # copy): decode continues on the repaired pages.
+                        caches = self._adopt(caches, report.repaired)
                     last = time.perf_counter()
             if self.store is not None:
                 # The last decode tick ran at step n_tokens - 1.
                 red = self.store.settle(red, flatten_dict(caches), step=n_tokens - 1)
+                caches = self._adopt(caches, self.store.take_repaired())
             return torch.stack(out, dim=1), {
                 "mismatches": mismatches, "red": red, "caches": caches,
-                "pos": pos + n_tokens - 1, "remesh": None, "health": None,
-                "health_actions": 0}
+                "pos": pos + n_tokens - 1, "remesh": None, "health": health,
+                "health_actions": health_actions}
+
+    @staticmethod
+    def _adopt(caches, repaired):
+        if not repaired:
+            return caches
+        flat = flatten_dict(caches)
+        flat.update(repaired)
+        return unflatten_dict(flat)

@@ -686,14 +686,34 @@ def test_phase_hooks_skip_under_compile():
 
 # ------------------------------------------------------------ the battery
 def test_battery_cli_passes(capsys):
-    """``python -m repro_torch.faults --smoke --device cpu``: passes 1-3
-    pass, and each pass that is not ported prints the item owning it."""
+    """``python -m repro_torch.faults --smoke --device cpu``: passes 1-4
+    pass, and the sharded pass, not ported, prints the item owning it."""
     assert cli.main(["--smoke", "--device", "cpu"]) == 0
     out = capsys.readouterr().out
     assert "26 crash points, outcomes={'recovered_bitwise': 26}" in out
     assert out.count("oracle seed=") == 3 and "FAIL" not in out
-    assert "Queue 1 item 11.2" in out and "Queue 1 item 11.3" in out
+    assert out.count("patrol seed=") == 1
+    assert "Queue 1 item 11.2" not in out and "Queue 1 item 11.3" in out
     assert "fault battery OK" in out
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_battery_patrol_pass_equals_reference(capsys, monkeypatch, seed):
+    """Pass 4 on the CPU gives the reference's outcome: detected, the same
+    latency in ticks, repaired, clean and bitwise.  The reference's probe
+    and update readiness is pinned to "ready" (its CPU arrays report it as
+    the runtime gets to them, so a loaded host lands a probe a tick later;
+    the port's CPU dispatch runs to completion)."""
+    from repro.core import store as jstore_mod
+    from repro.faults.__main__ import patrol_pass as jpatrol_pass
+    from repro.scrub import patrol as jpatrol
+    monkeypatch.setattr(jpatrol, "_ready", lambda x: True)
+    monkeypatch.setattr(jstore_mod, "_ready", lambda x: True)
+    assert cli.patrol_pass(torch.device("cpu"), seed, 6) == 0
+    got = capsys.readouterr().out
+    assert jpatrol_pass(seed, 6) == 0
+    want = capsys.readouterr().out
+    assert got == want and "OK" in got, (got, want)
 
 
 @pytest.mark.parametrize("flag", ["--chaos", "--chaos-child", "--sharded-child"])

@@ -240,6 +240,47 @@ def test_settle_adopts_the_overlapped_update(pair):
             np.testing.assert_array_equal(v, states[1][n][f], f"{n}.{f}")
 
 
+def test_generate_with_patrol_and_health_equals_reference(pair, monkeypatch):
+    """``generate`` with the caches under the overlapped store, the scrub
+    patroller and the health governor: tokens equal to a run with no store
+    and to the reference's, the last tick's health report equal to the
+    reference's, and every probe clean.  Readiness is pinned to "ready" in
+    the reference (inline resolution), as the port's CPU dispatch is."""
+    from repro.core import store as jstore_mod
+    from repro.health import HealthPolicy as JHealthPolicy
+    from repro.scrub import patrol as jpatrol
+    from repro_torch.health import HEALTHY, HealthPolicy
+    monkeypatch.setattr(jstore_mod, "_ready", lambda x: True)
+    monkeypatch.setattr(jpatrol, "_ready", lambda x: True)
+    jm, jp, tm, tp, tokens = pair
+    max_len = S + GEN + 1
+    kw = dict(async_tick=True, patrol_bytes_per_tick=16 * L * 4)
+    jsrv = JServer(model=jm, store=_jstore(jm, _policy(
+        JPolicy, dispatcher_thread=False, health=JHealthPolicy(), **kw), max_len),
+        max_len=max_len)
+    jtok, jstats = jsrv.generate(jp, {"tokens": jnp.asarray(tokens)}, GEN, scrub_every=0)
+    tsrv = Server(model=tm, store=_tstore(tm, _policy(
+        RedundancyPolicy, health=HealthPolicy(), **kw), max_len), max_len=max_len)
+    batch = {"tokens": torch.from_numpy(tokens)}
+    ttok, tstats = tsrv.generate(tp, batch, GEN, scrub_every=0)
+    bare, _ = Server(model=tm, max_len=max_len).generate(tp, batch, GEN)
+    assert torch.equal(ttok, bare)
+    np.testing.assert_array_equal(ttok.numpy(), np.asarray(jtok))
+    h, jh = tstats["health"], jstats["health"]
+    assert h.worst == HEALTHY and h.step == jh.step == GEN - 1
+    for f in ("states", "transitions", "violations", "backpressure_events",
+              "patrol_starved_ticks", "rebuild_active", "remesh_active"):
+        assert getattr(h, f) == getattr(jh, f), f
+    assert [(a.group, a.rung, a.kind) for a in h.actions] == \
+        [(a.group, a.rung, a.kind) for a in jh.actions]
+    assert {k: v[0] for k, v in h.ages.items()} == {k: v[0] for k, v in jh.ages.items()}
+    assert tstats["health_actions"] == jstats["health_actions"] == 0
+    pat, jpat = tsrv.store.patroller, jsrv.store.patroller
+    assert pat.blocks_scanned == jpat.blocks_scanned > 0
+    assert dict(pat.cursor) == dict(jpat.cursor)
+    assert not pat.detections and not jpat.detections and not pat.unrecoverable
+
+
 def test_read_verified_is_not_ported(pair):
     _, _, tm, _, _ = pair
     with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue 1 item"):
