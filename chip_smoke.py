@@ -33,7 +33,7 @@ Phases, each of which must pass or the script exits non-zero:
    then a chunked plain recompute of all checksums and parity, bitwise;
 6. the flash-attention kernel against its plain version at small shapes
    (S in {1, 17, 128, 129, 255, 383, 1000}: around the kernel's 128-row
-   tiles; hd in {64, 128}, H/KV in {1, 3, 4, 16}, causal and full, bf16),
+   tiles; hd in {64, 128}, H/KV in {1, 3, 4, 8, 16}, causal and full, bf16),
    held to |got - want| <= 4e-3 + 1e-2 |want| and a
    relative L2 error ||got - want|| / ||want|| <= 1e-2, with the mean
    |want| printed beside each case's errors;
@@ -185,7 +185,36 @@ Phases, each of which must pass or the script exits non-zero:
    a blocking update every tick until HEALTHY again (rung 4), an excursion
    forced on the group's clock reported as a violation; verify_meta clean
    and every field equal to the twin's after flush.  The phase's launch
-   counts and phase 14d's are the kernel line's "patrol" path.
+   counts and phase 14d's are the kernel line's "patrol" path;
+15. hybrid serving: jamba-1.5-large-398b at its published widths (d 8,192,
+   d_inner 16,384, d_state 16, d_conv 4, dt_rank 512; 64 query and 8 KV
+   heads of 128; d_ff 24,576; vocab 65,536, untied; top-2 at capacity
+   1.25; random bf16 weights from the seed) with its depth cut to one
+   group of 8 layers (Mamba at slots 0-3 and 5-7, attention at 4, MoE at
+   the odd slots) and its experts from 16 to 8 (48.27 GiB), through
+   ``Server.generate`` with phase 7's traffic and store: the KV cache and
+   the 7 Mamba slots' ``h`` and ``conv`` (ALL-dirty every step) under
+   vilamb.  Checked: the launch counts (flash once a prefill), tokens and
+   caches identical with the overlapped store, the blocking store and no
+   store, no scrub mismatch, every field of the settled state equal to the
+   blocking twin's, a chunked plain recompute after flush, K3 over the
+   ALL-dirty leaves against its plain version, one flipped lane in an
+   ``h`` leaf and one in the K cache (a padded copy: the rebuilt tensor is
+   adopted as ``Server.generate`` adopts a repair, and the next decode step
+   writes it in place) found and rebuilt bitwise, the attention layer's
+   prefill against its plain version at S = 4,096.  Timed: prefill (the
+   Mamba layers' share by CUDA events), decode, a traced decode and a
+   traced due tick, K3 a due tick over the ALL-dirty leaves with its
+   bound, flash at this prefill's shape (8 query heads a KV head) beside
+   its plain version and SDPA, the peak and the phase's wall time;
+16. xlstm serving: xlstm-1.3b at full width and depth (48 layers: 6 groups
+   of 7 mLSTM and 1 sLSTM, d 2,048, 4 heads of 512, vocab 50,304, random
+   bf16 weights) with phase 7's traffic and store over its recurrent
+   caches alone (1.41 GB, every block dirty every token).  Checked as
+   phase 15, the flipped lanes in an mLSTM ``C`` and in sLSTM's ``n`` (a
+   padded copy).  Timed as phase 15 (prefill split between mLSTM and
+   sLSTM), plus ``generate`` in turns with each store and without and the
+   due ticks' host ms.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 the per-kernel JSON record.  All data comes from ``--seed``.
@@ -227,6 +256,7 @@ from repro_torch.kernels.parity import ops as par_ops, ref as par_ref  # noqa: E
 from repro_torch.kernels.redundancy import ops as fu_ops, ref as fu_ref  # noqa: E402
 from repro_torch.data import SyntheticPipeline  # noqa: E402
 from repro_torch.models import Model, ShapeConfig, attention, build_model, layers  # noqa: E402
+from repro_torch.models.transformer import slot_kinds  # noqa: E402
 from repro_torch.optim import AdamW, warmup_cosine  # noqa: E402
 from repro_torch.serve import Server  # noqa: E402
 from repro_torch.train import Trainer, protected_leaves, protected_structs  # noqa: E402
@@ -297,6 +327,16 @@ SWEEP_DISK_GB = 15                      # ~31 checkpoints of 0.36 GB, with room
 PATROL_BUDGETS = (64 << 20, 512 << 20)
 PATROL_FAULTS, PATROL_SETTLE = 8, 16
 GOV_TIMEOUT_S, GOV_SPINS, GOV_MAX_STEPS = 0.3, 3, 96
+
+# Recurrent serving (phases 15 and 16), phase 7's traffic and store:
+# jamba-1.5-large-398b at its published widths cut to one group of 8 layers
+# and 8 of its 16 experts a MoE layer (a group's 64 experts alone are 77.3
+# GB; the cut model is 48.27 GiB), and xlstm-1.3b at full width and depth.
+HYBRID_ARCH, HYBRID_LAYERS, HYBRID_EXPERTS = "jamba-1.5-large-398b", 8, 8
+HYBRID_PARAMS = 25_910_730_752
+HYBRID_CORRUPT = ("slot_0/h", "slot_4/k")       # a Mamba state, the K cache
+XLSTM_ARCH, XLSTM_PARAMS = "xlstm-1.3b", 1_217_335_488
+XLSTM_CORRUPT = ("slot_0/C", "slot_7/n")        # an mLSTM C, sLSTM's padded n
 
 SPECIALS = [0x7FC00000, 0x7F800000, 0xFF800000, 0x7F800001, 0x00000000, 0xFFFFFFFF]
 
@@ -816,7 +856,7 @@ def phase_flash_small(g) -> list:
     cases, KV = [], 2
     for S in (1, 17, 128, 129, 255, 383, 1000):
         for hd in (64, 128):
-            for group in (1, 3, 4, 16):
+            for group in (1, 3, 4, 8, 16):
                 for causal in (True, False):
                     q, k, v = (torch.randn((2, S, n, hd), generator=g, device=DEVICE)
                                .to(torch.bfloat16) for n in (KV * group, KV, KV))
@@ -3029,6 +3069,377 @@ def print_patrol(rec: dict) -> None:
           f"fields equal to the blocking twin's after flush")
 
 
+# ----------------------------------------------------------- phases 15-16
+def hybrid_config():
+    """jamba-1.5-large-398b at its published widths, cut to one group of
+    HYBRID_LAYERS layers and HYBRID_EXPERTS experts a MoE layer."""
+    cfg = get_arch(HYBRID_ARCH)
+    got = (cfg.d_model, cfg.d_inner, cfg.d_state, cfg.d_conv, cfg.dt_rank, cfg.n_heads,
+           cfg.n_kv_heads, cfg.hd, cfg.d_ff, cfg.vocab_size, cfg.padded_vocab,
+           cfg.tie_embeddings, cfg.n_experts, cfg.top_k, cfg.capacity_factor,
+           cfg.group_size, cfg.param_dtype)
+    check(got == (8192, 16384, 16, 4, 512, 64, 8, 128, 24576, 65536, 65536, False, 16, 2,
+                  1.25, 8, "bfloat16"), f"{HYBRID_ARCH} is not at full width: {got}")
+    return dataclasses.replace(cfg, n_layers=HYBRID_LAYERS, n_experts=HYBRID_EXPERTS)
+
+
+def xlstm_config():
+    """xlstm-1.3b as published: full width and depth."""
+    cfg = get_arch(XLSTM_ARCH)
+    got = (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.vocab_size, cfg.padded_vocab,
+           cfg.group_size, cfg.slstm_every, cfg.tie_embeddings, cfg.param_dtype)
+    check(got == (48, 2048, 4, 50304, 51200, 8, 8, False, "bfloat16"),
+          f"{XLSTM_ARCH} is not at full size: {got}")
+    return cfg
+
+
+def capture_flash():
+    """Wrap the flash wrapper so that each call keeps clones of its q, k and
+    v (the launch count is the wrapper's own); returns the list and a
+    function that puts the wrapper back."""
+    calls: list = []
+    launch = fa_ops.flash_attention
+
+    def record(q, k, v, *a, **kw):
+        calls.append((q.clone(), k.clone(), v.clone()))
+        return launch(q, k, v, *a, **kw)
+
+    def restore():
+        fa_ops.flash_attention = launch
+    fa_ops.flash_attention = record
+    return calls, restore
+
+
+def mixer_split(model, params, batch) -> dict:
+    """One prefill with CUDA events around every recurrent mixer's call:
+    ms by mixer kind (the calls of a launch-bound mixer include the host's
+    time between its launches), beside the prefill's total."""
+    from repro_torch.models import transformer as tfm
+    saved = dict(tfm.RECURRENT)
+    spans: dict = {k: [] for k in saved}
+
+    def wrap(kind, fn):
+        def inner(*a, **kw):
+            s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            s.record()
+            out = fn(*a, **kw)
+            e.record()
+            spans[kind].append((s, e))
+            return out
+        return inner
+
+    for k, (init, apply, decode) in saved.items():
+        tfm.RECURRENT[k] = (init, wrap(k, apply), decode)
+    try:
+        with torch.inference_mode():
+            _, total_ms = timed(lambda: model.prefill(params, batch, PROMPT + GEN + 1))
+        torch.cuda.synchronize()
+    finally:
+        tfm.RECURRENT.update(saved)
+    out = {f"{k}_ms": sum(s.elapsed_time(e) for s, e in v) for k, v in spans.items() if v}
+    out.update({f"{k}_calls": len(v) for k, v in spans.items() if v})
+    out["prefill_ms"] = total_ms
+    return out
+
+
+def fields_equal(red: dict, twin: dict, what: str) -> None:
+    """Every field of every leaf bitwise equal (read on the current stream,
+    which ``settle`` or ``flush`` ordered after any update)."""
+    check(set(red) == set(twin), f"{what}: leaves differ")
+    for n in red:
+        for f in ("checksums", "parity", "dirty", "shadow", "meta_ck"):
+            check(torch.equal(getattr(red[n], f), getattr(twin[n], f)),
+                  f"{what}: {n}.{f} differs from the blocking twin's")
+
+
+def k3_all_dirty(store, leaves: dict, red: dict, names: list) -> dict:
+    """K3 over every block of the ALL-dirty leaves ``names`` (a due tick's
+    queue for them), after a flush: bitwise equal to its plain version and
+    to the flushed checksums and parity, timed as one due tick's launches,
+    beside the plain version's time and the bound."""
+    jobs, n_bytes, ops, stripes = [], 0, 0, 0
+    for n in names:
+        meta = store.metas[n]
+        lanes = blocks.to_lanes(leaves[n], meta)
+        nb, L = lanes.shape
+        bd = torch.ones(nb, dtype=torch.bool, device=DEVICE)
+        sd = stripe_mask(bd, STRIPE)
+        ns = int(sd.shape[0])
+        want = fu_ref.fused_update(lanes, red[n].checksums.clone(), red[n].parity.clone(),
+                                   bd, sd, STRIPE)
+        got = fu_ops.fused_update(lanes, red[n].checksums.clone(), red[n].parity.clone(),
+                                  bd, sd, STRIPE)
+        check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+              and torch.equal(got[0], red[n].checksums)
+              and torch.equal(got[1], red[n].parity),
+              f"K3 over the ALL-dirty {n} differs from its plain version or the flush")
+        jobs.append((lanes, got[0], got[1], bd, sd))
+        # Every stripe's members read, its parity row written, every
+        # checksum written, the dirty masks read.
+        n_bytes += ns * STRIPE * L * 4 + ns * L * 4 + nb * 4 + nb + ns
+        ops += ns * STRIPE * L * 13
+        stripes += ns
+
+    def tick_k3():
+        for lanes, c, p, bd, sd in jobs:
+            fu_ops.fused_update(lanes, c, p, bd, sd, STRIPE)
+
+    def tick_plain():
+        for lanes, c, p, bd, sd in jobs:
+            fu_ref.fused_update(lanes, c, p, bd, sd, STRIPE)
+    ms, plain_ms = per_call_ms(tick_k3, 10), per_call_ms(tick_plain, 2)
+    # The wrappers' host work can outlast the kernels at these sizes: the
+    # kernels' own device time comes from a trace of one tick's launches.
+    # A warm-up step first (the tracer can drop a cold trace's first
+    # kernels); acc_events keeps the active step's events past its cycle.
+    from torch.profiler import ProfilerActivity, profile, schedule
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1), acc_events=True) as prof:
+        for _ in range(2):
+            tick_k3()
+            torch.cuda.synchronize()
+            prof.step()
+    k3 = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+          and "fused_update_kernel" in e.name]
+    device_ms = (sum(e.time_range.elapsed_us() for e in k3) / 1e3
+                 if len(k3) == len(jobs) else "not measured")
+    bms, by = bound(n_bytes, ops)
+    return {"leaves": len(names), "stripes": stripes, "gb": n_bytes / 1e9,
+            "wrapper_ms": ms, "device_ms": device_ms, "launches": len(k3),
+            "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+            "share_of_bound": (bms / device_ms if len(k3) == len(jobs)
+                               else "not measured")}
+
+
+def corrupt_and_repair(g, store, caches: dict, red: dict, names: list):
+    """After a flush: one flipped lane in each leaf of ``names``, found by a
+    scrub there and nowhere else, each block rebuilt from parity bitwise; a
+    leaf whose lane view is a padded copy is rebuilt into a new tensor,
+    adopted into the caches as ``Server.generate`` adopts a repair
+    (``Server._adopt``); a clean rescrub.  Returns the caches and a record."""
+    leaves = flatten_dict(caches)
+    saved, bad = {}, {}
+    for name in names:
+        L = store.metas[name].lanes_per_block
+        words = leaves[name].view(-1).view(torch.int32)
+        b = int(torch.randint(0, max(1, words.numel() // L), (1,), generator=g, device=DEVICE))
+        lane = int(torch.randint(0, min(L, words.numel() - b * L), (1,), generator=g,
+                                 device=DEVICE))
+        saved[name] = words[b * L:(b + 1) * L].clone()
+        words[b * L + lane] ^= 0xBAD
+        bad[name] = b
+    masks, scrub_ms = timed(lambda: store.scrub(leaves, red))
+    flagged = {n: torch.nonzero(m).flatten().tolist() for n, m in masks.items()}
+    check(all(flagged[n] == ([bad[n]] if n in bad else []) for n in flagged),
+          f"scrub flagged { {n: v for n, v in flagged.items() if v} }, expected {bad}")
+    out = {"corrupted_blocks": bad, "scrub_ms": scrub_ms, "recover_ms": {},
+           "adopted": []}
+    for name, b in bad.items():
+        leaf = leaves[name]
+        (fixed, ok), out["recover_ms"][name] = timed(
+            lambda: store.recover_block(leaf, red[name], name, b))
+        check(ok, f"recover_block refused block {b} of {name}")
+        if fixed.data_ptr() != leaf.data_ptr():
+            caches = Server._adopt(caches, {name: fixed})
+            check(flatten_dict(caches)[name] is fixed, f"{name}: the repair not adopted")
+            out["adopted"].append(name)
+        L = store.metas[name].lanes_per_block
+        words = flatten_dict(caches)[name].view(-1).view(torch.int32)
+        check(torch.equal(words[b * L:(b + 1) * L], saved[name]),
+              f"the rebuilt block {b} of {name} differs from the original")
+    leaves = flatten_dict(caches)
+    masks, out["rescrub_ms"] = timed(lambda: store.scrub(leaves, red))
+    check(sum(int(m.sum()) for m in masks.values()) == 0, "rescrub after repair flags blocks")
+    check(all(bool(v) for v in store.verify_meta(red).values()), "verify_meta failed")
+    return caches, out
+
+
+def phase_serve_recurrent(g, cfg, n_params_want: int, corrupt: list,
+                          turns: bool) -> dict:
+    """Phases 15 and 16: serve ``cfg`` with every cache under vilamb on the
+    overlapped tick (phase 7's traffic and store); check the run against a
+    blocking twin and no store, and time it (see the module docstring).
+    Returns the phase's record."""
+    dev = torch.device(DEVICE)
+    t_phase = time.perf_counter()
+    model = build_model(cfg, dev)
+    t0 = time.perf_counter()
+    params = model.init(g)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = n_params_of(params)
+    check(n_params == n_params_want, f"{n_params} params, want {n_params_want}")
+    max_len = PROMPT + GEN + 1
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (SERVE_BATCH, PROMPT),
+                                     generator=g, device=dev, dtype=torch.int32)}
+    policy = RedundancyPolicy.single("vilamb", period_steps=PERIOD,
+                                     max_vulnerable_steps=DEADLINE)
+
+    def new_store(async_tick=True):
+        return ProtectedStore(dataclasses.replace(policy, async_tick=async_tick),
+                              device=dev).attach(model.cache_shapes(SERVE_BATCH, max_len))
+
+    # Warm-up (no store, two tokens), keeping the attention layers' q, k, v.
+    calls, restore = capture_flash()
+    try:
+        Server(model=model, max_len=max_len).generate(params, batch, 2)
+    finally:
+        restore()
+    qkv = calls[0] if calls else None
+    del calls
+
+    # The main path, every step timed, with the counts read around it.
+    store = new_store()
+    check(store.policy.async_tick, f"the {cfg.name} serving store is not overlapped")
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    tokens, stats, rec, wall_s = generate(model, params, batch, store, True)
+    launches = read_launches()
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    n_attn = cfg.n_groups * sum(m == "attn" for m, _ in slot_kinds(cfg))
+    check(launches["flash_attn"] == n_attn,
+          f"flash launched {launches['flash_attn']} times in the prefill, want {n_attn}")
+    for name in ("checksum", "parity", "fused_update"):
+        check(launches[name] > 0, f"{name} kernel never launched serving {cfg.name}")
+    check(tuple(tokens.shape) == (SERVE_BATCH, GEN), f"tokens {tuple(tokens.shape)}")
+    check(stats["mismatches"] == 0, f"scrub ticks found {stats['mismatches']} mismatches")
+    due = [t["step"] for t in rec["ticks"] if t["updated"]]
+    check(due and all(b - a <= DEADLINE for a, b in zip([0] + due, due)),
+          f"due ticks at {due}")
+    events = model.dirty_events_decode(stats["caches"], stats["pos"])
+    all_dirty = sorted(n for n, e in events.items() if isinstance(e, str))
+    check(all_dirty and set(all_dirty) <= set(store.metas),
+          "the recurrent leaves are not ALL-dirty under the store")
+
+    # The blocking twin and no store: the same tokens and caches; after the
+    # final settle every field of the twin's state equals the overlapped one.
+    walls = {"async": [], "none": [], "blocking": []}
+    host_ticks = {"async": [], "blocking": []}
+    kinds = (("blocking", "none", "async", "async", "none", "blocking") if turns
+             else ("blocking", "none"))
+    leaves = flatten_dict(stats["caches"])
+    with torch.inference_mode():
+        for i, kind in enumerate(kinds):
+            st = None if kind == "none" else new_store(kind == "async")
+            toks, ost, trec, wall = generate(model, params, batch, st)
+            check(torch.equal(toks, tokens), f"{cfg.name} tokens differ with the {kind} store")
+            walls[kind].append(wall)
+            if st is not None:
+                host_ticks[kind].extend(trec["ticks"])
+            if i < 2:
+                for n, t in flatten_dict(ost["caches"]).items():
+                    check(torch.equal(t, leaves[n]),
+                          f"{cfg.name} cache {n} differs with the {kind} store")
+            if kind == "blocking" and i == 0:
+                check(ost["mismatches"] == 0, "the blocking twin's scrubs found mismatches")
+                fields_equal(stats["red"], ost["red"], f"{cfg.name} after settle")
+            del ost
+
+    split = mixer_split(model, params, batch)
+    prof = profile_decode(model, params, batch, new_store())
+    prof_due = profile_decode(model, params, batch, new_store(), first=PERIOD - 1)
+
+    with torch.inference_mode():
+        red = stats["red"]
+        masks, scrub_ms = timed(lambda: store.scrub(leaves, red))
+        check(sum(int(m.sum()) for m in masks.values()) == 0, "scrub after generate flags blocks")
+        red, flush_ms = timed(lambda: store.flush(leaves, red, step=GEN))
+        phase_full_check(store, leaves, red)
+        k3 = k3_all_dirty(store, leaves, red, all_dirty)
+        caches, repairs = corrupt_and_repair(g, store, stats["caches"], red, corrupt)
+        # A decode step on the adopted caches writes the adopted tensors in
+        # place (what generate does after adopting a patroller's repair).
+        adopted = {n: flatten_dict(caches)[n] for n in repairs["adopted"]}
+        before = {n: t.clone() for n, t in adopted.items()}
+        model.decode_step(params, caches, tokens[:, -1], stats["pos"] + 1)
+        for n, t in adopted.items():
+            check(flatten_dict(caches)[n] is t and not torch.equal(t, before[n]),
+                  f"the decode step did not write the adopted {n} in place")
+    decode_ms = sum(rec["decode_ms"]) + sum(t["ms"] for t in rec["ticks"])
+    out = {"arch": cfg.name, "n_layers": cfg.n_layers, "n_experts": cfg.n_experts,
+           "launches": launches, "n_params": n_params, "init_s": init_s,
+           "params_gib": sum(p.numel() * p.element_size()
+                             for p in flatten_dict(params).values()) / 2**30,
+           "protected_gb": sum(m.data_bytes for m in store.metas.values()) / 1e9,
+           "all_dirty_gb": sum(store.metas[n].data_bytes for n in all_dirty) / 1e9,
+           "all_dirty_leaves": len(all_dirty),
+           "prefill_ms": rec["prefill_ms"][0], "prefill_split": split,
+           "decode_ms_per_token": decode_ms / (GEN - 1),
+           "decode_tokens_per_s": SERVE_BATCH * (GEN - 1) / (decode_ms / 1e3),
+           "generate_s_timed_steps": wall_s, "generate_s": walls,
+           "due_tick_steps": due, "due_tick_ms": [t["ms"] for t in rec["ticks"] if t["updated"]],
+           "due_tick_host_ms": {k: [t["ms"] for t in v if t["updated"]]
+                                for k, v in host_ticks.items()},
+           "decode_profile": {k: v for k, v in prof.items()
+                              if k != "top_kernels_ms_per_token"},
+           "decode_top_kernels_ms_per_token": prof["top_kernels_ms_per_token"],
+           "decode_profile_due": {k: v for k, v in prof_due.items()
+                                  if k != "top_kernels_ms_per_token"},
+           "k3_all_dirty": k3, "scrub_ms": scrub_ms, "flush_ms": flush_ms,
+           "repairs": repairs, "peak_mem_gib": peak_gb}
+    if turns:
+        mean = {k: sum(v) / len(v) for k, v in walls.items()}
+        out["store_overhead"] = mean["async"] / mean["none"] - 1
+        out["store_overhead_blocking"] = mean["blocking"] / mean["none"] - 1
+    del model, params, store, stats, leaves, red, caches, batch, tokens, adopted, before
+    gc.collect()
+    torch.cuda.empty_cache()
+    if qkv is not None:
+        # The attention layer's prefill against its plain version, after the
+        # weights are freed (the plain fp32 scores of one sequence are 4.3 GB
+        # at 64 heads).
+        out["attn_err"] = layer0_err(*qkv)
+        out["flash"] = flash_times(*qkv)
+        del qkv
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
+def print_serve_recurrent(label: str, r: dict) -> None:
+    k3, rp, sp = r["k3_all_dirty"], r["repairs"], r["prefill_split"]
+    print(f"{label} ({r['phase_s']:.1f} s): {r['arch']}, {r['n_layers']} layers"
+          + (f", {r['n_experts']} experts a MoE layer" if r["n_experts"] else "")
+          + f", {r['n_params']} params ({r['params_gib']:.2f} GiB, drawn in "
+          f"{r['init_s']:.1f} s); protected caches {r['protected_gb']:.3f} GB, of which "
+          f"{r['all_dirty_gb']:.3f} GB in {r['all_dirty_leaves']} ALL-dirty leaves; "
+          f"launches {r['launches']}; peak {r['peak_mem_gib']:.2f} GiB")
+    print(f"{label}: prefill {r['prefill_ms']:.1f} ms; split (CUDA events around each "
+          f"mixer call): {sp}; decode {r['decode_ms_per_token']:.2f} ms/token "
+          f"({r['decode_tokens_per_s']:.1f} tokens/s); traced decode "
+          f"{r['decode_profile']['launches_per_token']:.0f} launches and "
+          f"{r['decode_profile']['device_busy_ms_per_token']} ms of device time a token; "
+          f"due ticks {r['due_tick_steps']} {[round(x, 2) for x in r['due_tick_ms']]} ms")
+    print(f"{label}: generate s {r['generate_s']}; due ticks' host ms (no device sync) "
+          f"{r['due_tick_host_ms']}"
+          + (f"; store overhead async {100 * r['store_overhead']:.2f}%, blocking "
+             f"{100 * r['store_overhead_blocking']:.2f}%" if "store_overhead" in r else ""))
+    print(f"{label}: trace of the due tick's decode steps {r['decode_profile_due']}")
+    due = r["decode_profile_due"]
+    print(f"{label}: K3 over the {k3['leaves']} ALL-dirty leaves ({k3['stripes']} stripes, "
+          f"{k3['gb']:.3f} GB moved), a due tick's launches: kernels {k3['device_ms']} ms "
+          f"of device time ({k3['launches']} traced), wrappers {k3['wrapper_ms']:.4f} ms; "
+          f"bound {k3['bound_ms']:.4f} ms ({k3['bound_by']}, share {k3['share_of_bound']}); "
+          f"plain {k3['plain_ms']:.2f} ms; in the traced due tick (every leaf's K3) "
+          f"{due.get('fused_update_us', 'not measured')} µs over "
+          f"{due['fused_update_launches']} launches")
+    print(f"{label}: tokens and caches identical with the overlapped, blocking and no "
+          f"store; every field equal to the blocking twin's after settle; scrub clean; "
+          f"full check passed after flush ({r['flush_ms']:.2f} ms); blocks "
+          f"{rp['corrupted_blocks']} corrupted, found and rebuilt bitwise (adopted "
+          f"{rp['adopted']}, then written in place by a decode step)", flush=True)
+    if "flash" in r:
+        f = r["flash"]
+        print(f"{label}: attention layer within bounds of plain at S = {PROMPT}: "
+              f"{r['attn_err']}")
+        print(f"flash at the {label} prefill's shape {f['shape']}: {f['ms']:.4f} ms, "
+              f"{f['tflops']:.1f} TFLOP/s, {100 * f['share_of_bound']:.1f}% of its "
+              f"{f['bound_ms']:.4f} ms bound ({f['bound_by']}); "
+              f"scaled_dot_product_attention {f['library_ms']:.4f} ms; plain "
+              f"{f['plain_ms']:.2f} ms", flush=True)
+
+
 def smi_line() -> str:
     """The card's name and power limit, as nvidia-smi gives them."""
     smi = subprocess.run(
@@ -3044,6 +3455,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    t_start = time.perf_counter()
     print(smi_line())
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}", flush=True)
@@ -3208,6 +3620,21 @@ def main() -> int:
     print(f"serve with patrol (phase 14d): {patrol_serve}")
     print(smi_line())
     print(json.dumps({"patrol": pt, "serve_patrolled": patrol_serve}))
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    hy = phase_serve_recurrent(g, hybrid_config(), HYBRID_PARAMS, list(HYBRID_CORRUPT),
+                               turns=False)
+    print_serve_recurrent("serve hybrid", hy)
+    print(smi_line())
+    print(json.dumps({"serve_hybrid": hy}))
+    gc.collect()
+    torch.cuda.empty_cache()
+    xl = phase_serve_recurrent(g, xlstm_config(), XLSTM_PARAMS, list(XLSTM_CORRUPT),
+                               turns=True)
+    print_serve_recurrent("serve xlstm", xl)
+    print(smi_line())
+    print(json.dumps({"serve_xlstm": xl}))
     for row in kernels:
         by_path = {"heap": heap_launches.get(row["name"], 0),
                    "serving": serve_launches[row["name"]],
@@ -3217,9 +3644,12 @@ def main() -> int:
                    "training_moe": moe_train["main"]["launches"][row["name"]],
                    "faults": fl["launches"][row["name"]],
                    "patrol": pt["launches"][row["name"]]
-                   + patrol_serve["launches"][row["name"]]}
+                   + patrol_serve["launches"][row["name"]],
+                   "hybrid serving": hy["launches"][row["name"]],
+                   "xlstm serving": xl["launches"][row["name"]]}
         row["launches"] = sum(by_path.values())
         row["launches_by_path"] = by_path
+    print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,7 +1,8 @@
 """Architecture registry: ``--arch <id>`` resolves here.
 
-The port serves and trains the attention-only archs, dense and MoE.  The
-reference's other archs need a mixer or front end the port does not have
+The port serves and trains the attention-only archs, dense and MoE, and
+serves the recurrent ones (jamba's Mamba, xLSTM's mLSTM and sLSTM).  The
+reference's other archs need a stack or front end the port does not have
 yet; asking for one raises ``NotImplementedError`` naming its
 ``ROADMAP.md`` item.
 """
@@ -20,13 +21,13 @@ _ARCH_MODULES = {
     "llama3.2-3b": "llama3_2_3b",
     "qwen3-moe-235b-a22b": "qwen3_moe_235b_a22b",
     "arctic-480b": "arctic_480b",
+    "jamba-1.5-large-398b": "jamba_1_5_large_398b",
+    "xlstm-1.3b": "xlstm_1_3b",
 }
 
 # The reference's other archs, by the kinds they need that the port does
 # not have yet (``models.transformer.NOT_PORTED`` names their items).
 NEEDS: Dict[str, Tuple[str, ...]] = {
-    "jamba-1.5-large-398b": ("mamba", "moe"),
-    "xlstm-1.3b": ("mlstm", "slstm"),
     "seamless-m4t-medium": ("enc_dec",),
     "internvl2-1b": ("frontend",),
 }

@@ -1,4 +1,5 @@
-"""Serving launcher: batched prefill + decode with a Vilamb-protected KV cache.
+"""Serving launcher: batched prefill + decode with Vilamb-protected caches
+(the KV caches, and the recurrent states of jamba and xlstm-1.3b).
 
 Example (on the card; ``--device cpu`` runs the plain versions instead):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-3b --smoke \\

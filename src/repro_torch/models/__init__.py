@@ -1,4 +1,5 @@
-"""Dense decoder-only models for serving and training: the port of
+"""Decoder-only models, dense and MoE for serving and training, and the
+recurrent mixers (Mamba, mLSTM, sLSTM) for serving: the port of
 ``repro.models``."""
 from .config import SHAPES, ModelConfig, ShapeConfig
 from .convert import opt_from_numpy, params_from_numpy, params_to_numpy

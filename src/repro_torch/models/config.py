@@ -3,7 +3,8 @@
 The fields that fix a model's shapes and arithmetic are kept with the
 reference's names and defaults, so a config and its weights carry across;
 the MoE fields among them (expert count, top-k, expert width, the dense
-residual, the capacity factor).
+residual, the capacity factor) and the recurrent mixers' (Mamba's state
+width, convolution width and expansion; xLSTM's sLSTM period).
 Of the other kinds' fields, only those that ``layer_kind``, ``ffn_kind``
 and ``group_size`` read are here, so that an unported kind is recognised
 and refused; each later slice adds the fields of the code it ports.
@@ -60,7 +61,10 @@ class ModelConfig:
 
     # --- SSM ---
     ssm_kind: str = ""          # mamba | xlstm
-    slstm_every: int = 0
+    d_state: int = 16
+    d_conv: int = 4
+    expand: int = 2             # mamba d_inner = expand * d_model
+    slstm_every: int = 0        # xlstm: one sLSTM per k layers (7:1 -> 8)
 
     # --- norm / activation / positions ---
     norm: str = "rmsnorm"       # rmsnorm | layernorm | nonparam_ln
@@ -88,6 +92,14 @@ class ModelConfig:
     @property
     def padded_vocab(self) -> int:
         return pad_vocab(self.vocab_size)
+
+    @property
+    def d_inner(self) -> int:   # mamba inner width
+        return self.expand * self.d_model
+
+    @property
+    def dt_rank(self) -> int:
+        return max(1, self.d_model // 16)
 
     @property
     def expert_d_ff(self) -> int:

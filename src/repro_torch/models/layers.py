@@ -26,6 +26,14 @@ def dense_init(gen: Optional[torch.Generator], shape, in_axis: int = -2,
     return w.mul_(scale / math.sqrt(fan_in)).to(dtype)
 
 
+def check_chunks(S: int, chunk: int) -> None:
+    """The recurrent mixers' prefill walks whole chunks: a sequence longer
+    than a chunk must be a multiple of it (the reference asserts so)."""
+    if S % chunk:
+        raise ValueError(f"a sequence of {S} tokens is not a whole number of "
+                         f"chunks of {chunk}")
+
+
 def embed_init(gen: Optional[torch.Generator], shape,
                dtype: torch.dtype = torch.float32, device=None) -> torch.Tensor:
     w = torch.empty(shape, dtype=torch.float32, device=device)

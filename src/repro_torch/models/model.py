@@ -1,12 +1,14 @@
 """Top-level Model: init, loss, prefill and decode, plus Vilamb dirty events.
 
-The port of ``repro.models.model`` for decoder-only models, dense and MoE.
-``build_model(cfg)`` returns a :class:`Model` on the card unless the caller
-passes ``device="cpu"``.  The model reports which embedding rows a train
-step touched, and which expert slabs its tokens were routed to
-(``dirty_events_train``), and which KV-cache pages a decode
-step wrote (``dirty_events_decode``), feeding the store's bitvectors (the
-paper's dirty bits, generated at the writer).
+The port of ``repro.models.model`` for decoder-only models: dense, MoE,
+and the recurrent mixers' (jamba's Mamba, xLSTM's mLSTM and sLSTM), which
+serve.  ``build_model(cfg)`` returns a :class:`Model` on the card unless
+the caller passes ``device="cpu"``.  The model reports which embedding
+rows a train step touched, and which expert slabs its tokens were routed
+to (``dirty_events_train``), and which KV-cache pages a decode step
+wrote, every recurrent state being rewritten whole
+(``dirty_events_decode``), feeding the store's bitvectors (the paper's
+dirty bits, generated at the writer).
 """
 from __future__ import annotations
 
@@ -18,6 +20,7 @@ import torch.nn.functional as F
 
 from ..common.device import DeviceLike, resolve_device
 from ..core.blocks import ShapeDtype
+from ..core.engine import ALL
 from . import transformer as tfm
 from .config import ModelConfig
 from .layers import embed_init, make_norm
@@ -156,20 +159,45 @@ class Model:
 
     # ---------------------------------------------------------------- caches
     def cache_shapes(self, batch: int, max_len: int) -> Dict[str, Dict[str, ShapeDtype]]:
-        """Shape and dtype of every KV cache: sequence-major ``(G, max_len,
-        B, KV, hd)`` per attention slot.  Enough for ``ProtectedStore.attach``
-        (the reference uses ``jax.eval_shape(init_caches)``)."""
-        cfg = self.cfg
-        spec = ShapeDtype((cfg.n_groups, max_len, batch, cfg.n_kv_heads, cfg.hd),
-                          self.dtype)
-        return {f"slot_{s}": {"k": spec, "v": spec}
-                for s, (mixer, _) in enumerate(tfm.slot_kinds(cfg)) if mixer == "attn"}
+        """Shape and dtype of every cache, per slot by its mixer: attention's
+        sequence-major ``k`` and ``v`` ``(G, max_len, B, KV, hd)``; Mamba's
+        fp32 ``h`` ``(G, B, d_inner, d_state)`` and ``conv`` ``(G, B,
+        d_conv - 1, d_inner)``; mLSTM's fp32 ``C`` ``(G, B, H, hd, hd)`` and
+        ``n`` ``(G, B, H, hd)``; sLSTM's fp32 ``c`` ``(G, B, H, hd)`` and
+        ``n`` ``(G, B, H)``.  Enough for ``ProtectedStore.attach`` (the
+        reference uses ``jax.eval_shape(init_caches)``)."""
+        cfg, G, B = self.cfg, self.cfg.n_groups, batch
+        f32 = torch.float32
+        hd = cfg.d_model // cfg.n_heads          # the recurrent mixers' head width
+        out: Dict[str, Dict[str, ShapeDtype]] = {}
+        for s, (mixer, _) in enumerate(tfm.slot_kinds(cfg)):
+            if mixer == "attn":
+                kv = ShapeDtype((G, max_len, B, cfg.n_kv_heads, cfg.hd), self.dtype)
+                c = {"k": kv, "v": kv}
+            elif mixer == "mamba":
+                c = {"h": ShapeDtype((G, B, cfg.d_inner, cfg.d_state), f32),
+                     "conv": ShapeDtype((G, B, cfg.d_conv - 1, cfg.d_inner), self.dtype)}
+            elif mixer == "mlstm":
+                c = {"C": ShapeDtype((G, B, cfg.n_heads, hd, hd), f32),
+                     "n": ShapeDtype((G, B, cfg.n_heads, hd), f32)}
+            else:
+                c = {"c": ShapeDtype((G, B, cfg.n_heads, hd), f32),
+                     "n": ShapeDtype((G, B, cfg.n_heads), f32)}
+            out[f"slot_{s}"] = c
+        return out
 
     def init_caches(self, batch: int, max_len: int) -> Dict[str, Dict[str, torch.Tensor]]:
-        """Zeroed KV caches of :meth:`cache_shapes` on the model's device."""
-        return {slot: {k: torch.zeros(s.shape, dtype=s.dtype, device=self.device)
-                       for k, s in c.items()}
-                for slot, c in self.cache_shapes(batch, max_len).items()}
+        """The caches of :meth:`cache_shapes` on the model's device: zeros,
+        but for sLSTM's normaliser ``n``, which starts at 1e-6 as in the
+        reference."""
+        shapes = self.cache_shapes(batch, max_len)
+        out: Dict[str, Dict[str, torch.Tensor]] = {}
+        for s, (mixer, _) in enumerate(tfm.slot_kinds(self.cfg)):
+            out[f"slot_{s}"] = {
+                k: torch.full(sd.shape, 1e-6 if (mixer, k) == ("slstm", "n") else 0.0,
+                              dtype=sd.dtype, device=self.device)
+                for k, sd in shapes[f"slot_{s}"].items()}
+        return out
 
     # --------------------------------------------------------------- prefill
     def prefill(self, params, batch: Dict[str, torch.Tensor], max_len: int
@@ -219,19 +247,26 @@ class Model:
                     events[f"stack/slot_{s}/moe/{w}"] = ev
         return events
 
-    def dirty_events_decode(self, caches, pos: int) -> Dict[str, torch.Tensor]:
-        """KV-cache page dirty events for a decode step at ``pos``.
+    def dirty_events_decode(self, caches, pos: int) -> Dict[str, Any]:
+        """Cache dirty events for a decode step at ``pos``.
 
-        Masks are (n_groups, S_max) bool over the sequence-major caches'
-        leading dims: only the written position's row goes dirty.
+        A KV cache's mask is (n_groups, S_max) bool over its sequence-major
+        leading dims: only the written position's row goes dirty.  A
+        recurrent state (``h``, ``conv``, ``C``, ``n``, ``c``) is rewritten
+        whole every step: ``ALL``.
         """
-        events: Dict[str, torch.Tensor] = {}
-        for slot, c in caches.items():
-            G, S_max = c["k"].shape[:2]
-            ev = torch.zeros((G, S_max), dtype=torch.bool, device=c["k"].device)
-            ev[:, pos] = True
-            events[f"{slot}/k"] = ev
-            events[f"{slot}/v"] = ev
+        events: Dict[str, Any] = {}
+        for s, (mixer, _) in enumerate(tfm.slot_kinds(self.cfg)):
+            c = caches[f"slot_{s}"]
+            if mixer == "attn":
+                G, S_max = c["k"].shape[:2]
+                ev = torch.zeros((G, S_max), dtype=torch.bool, device=c["k"].device)
+                ev[:, pos] = True
+                events[f"slot_{s}/k"] = ev
+                events[f"slot_{s}/v"] = ev
+            else:
+                for key in c:
+                    events[f"slot_{s}/{key}"] = ALL
         return events
 
 

@@ -1,4 +1,5 @@
-"""Layer stacks of a decoder-only LM: attention mixers with dense FFNs.
+"""Layer stacks of a decoder-only LM: attention, Mamba, mLSTM and sLSTM
+mixers with dense, MoE or no FFNs.
 
 The port of ``repro.models.transformer``.  Parameters stay stacked by
 group on a leading axis, with the reference's names and shapes
@@ -10,7 +11,10 @@ per group.  Training checkpoints each slot (``cfg.remat``), as the
 reference's per-slot ``jax.checkpoint`` does.  A slot's FFN is dense or
 MoE (``models/moe.py``; arctic's dense residual beside it); the full
 forward returns every slot's expert counts and the summed aux loss, as
-the reference's scan does.  Other mixers (Mamba, mLSTM, sLSTM) raise
+the reference's scan does.  The recurrent mixers (``models/mamba.py``,
+``models/xlstm.py``) serve: the prefill writes each one's final state
+into its cache, and decode rewrites that state in place.  Training
+through them, the encoder-decoder stack and the vision front end raise
 ``NotImplementedError`` naming their ``ROADMAP.md`` item.
 """
 from __future__ import annotations
@@ -21,7 +25,9 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from . import attention as attn_mod
+from . import mamba as mamba_mod
 from . import moe as moe_mod
+from . import xlstm as xlstm_mod
 from .config import ModelConfig
 from .layers import ffn_apply, ffn_init, make_norm
 
@@ -29,11 +35,19 @@ from .layers import ffn_apply, ffn_init, make_norm
 # owner of these strings: the registry refers to them for the archs it
 # does not serve.
 NOT_PORTED = {
-    "mamba": "Mamba mixers: ROADMAP.md, Queue 1 item 3",
-    "mlstm": "mLSTM mixers: ROADMAP.md, Queue 1 item 4",
-    "slstm": "sLSTM mixers: ROADMAP.md, Queue 1 item 4",
     "enc_dec": "the encoder-decoder stack: ROADMAP.md, Queue 1 item 5",
     "frontend": "the vision front end: ROADMAP.md, Queue 1 item 5",
+}
+TRAIN_NOT_PORTED = ("training through the recurrent mixers (Mamba, mLSTM, sLSTM): "
+                    "ROADMAP.md, Queue 1 item 13")
+
+# Each mixer's (init, full-sequence apply, one-token decode step) beside
+# attention's: init(gen, cfg, dtype, device, lead); apply(p, x, cfg) ->
+# (y, final state); decode(p, x, cfg, cache) -> y, the state in place.
+RECURRENT = {
+    "mamba": (mamba_mod.mamba_init, mamba_mod.mamba_apply, mamba_mod.mamba_decode_step),
+    "mlstm": (xlstm_mod.mlstm_init, xlstm_mod.mlstm_apply, xlstm_mod.mlstm_decode_step),
+    "slstm": (xlstm_mod.slstm_init, xlstm_mod.slstm_apply, xlstm_mod.slstm_decode_step),
 }
 
 
@@ -72,8 +86,9 @@ def _slot_init(gen, cfg: ModelConfig, mixer: str, ffn: str, dtype: torch.dtype,
                device, n_groups: int) -> Dict[str, Any]:
     norm_init, _ = make_norm(cfg)
     lead = (n_groups,)
+    mixer_init = attn_mod.attn_init if mixer == "attn" else RECURRENT[mixer][0]
     p: Dict[str, Any] = {"mixer_norm": norm_init(cfg.d_model, device, lead),
-                         "attn": attn_mod.attn_init(gen, cfg, dtype, device, lead)}
+                         mixer: mixer_init(gen, cfg, dtype, device, lead)}
     if ffn != "none":
         p["ffn_norm"] = norm_init(cfg.d_model, device, lead)
         if ffn == "moe":
@@ -107,32 +122,43 @@ def _ffn(p, h: torch.Tensor, cfg: ModelConfig, ffn: str):
     return ffn_apply(p["ffn"], h, cfg), None, None
 
 
-def _slot_apply_full(p, x: torch.Tensor, cfg: ModelConfig, ffn: str, train: bool):
-    """Full-sequence slot (prefill or training).  Returns ``(x, {"k", "v"},
-    counts, aux)``, k and v (B, S, KV, hd) for the cache, counts and aux
-    None without a router."""
+def _slot_apply_full(p, x: torch.Tensor, cfg: ModelConfig, mixer: str, ffn: str,
+                     train: bool):
+    """Full-sequence slot (prefill or training).  Returns ``(x, state,
+    counts, aux)``: the state for the cache (attention's k and v (B, S, KV,
+    hd), a recurrent mixer's final state), counts and aux None without a
+    router."""
     _, norm = make_norm(cfg)
-    y, (k, v) = attn_mod.causal_attention(p["attn"], norm(p["mixer_norm"], x), cfg,
-                                          train=train)
+    h = norm(p["mixer_norm"], x)
+    if mixer == "attn":
+        y, (k, v) = attn_mod.causal_attention(p["attn"], h, cfg, train=train)
+        state = {"k": k, "v": v}
+    else:
+        y, state = RECURRENT[mixer][1](p[mixer], h, cfg)
     x = x + y
     counts = aux = None
     if ffn != "none":
         y, counts, aux = _ffn(p, norm(p["ffn_norm"], x), cfg, ffn)
         x = x + y
-    return x, {"k": k, "v": v}, counts, aux
+    return x, state, counts, aux
 
 
 def _slot_train(p, x: torch.Tensor, cfg: ModelConfig, ffn: str):
-    x, _, counts, aux = _slot_apply_full(p, x, cfg, ffn, train=True)
+    x, _, counts, aux = _slot_apply_full(p, x, cfg, "attn", ffn, train=True)
     return x, counts, aux
 
 
-def _slot_apply_decode(p, x: torch.Tensor, cfg: ModelConfig, ffn: str,
+def _slot_apply_decode(p, x: torch.Tensor, cfg: ModelConfig, mixer: str, ffn: str,
                        cache: Dict[str, torch.Tensor], pos: int) -> torch.Tensor:
-    """One-token slot.  x: (B, 1, d).  Writes the cache row ``pos`` in place."""
+    """One-token slot.  x: (B, 1, d).  Writes attention's cache row ``pos``,
+    or a recurrent mixer's whole state, in place."""
     _, norm = make_norm(cfg)
-    x = x + attn_mod.decode_attention(
-        p["attn"], norm(p["mixer_norm"], x), cfg, cache["k"], cache["v"], pos)
+    h = norm(p["mixer_norm"], x)
+    if mixer == "attn":
+        y = attn_mod.decode_attention(p["attn"], h, cfg, cache["k"], cache["v"], pos)
+    else:
+        y = RECURRENT[mixer][2](p[mixer], h, cfg, cache)
+    x = x + y
     if ffn != "none":
         x = x + _ffn(p, norm(p["ffn_norm"], x), cfg, ffn)[0]
     return x
@@ -151,31 +177,40 @@ def stack_apply_full(stack, x: torch.Tensor, cfg: ModelConfig,
     layer's k and v go straight into rows ``:S`` of its group of ``caches``
     (``init_caches``' sequence-major ``(G, S_max, B, KV, hd)`` tensors), so
     the stacked ``(G, B, S, KV, hd)`` copies the reference builds never
-    exist.  Training (``train=True``, no caches): the differentiable tiled
-    attention, each slot under ``torch.utils.checkpoint`` unless
-    ``cfg.remat == "none"``, so a slot's backward recomputes its forward
-    from its input and holds only that slot's activations.
+    exist; a recurrent layer's final state goes into its group of its
+    caches the same way.  Training (``train=True``, no caches): the
+    differentiable tiled attention, each slot under
+    ``torch.utils.checkpoint`` unless ``cfg.remat == "none"``, so a slot's
+    backward recomputes its forward from its input and holds only that
+    slot's activations; a recurrent slot raises ``NotImplementedError``
+    (:data:`TRAIN_NOT_PORTED`).
     """
     if train != (caches is None):
         raise ValueError("stack_apply_full fills caches on the prefill and "
                          "none in training")
     kinds = slot_kinds(cfg)
+    if train and any(mixer != "attn" for mixer, _ in kinds):
+        raise NotImplementedError(f"{cfg.name} cannot train yet: {TRAIN_NOT_PORTED}")
     groups = {s: _unbind(stack[f"slot_{s}"], cfg.n_groups) for s in range(len(kinds))}
     counts, aux = [], []
     for g in range(cfg.n_groups):
         group_aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        for s, (_, ffn) in enumerate(kinds):
+        for s, (mixer, ffn) in enumerate(kinds):
             p = groups[s][g]
             if train and cfg.remat != "none":
                 x, c, a = checkpoint(_slot_train, p, x, cfg, ffn, use_reentrant=False)
             elif train:
                 x, c, a = _slot_train(p, x, cfg, ffn)
             else:
-                x, kv, c, a = _slot_apply_full(p, x, cfg, ffn, train=False)
+                x, state, c, a = _slot_apply_full(p, x, cfg, mixer, ffn, train=False)
                 dst = caches[f"slot_{s}"]
-                S = kv["k"].shape[1]
-                dst["k"][g, :S] = kv["k"].transpose(0, 1)
-                dst["v"][g, :S] = kv["v"].transpose(0, 1)
+                if mixer == "attn":
+                    S = state["k"].shape[1]
+                    dst["k"][g, :S] = state["k"].transpose(0, 1)
+                    dst["v"][g, :S] = state["v"].transpose(0, 1)
+                else:
+                    for key, t in state.items():
+                        dst[key][g] = t
             if c is None:                  # no router: zeros, as the reference's
                 c = torch.zeros((max(cfg.n_experts, 1),), dtype=torch.int32,
                                 device=x.device)
@@ -189,12 +224,12 @@ def stack_apply_full(stack, x: torch.Tensor, cfg: ModelConfig,
 
 def stack_apply_decode(stack, x: torch.Tensor, cfg: ModelConfig, caches,
                        pos: int) -> torch.Tensor:
-    """One token through the stack; every cache is written in place at
-    ``pos``."""
+    """One token through the stack; every cache is written in place (a KV
+    cache at row ``pos``, a recurrent state whole)."""
     kinds = slot_kinds(cfg)
     params = [_unbind(stack[f"slot_{s}"], cfg.n_groups) for s in range(len(kinds))]
     cache = [_unbind(caches[f"slot_{s}"], cfg.n_groups) for s in range(len(kinds))]
     for g in range(cfg.n_groups):
-        for s, (_, ffn) in enumerate(kinds):
-            x = _slot_apply_decode(params[s][g], x, cfg, ffn, cache[s][g], pos)
+        for s, (mixer, ffn) in enumerate(kinds):
+            x = _slot_apply_decode(params[s][g], x, cfg, mixer, ffn, cache[s][g], pos)
     return x

@@ -1,13 +1,22 @@
-"""Serving loop: batched prefill + greedy decode with Vilamb-protected KV caches.
+"""Serving loop: batched prefill + greedy decode with Vilamb-protected caches.
 
 The port of ``repro.serve.serve_loop``.  In serving, the parameters are
 immutable; the KV cache is the hot, sparsely written state: each decode
 step dirties one page per layer, the closest analogue of the paper's
-cache-line writes to DAX pages.  A :class:`~repro_torch.core.ProtectedStore`
+cache-line writes to DAX pages.  Recurrent-state caches (Mamba's ``h``
+and ``conv``, xLSTM's ``C``, ``n`` and ``c``) are rewritten whole every
+step and marked ALL-dirty.  A :class:`~repro_torch.core.ProtectedStore`
 owns the redundancy lifecycle: ``decode_step`` records writes through
 ``store.on_write`` and the generate loop heartbeats ``store.tick``, the
 same scheduling the reference uses.  The whole path runs under
 ``torch.inference_mode()``.
+
+The caches are written in place, where the reference's arrays are
+immutable.  On the card a due tick's update reads the leaves on the
+store's side stream, so each decode step first orders the current stream
+after the in-flight update (``store.await_inflight``, a device-side wait):
+otherwise the step's writes could reach blocks the update is still
+reading, and its adopted checksums would mix two steps.
 """
 from __future__ import annotations
 
@@ -30,13 +39,16 @@ def make_prefill(model, max_len: int) -> Callable:
 def make_decode_step(model, store: Optional[ProtectedStore] = None) -> Callable:
     """decode_step(params, caches, red, token, pos) -> (logits, caches, red, next).
 
-    The caches are written in place.  A ``sync`` group's inline diff needs
-    the old and the new caches, so the leaves are copied before the step
-    only when the store has one.
+    The caches are written in place, after any in-flight update has read
+    them (on the device).  A ``sync`` group's inline diff needs the old and
+    the new caches, so the leaves are copied before the step only when the
+    store has one.
     """
     def decode_step(params, caches, red, token, pos):
         protects = store is not None and store.protects
         old = None
+        if protects:
+            store.await_inflight()
         if protects and store.has_sync:
             old = {n: t.clone() for n, t in flatten_dict(caches).items()}
         logits, caches, next_token = model.decode_step(params, caches, token, pos)

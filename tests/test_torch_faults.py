@@ -108,7 +108,7 @@ def _write_rows(rng, n=24):
 
 def _step(pkg, store, leaves, red, rows, step):
     """One step of the oracle workload: 0.5 added to ``rows`` of w, their
-    marks, the store's tick."""
+    marks, the store's tick once the last update has landed."""
     if pkg == "torch":
         w = leaves["w"].clone()
         w[torch.as_tensor(rows)] += 0.5
@@ -120,6 +120,11 @@ def _step(pkg, store, leaves, red, rows, step):
         ev = jnp.zeros((24,), bool).at[idx].set(True)
     leaves = dict(leaves, w=w)
     red = store.on_write(red, events={"w": ev})
+    # Adopt, never coalesce, in both packages: the port's CPU dispatch runs
+    # to completion, while under load the reference's update of the last
+    # due tick can still be in flight at the next one, which then coalesces
+    # and leaves other blocks marked.
+    store.sync_inflight()
     red, _ = store.tick(leaves, red, step)
     return leaves, red
 
