@@ -12,7 +12,10 @@ Phases, each of which must pass or the script exits non-zero:
    kernel's dynamic shared memory, and no spilled byte in the flash kernel;
 3. kernels: each kernel is bitwise equal to its plain PyTorch version at
    small shapes (partial stripes, L in {128, 1024, 16384}, a block offset,
-   zero/one/all-dirty work queues, NaN/Inf/zero/saturated payloads);
+   zero/one/all-dirty leaves, NaN/Inf/zero/saturated payloads), and K3's
+   grouped launch over a due group's mix (64 KiB and 4 KiB blocks, none,
+   sparse and all dirty, stripe widths 1, 4 and 16, junk word bits past
+   each leaf) against its plain version and one launch a leaf;
 4. main path: a ProtectedStore on the default, overlapped tick over an
    8 GiB vilamb heap of 4 KiB rows (2,097,152 blocks, 4+1 stripes, T=16,
    deadline 32) plus a 64 MiB sync params leaf, beside a blocking twin fed
@@ -338,6 +341,13 @@ HYBRID_CORRUPT = ("slot_0/h", "slot_4/k")       # a Mamba state, the K cache
 XLSTM_ARCH, XLSTM_PARAMS = "xlstm-1.3b", 1_217_335_488
 XLSTM_CORRUPT = ("slot_0/C", "slot_7/n")        # an mLSTM C, sLSTM's padded n
 
+# K3 before its Hopper redesign (PERF.md, PR 20's final chip run on the
+# H100 80GB HBM3 at 700 W), printed beside this run's times: ms.
+K3_BEFORE = {"heap": 0.5523, "xlstm all-dirty": 0.8963, "jamba all-dirty": 0.491,
+             "train due tick": 12.82, "moe due tick": 14.48}
+
+SPIN_CYCLES = 20_000_000               # about 10 ms of one SM's clock
+
 SPECIALS = [0x7FC00000, 0x7F800000, 0xFF800000, 0x7F800001, 0x00000000, 0xFFFFFFFF]
 
 
@@ -429,27 +439,70 @@ def phase_kernels(g) -> dict:
               f"fused_update kernel != plain ({name}, {nb}x{L})")
         err["fused_update"] = max(err["fused_update"], abs_err(got[0], want[0]),
                                   abs_err(got[1], want[1]))
+    # Grouped: one launch over a due group's mix (128 blocks of 64 KiB, a
+    # 3-stripe leaf, the heap's 4 KiB rows; none, sparse and all dirty) at
+    # stripe widths 1, 4 and 16, with every word bit past a leaf's last
+    # block set (the kernel must ignore them): bitwise equal to the plain
+    # version and to one launch a leaf.  Without the heap's rows the launch
+    # has too few stripes to take them whole and splits them into runs of
+    # tiles.
+    for P, heap_rows in ((1, 4096), (4, 4096), (4, 0), (16, 4096)):
+        jobs, plain, singles = [], [], []
+        for nb, L, kind in ((128, 16384, "sparse"), (3 * P - (P > 1), 16384, "all"),
+                            (heap_rows, 1024, "none"), (heap_rows, 1024, "sparse")):
+            if nb == 0:
+                continue
+            lanes = rand_i32(g, nb, L)
+            bd = {"none": torch.zeros(nb, dtype=torch.bool, device=DEVICE),
+                  "all": torch.ones(nb, dtype=torch.bool, device=DEVICE),
+                  "sparse": torch.rand(nb, generator=g, device=DEVICE) < 0.1}[kind]
+            old_c, old_p = rand_i32(g, nb), rand_i32(g, -(-nb // P), L)
+            words = bits.pack_mask(bd)
+            junk = bits.pack_mask(torch.cat([bd, torch.ones(
+                words.shape[0] * 32 - nb, dtype=torch.bool, device=DEVICE)]))
+            jobs.append((lanes, old_c.clone(), old_p.clone(), junk))
+            plain.append((lanes, old_c, old_p, words))
+            singles.append(fu_ops.fused_update(lanes, old_c.clone(), old_p.clone(), bd,
+                                               stripe_mask(bd, P), P))
+        want = fu_ref.fused_update_many(plain, P)
+        got = fu_ops.fused_update_many(jobs, P)
+        for i, ((wc, wp), (gc, gp), (sc, sp), job) in enumerate(zip(want, got, singles, jobs)):
+            check(gc is job[1] and gp is job[2], f"grouped K3 not in place (P={P}, leaf {i})")
+            check(torch.equal(gc, wc) and torch.equal(gp, wp) and torch.equal(sc, wc)
+                  and torch.equal(sp, wp), f"grouped K3 != plain or per leaf (P={P}, leaf {i})")
+            err["fused_update"] = max(err["fused_update"], abs_err(gc, wc), abs_err(gp, wp))
     torch.cuda.synchronize()
     return err
 
 
-def record_k3(count_stripes: bool = False):
-    """Wrap the fused update's wrapper so that every launch records the
-    stream it was made on, its lanes' address and, with ``count_stripes``,
-    the number of stripes in its queue (a host wait: for a check only, off
-    the timed path); returns the records ``(stream, lanes address, stripes
-    or None)`` and a function that puts the wrapper back."""
-    calls: list = []
-    launch = fu_ops.fused_update
+def words_stripes(words: torch.Tensor, nb: int, P: int) -> int:
+    """Stripes holding a block marked in the packed ``words`` (a host wait:
+    for a check only, off the timed path)."""
+    return int(stripe_mask(bits.unpack(words, nb), P).sum())
 
-    def record(lanes, checksums, parity, block_dirty, stripe_dirty, *a, **kw):
-        calls.append((torch.cuda.current_stream(), lanes.data_ptr(),
-                      int(stripe_dirty.sum()) if count_stripes else None))
-        return launch(lanes, checksums, parity, block_dirty, stripe_dirty, *a, **kw)
+
+def record_k3(count_stripes: bool = False):
+    """Wrap K3's grouped entry so that every leaf of every call records the
+    stream it was made on, its lanes' address, with ``count_stripes`` the
+    stripes its words mark, and the call's number (one call a group's
+    update, one launch); returns the records ``(stream, lanes address,
+    stripes or None, call)`` and a function that puts the entry back."""
+    calls: list = []
+    launch = fu_ops.fused_update_many
+    n_calls = [0]
+
+    def record(jobs, stripe_width=STRIPE, **kw):
+        jobs = list(jobs)
+        for lanes, _, _, words in jobs:
+            calls.append((torch.cuda.current_stream(), lanes.data_ptr(),
+                          words_stripes(words, lanes.shape[0], stripe_width)
+                          if count_stripes else None, n_calls[0]))
+        n_calls[0] += 1
+        return launch(jobs, stripe_width, **kw)
 
     def restore():
-        fu_ops.fused_update = launch
-    fu_ops.fused_update = record
+        fu_ops.fused_update_many = launch
+    fu_ops.fused_update_many = record
     return calls, restore
 
 
@@ -546,11 +599,12 @@ def heap_steps(store, state, red, plan, steps, rec, k3_streams):
 def uncounted():
     """Launches inside are not the main path's (the blocking twin's): the
     kernels' counts are put back as they were when the block ends."""
-    saved = (ck_ops.LAUNCHES, par_ops.LAUNCHES, fu_ops.LAUNCHES)
+    saved = (ck_ops.LAUNCHES, par_ops.LAUNCHES, fu_ops.LAUNCHES, len(K3_CALLS))
     try:
         yield
     finally:
-        ck_ops.LAUNCHES, par_ops.LAUNCHES, fu_ops.LAUNCHES = saved
+        ck_ops.LAUNCHES, par_ops.LAUNCHES, fu_ops.LAUNCHES = saved[:3]
+        del K3_CALLS[saved[3]:]
 
 
 def compare_clean(store, red, twin: dict, step: int) -> int:
@@ -589,7 +643,7 @@ def phase_main(g) -> dict:
           "the overlapped tick is not the default")
     k3_streams, restore_k3 = record_k3()
     torch.cuda.synchronize()
-    ck_ops.LAUNCHES = par_ops.LAUNCHES = fu_ops.LAUNCHES = 0
+    reset_launches()
     torch.cuda.reset_peak_memory_stats()
 
     store, init_ms = timed(lambda: ProtectedStore(policy).attach(state))
@@ -668,11 +722,16 @@ def phase_main(g) -> dict:
           "scrub after repair still flags blocks")
     check(all(bool(v) for v in store.verify_meta(red).values()), "verify_meta failed")
     torch.cuda.synchronize()
-    launches = {"checksum": ck_ops.LAUNCHES, "parity": par_ops.LAUNCHES,
-                "fused_update": fu_ops.LAUNCHES}
+    launches = read_launches()
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
-    for name, n in launches.items():
-        check(n > 0, f"{name} kernel never launched on the main path")
+    for name in ("checksum", "parity"):
+        check(launches[name] > 0, f"{name} kernel never launched on the main path")
+    # K3: attach's warm-up (an overlapped update and a blocking one of its
+    # probe), the due ticks 16, 32, 48 and 64, and the flush: one launch
+    # each, the heap group's one leaf each.
+    check(launches["fused_update"] == 7 and K3_CALLS == [1] * 7,
+          f"K3 launched {launches['fused_update']} times over {K3_CALLS} leaves on the "
+          "main path, want 7 over one leaf each")
     return {
         "store": store, "state": state, "red": red, "launches": launches,
         "timings": {
@@ -791,25 +850,32 @@ def phase_kernel_times(g, main: dict, err: dict) -> list:
     old_c[bd] ^= 0x5A5A5A5A
     old_p = red.parity.clone()
     old_p[sd] ^= 0x0F0F0F0F
-    want = fu_ref.fused_update(lanes, old_c, old_p, bd, sd, STRIPE)
-    got = fu_ops.fused_update(lanes, old_c.clone(), old_p, bd, sd, STRIPE)
+    words = bits.pack_mask(bd)
+    job = [(lanes, old_c.clone(), old_p.clone(), words)]
+    want = fu_ref.fused_update_many([(lanes, old_c, old_p, words)], STRIPE)[0]
+    got = fu_ops.fused_update_many(job, STRIPE)[0]
     check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
           "fused_update kernel != plain on the 8 GiB heap")
     err["fused_update"] = max(err["fused_update"], abs_err(got[0], want[0]),
                               abs_err(got[1], want[1]))
     del want
-    cks = got[0]
-    fu_ms = per_call_ms(lambda: fu_ops.fused_update(lanes, cks, old_p, bd, sd, STRIPE), 20)
-    plain_ms = per_call_ms(lambda: fu_ref.fused_update(lanes, cks, old_p, bd, sd, STRIPE), 2)
-    # The queued stripes' members (read), their parity rows (written), the
-    # dirty checksums (written), the members' dirty-mask bytes, the ids and
-    # the count (read).
-    fu_bytes = (n_stripes * STRIPE * L * 4 + n_stripes * L * 4 + n_dirty * 4
-                + n_stripes * STRIPE + n_stripes * 4 + 4)
+    # A due tick's call: the grouped entry over the heap's packed words.
+    fu_ms = per_call_ms(lambda: fu_ops.fused_update_many(job, STRIPE), 20)
+    plain_ms = per_call_ms(lambda: fu_ref.fused_update_many(job, STRIPE), 2)
+    # The dirty stripes' members (read), their parity rows and the dirty
+    # checksums (written), every packed word (read).  PR 20's kernel read
+    # the bool masks, the ids and the count instead of the words.
+    fu_bytes = n_stripes * STRIPE * L * 4 + n_stripes * L * 4 + n_dirty * 4
+    new_bytes = fu_bytes + words.numel() * 4
+    old_bytes = fu_bytes + n_stripes * STRIPE + n_stripes * 4 + 4
+    ops = n_stripes * STRIPE * L * 13
     rows.append(("fused_update", "redundancy.cu", "redundancy/redundancy.py:93",
-                 fu_ms, plain_ms, *bound(fu_bytes, n_stripes * STRIPE * L * 13)))
-    del old_c, old_p, got, cks
-    main["timings"]["fused_queue"] = {"dirty_blocks": n_dirty, "stripes": n_stripes}
+                 fu_ms, plain_ms, *bound(new_bytes, ops)))
+    del old_c, old_p, got, job
+    main["timings"]["fused_queue"] = {
+        "dirty_blocks": n_dirty, "stripes": n_stripes, "ms": fu_ms,
+        "bound_ms": bound(new_bytes, ops)[0], "pr20_bound_ms": bound(old_bytes, ops)[0],
+        "pr20_ms": K3_BEFORE["heap"]}
 
     return [{"name": name, "route": "cuda", "source": f"src/repro_torch/csrc/{src}",
              "replaces": f"src/repro/kernels/{tpu}", "launches": main["launches"][name],
@@ -906,13 +972,40 @@ def instrument(srv: Server, store=None) -> dict:
     return rec
 
 
+# The leaves of each call of K3's grouped entry (one call a group's
+# update) since reset_launches(); kept by count_k3_calls().
+K3_CALLS: list = []
+
+
+def count_k3_calls() -> None:
+    """Wrap K3's grouped entry (once) so that each call appends its number
+    of leaves to K3_CALLS."""
+    launch = fu_ops.fused_update_many
+
+    def counted(jobs, *a, **kw):
+        jobs = list(jobs)
+        K3_CALLS.append(len(jobs))
+        return launch(jobs, *a, **kw)
+    fu_ops.fused_update_many = counted
+
+
 def reset_launches() -> None:
     ck_ops.LAUNCHES = par_ops.LAUNCHES = fu_ops.LAUNCHES = fa_ops.LAUNCHES = 0
+    K3_CALLS.clear()
 
 
 def read_launches() -> dict:
+    """The kernels' launches since reset_launches(); fails unless K3
+    launched exactly once a group update (a group of more than max_jobs
+    leaves takes as few launches as fit)."""
+    want = sum(-(-n // fu_ops.max_jobs()) for n in K3_CALLS)
+    check(fu_ops.LAUNCHES == want,
+          f"K3 launched {fu_ops.LAUNCHES} times, want {want}: one a group update "
+          f"({len(K3_CALLS)} updates over {sum(K3_CALLS)} leaves)")
     return {"checksum": ck_ops.LAUNCHES, "parity": par_ops.LAUNCHES,
-            "fused_update": fu_ops.LAUNCHES, "flash_attn": fa_ops.LAUNCHES}
+            "fused_update": fu_ops.LAUNCHES, "flash_attn": fa_ops.LAUNCHES,
+            "fused_update_leaves": sum(K3_CALLS),
+            "fused_update_max_leaves": max(K3_CALLS, default=0)}
 
 
 def host_timed_ticks(store) -> list:
@@ -1456,7 +1549,8 @@ def phase_train(seed: int) -> dict:
                       "leaves": len(leaves),
                       "blocks": sum(m.n_blocks for m in store.metas.values())},
         "lazy_rows": lazy, "corruption": corrupt, "n_params": n_params,
-        "k3_launches_on_side_stream": len(tick_k3),
+        "k3_launches_on_side_stream": len({c[3] for c in tick_k3}),
+        "k3_leaves_on_side_stream": len(tick_k3),
     }
     del trainer, store, state, leaves, prof, on_step
     gc.collect()
@@ -2043,7 +2137,7 @@ def moe_sparse_step(trainer, state, data, rec: _Recorder) -> tuple:
     finally:
         restore()
     got = {}
-    for _, ptr, count in calls:
+    for _, ptr, count, _ in calls:
         if ptr in ptrs:
             got[ptrs[ptr]] = got.get(ptrs[ptr], 0) + count
     check(all(got.get(n, 0) == want_stripes[n] for n in slab_names),
@@ -2062,7 +2156,8 @@ def moe_sparse_step(trainer, state, data, rec: _Recorder) -> tuple:
         "slabs_routed": int(routed.sum()), "slabs_untouched": len(cold),
         "untouched_share": len(cold) / routed.numel(),
         "stripes_per_slab": meta.n_stripes // routed.numel(),
-        "k3_launches": len(calls), "k3_stripes": sum(c[2] for c in calls),
+        "k3_launches": len({c[3] for c in calls}), "k3_leaves": len(calls),
+        "k3_stripes": sum(c[2] for c in calls),
         "stripes_total": sum(m.n_stripes for m in store.metas.values()),
         "slab_leaf_stripes": {n: want_stripes[n] for n in slab_names},
         "flush_ms": flush_ms, "host_copy_gb": sum(t.numel() * 2 for t in before.values()) / 1e9}
@@ -2144,7 +2239,8 @@ def phase_train_moe(seed: int) -> dict:
         "memory_gb": {"state": sum(t.numel() * t.element_size() for t in leaves.values()) / 1e9,
                       "parity": sum(r.parity.numel() * 4 for r in state.red.values()) / 1e9,
                       "leaves": len(leaves)},
-        "sparse_step": sparse_rec, "k3_launches_on_side_stream": len(tick_k3)}
+        "sparse_step": sparse_rec, "k3_launches_on_side_stream": len({c[3] for c in tick_k3}),
+        "k3_leaves_on_side_stream": len(tick_k3)}
     del trainer, store, state, leaves, prof, on_step
     gc.collect()
     torch.cuda.empty_cache()
@@ -2204,6 +2300,9 @@ def print_train_moe(r: dict) -> None:
           + f"; due ticks {m['due_ticks']}")
     tr = {k: v for k, v in m["trace_steps_7_8"].items() if k != "top_kernels_ms"}
     print(f"train moe: trace of steps 7-8: {tr}")
+    print(f"train moe: K3 in the traced due tick: {tr.get('fused_update_us', 'not measured')} "
+          f"µs over {tr['fused_update_launches']} launches (PR 20, one launch a leaf: "
+          f"{K3_BEFORE['moe due tick']} ms)")
     print(f"train moe: the {sp['tokens']}-token step routed {sp['slabs_routed']} of "
           f"{sp['slabs']} slabs ({sp['slabs_untouched']} untouched: params, m and v "
           f"bit-identical, never marked dirty); its update's K3: {sp['k3_launches']} "
@@ -2832,8 +2931,11 @@ def held_probe(seed: int, state: dict, g) -> dict:
         written.index_fill_(0, rows, True)
     for step in range(1, FAULT_DUE):
         red, _ = fault_step(store, state, red, plan[step], g, step)
+    # A block of the probe's window whose whole stripe the run never
+    # writes: its repair at step 18 must not be refused as vulnerable.
     start = min(pat.cursor["heap"], meta.n_blocks - w)
-    blk = start + int(torch.nonzero(~written[start:start + w])[0])
+    quiet = (~stripe_mask(written, STRIPE)).repeat_interleave(STRIPE)[:N_ROWS]
+    blk = start + int(torch.nonzero(quiet[start:start + w])[0])
     before = state["heap"][blk].clone()
     lv, red = store.inject(state, red, FaultSpec("data_bitflip", "heap", block=blk,
                                                  lane=5, bit=13))
@@ -3152,63 +3254,62 @@ def fields_equal(red: dict, twin: dict, what: str) -> None:
                   f"{what}: {n}.{f} differs from the blocking twin's")
 
 
-def k3_all_dirty(store, leaves: dict, red: dict, names: list) -> dict:
+def k3_all_dirty(store, leaves: dict, red: dict, names: list, before_ms: float) -> dict:
     """K3 over every block of the ALL-dirty leaves ``names`` (a due tick's
-    queue for them), after a flush: bitwise equal to its plain version and
-    to the flushed checksums and parity, timed as one due tick's launches,
-    beside the plain version's time and the bound."""
-    jobs, n_bytes, ops, stripes = [], 0, 0, 0
+    update of them: one grouped launch), after a flush: bitwise equal to
+    its plain version and to the flushed checksums and parity, timed,
+    beside the plain version's time, the bound and ``before_ms`` (PR 20's
+    16 or 14 launches, one a leaf)."""
+    jobs, plain, n_bytes, ops, stripes = [], [], 0, 0, 0
     for n in names:
         meta = store.metas[n]
         lanes = blocks.to_lanes(leaves[n], meta)
         nb, L = lanes.shape
-        bd = torch.ones(nb, dtype=torch.bool, device=DEVICE)
-        sd = stripe_mask(bd, STRIPE)
-        ns = int(sd.shape[0])
-        want = fu_ref.fused_update(lanes, red[n].checksums.clone(), red[n].parity.clone(),
-                                   bd, sd, STRIPE)
-        got = fu_ops.fused_update(lanes, red[n].checksums.clone(), red[n].parity.clone(),
-                                  bd, sd, STRIPE)
-        check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
-              and torch.equal(got[0], red[n].checksums)
-              and torch.equal(got[1], red[n].parity),
-              f"K3 over the ALL-dirty {n} differs from its plain version or the flush")
-        jobs.append((lanes, got[0], got[1], bd, sd))
+        words = bits.pack_mask(torch.ones(nb, dtype=torch.bool, device=DEVICE))
+        ns = -(-nb // STRIPE)
+        jobs.append((lanes, red[n].checksums.clone(), red[n].parity.clone(), words))
+        plain.append((lanes, red[n].checksums.clone(), red[n].parity.clone(), words))
         # Every stripe's members read, its parity row written, every
-        # checksum written, the dirty masks read.
-        n_bytes += ns * STRIPE * L * 4 + ns * L * 4 + nb * 4 + nb + ns
+        # checksum written, the packed words read.
+        n_bytes += ns * STRIPE * L * 4 + ns * L * 4 + nb * 4 + words.numel() * 4
         ops += ns * STRIPE * L * 13
         stripes += ns
+    want = fu_ref.fused_update_many(plain, STRIPE)
+    got = fu_ops.fused_update_many(jobs, STRIPE)
+    for n, (gc, gp), (wc, wp) in zip(names, got, want):
+        check(torch.equal(gc, wc) and torch.equal(gp, wp) and torch.equal(gc, red[n].checksums)
+              and torch.equal(gp, red[n].parity),
+              f"K3 over the ALL-dirty {n} differs from its plain version or the flush")
+    del want, plain
 
     def tick_k3():
-        for lanes, c, p, bd, sd in jobs:
-            fu_ops.fused_update(lanes, c, p, bd, sd, STRIPE)
+        fu_ops.fused_update_many(jobs, STRIPE)
 
     def tick_plain():
-        for lanes, c, p, bd, sd in jobs:
-            fu_ref.fused_update(lanes, c, p, bd, sd, STRIPE)
+        fu_ref.fused_update_many(jobs, STRIPE)
     ms, plain_ms = per_call_ms(tick_k3, 10), per_call_ms(tick_plain, 2)
-    # The wrappers' host work can outlast the kernels at these sizes: the
-    # kernels' own device time comes from a trace of one tick's launches.
-    # A warm-up step first (the tracer can drop a cold trace's first
-    # kernels); acc_events keeps the active step's events past its cycle.
-    from torch.profiler import ProfilerActivity, profile, schedule
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 schedule=schedule(wait=0, warmup=1, active=1), acc_events=True) as prof:
-        for _ in range(2):
-            tick_k3()
-            torch.cuda.synchronize()
-            prof.step()
-    k3 = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
-          and "fused_update_kernel" in e.name]
-    device_ms = (sum(e.time_range.elapsed_us() for e in k3) / 1e3
-                 if len(k3) == len(jobs) else "not measured")
+    # The launch's own device time: CUDA events around one tick's call
+    # queued behind a spin, so that the wrapper's host work (which can
+    # outlast the kernel at these sizes) is done before the first event
+    # fires; the median of five.  It includes the wrapper's zero-fill of
+    # the launch's ticket.
+    want_launches = -(-len(jobs) // fu_ops.max_jobs())
+    device = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        torch.cuda._sleep(SPIN_CYCLES)
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        tick_k3()
+        b.record()
+        b.synchronize()
+        device.append(a.elapsed_time(b))
+    device_ms = statistics.median(device)
     bms, by = bound(n_bytes, ops)
     return {"leaves": len(names), "stripes": stripes, "gb": n_bytes / 1e9,
-            "wrapper_ms": ms, "device_ms": device_ms, "launches": len(k3),
-            "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
-            "share_of_bound": (bms / device_ms if len(k3) == len(jobs)
-                               else "not measured")}
+            "wrapper_ms": ms, "device_ms": device_ms, "device_ms_runs": device,
+            "launches": want_launches, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+            "share_of_bound": bms / device_ms, "pr20_ms": before_ms}
 
 
 def corrupt_and_repair(g, store, caches: dict, red: dict, names: list):
@@ -3345,7 +3446,8 @@ def phase_serve_recurrent(g, cfg, n_params_want: int, corrupt: list,
         check(sum(int(m.sum()) for m in masks.values()) == 0, "scrub after generate flags blocks")
         red, flush_ms = timed(lambda: store.flush(leaves, red, step=GEN))
         phase_full_check(store, leaves, red)
-        k3 = k3_all_dirty(store, leaves, red, all_dirty)
+        k3 = k3_all_dirty(store, leaves, red, all_dirty, K3_BEFORE[
+            "xlstm all-dirty" if "xlstm" in cfg.name else "jamba all-dirty"])
         caches, repairs = corrupt_and_repair(g, store, stats["caches"], red, corrupt)
         # A decode step on the adopted caches writes the adopted tensors in
         # place (what generate does after adopting a patroller's repair).
@@ -3418,10 +3520,12 @@ def print_serve_recurrent(label: str, r: dict) -> None:
     print(f"{label}: trace of the due tick's decode steps {r['decode_profile_due']}")
     due = r["decode_profile_due"]
     print(f"{label}: K3 over the {k3['leaves']} ALL-dirty leaves ({k3['stripes']} stripes, "
-          f"{k3['gb']:.3f} GB moved), a due tick's launches: kernels {k3['device_ms']} ms "
-          f"of device time ({k3['launches']} traced), wrappers {k3['wrapper_ms']:.4f} ms; "
+          f"{k3['gb']:.3f} GB moved), a due tick's {k3['launches']} launch(es): "
+          f"{k3['device_ms']:.4f} ms of device time (median of {k3['device_ms_runs']}), "
+          f"wrappers {k3['wrapper_ms']:.4f} ms; "
           f"bound {k3['bound_ms']:.4f} ms ({k3['bound_by']}, share {k3['share_of_bound']}); "
-          f"plain {k3['plain_ms']:.2f} ms; in the traced due tick (every leaf's K3) "
+          f"plain {k3['plain_ms']:.2f} ms; PR 20 (one launch a leaf): {k3['pr20_ms']} ms "
+          f"of device time; in the traced due tick (every leaf's K3) "
           f"{due.get('fused_update_us', 'not measured')} µs over "
           f"{due['fused_update_launches']} launches")
     print(f"{label}: tokens and caches identical with the overlapped, blocking and no "
@@ -3463,6 +3567,7 @@ def main() -> int:
     t0 = time.perf_counter()
     lib = _build.library()
     print(f"build: {time.perf_counter() - t0:.1f} s")
+    count_k3_calls()
     print_build_log(lib)
 
     # The plain versions' fp32 products stay in full fp32 (torch's default,
@@ -3491,6 +3596,12 @@ def main() -> int:
           "ran on its side stream", flush=True)
     phase_update_profile(g, main_run)
     kernels = phase_kernel_times(g, main_run, err)
+    fq = main_run["timings"]["fused_queue"]
+    print(f"K3 on the heap's due tick ({fq['stripes']} dirty stripes, one launch): "
+          f"{fq['ms']:.4f} ms against its {fq['bound_ms']:.4f} ms bound "
+          f"({100 * fq['bound_ms'] / fq['ms']:.1f}%; PR 20's bound, which counted the "
+          f"bool masks and ids, {fq['pr20_bound_ms']:.4f} ms); PR 20: {fq['pr20_ms']} ms "
+          f"(wrapper, one launch a leaf)", flush=True)
     phase_full_check(main_run["store"], main_run["state"], main_run["red"])
     print("full check: checksums and parity of every block match a chunked plain "
           "recompute")
@@ -3573,6 +3684,9 @@ def main() -> int:
           f"{m['scrub_check_ms']:.2f} ms")
     tr = {k: v for k, v in m["trace_steps_7_9"].items() if k != "top_kernels_ms"}
     print(f"train: trace of steps 7-9: {tr}")
+    print(f"train: K3 in the traced due tick: {tr.get('fused_update_us', 'not measured')} µs "
+          f"over {tr['fused_update_launches']} launches (PR 20, one launch a leaf: "
+          f"{K3_BEFORE['train due tick']} ms over 33 launches)")
     for kind, o in train["observe"].items():
         print(f"train: {kind} store, {OBS_STEPS} steps: median step {o['median_step_ms']:.2f} "
               f"ms (steps 3-8), {o['tokens_per_s']:.1f} tokens/s, model-FLOP share "

@@ -9,11 +9,13 @@ Modes (Table 1 of the paper):
 
 Machine-local: one engine owns the redundancy of a named set of leaves on
 one device, the GPU unless the caller passes ``device="cpu"``; a leaf on
-another device is refused.  On a CUDA device the Algorithm-1 update
-always runs the fused work-queue kernel (``kernels/redundancy``), so there
-is no host-side queue fit check; on the CPU the plain work queue or full
-recompute of ``workqueue.py`` runs, exactly as in the reference.  The
-results are bitwise identical either way.
+another device is refused.  On a CUDA device the Algorithm-1 update of
+all the engine's leaves is one launch of the fused kernel
+(``kernels/redundancy``), which reads the packed dirty words itself, so
+there is no mask, no queue and no host-side fit check; on the CPU the
+plain work queue or full recompute of ``workqueue.py`` runs, leaf by leaf,
+exactly as in the reference.  The results are bitwise identical either
+way.
 """
 from __future__ import annotations
 
@@ -106,16 +108,10 @@ class RedundancyEngine:
     def _update_leaf(self, name: str, meta: BlockMeta, lanes: torch.Tensor,
                      old: LeafRedundancy, bdirty: torch.Tensor,
                      sdirty: torch.Tensor, queued: bool):
-        """Masked checksum+parity+meta refresh (Alg. 1 lines 7-22).
-
-        On the card: the fused kernel, in place on ``old.checksums`` and
-        ``old.parity``, then a full meta-checksum.  On the CPU: the work
-        queue (caller guarantees the fit) or the full masked recompute.
-        """
-        if self.use_kernels:
-            cks, par = _fused.fused_update(lanes, old.checksums, old.parity,
-                                           bdirty, sdirty, meta.stripe_data_blocks)
-            return cks, par, checksum.meta_checksum(cks)
+        """Masked checksum+parity+meta refresh of one leaf on the CPU (Alg. 1
+        lines 7-22): the work queue (caller guarantees the fit) or the full
+        masked recompute.  The card updates a group's leaves together
+        (:meth:`_alg1_card`)."""
         cap = self._queue_caps[name]
         if queued and cap:
             ids, _, _ = workqueue.compact_stripe_ids(sdirty, cap)
@@ -180,6 +176,8 @@ class RedundancyEngine:
         else the host value ``True``: the card has no queue, so it never
         fetches a fit signal from the device.
         """
+        if self.use_kernels:
+            return self._alg1_card(leaves, red), True
         parts: Dict[str, Tuple] = {}
         fits = []
         for name, meta in self.metas.items():
@@ -195,6 +193,21 @@ class RedundancyEngine:
                                                   sdirty, queued)
             parts[name] = (cks, par, meta_ck, snapshot)
         return parts, (torch.stack(fits).all() if fits else True)
+
+    def _alg1_card(self, leaves: Mapping[str, torch.Tensor],
+                   red: RedundancyState) -> Dict[str, Tuple]:
+        """The card's Algorithm-1 body: every leaf's snapshot, then one
+        fused launch over all the leaves (it reads the snapshots' packed
+        words), in place on their checksums and parity, then each leaf's
+        meta-checksum.  Returns ``_alg1_parts``'s parts."""
+        snaps = {name: red[name].dirty | red[name].shadow for name in self.metas}
+        _fused.fused_update_many(
+            [(self._lanes(leaves, name), red[name].checksums, red[name].parity,
+              snaps[name]) for name in self.metas],
+            self.config.stripe_data_blocks)
+        return {name: (red[name].checksums, red[name].parity,
+                       checksum.meta_checksum(red[name].checksums), snaps[name])
+                for name in self.metas}
 
     def _alg1(self, leaves: Mapping[str, torch.Tensor], red: RedundancyState,
               queued: bool) -> RedundancyState:

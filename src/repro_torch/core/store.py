@@ -616,8 +616,8 @@ class ProtectedStore:
         touch it: the leaves and the input redundancy, read or written on
         the side stream, and the outputs, read on the current stream after
         adoption.  Tensors the batch makes and uses only on the side stream
-        (the lane copies, the work queue) need no record: their memory is
-        reused only by later work of that same stream.  Returns ``(outs,
+        (the lane copies, K3's ticket and scratch) need no record: their
+        memory is reused only by later work of that same stream.  Returns ``(outs,
         fits, done)``: per group the update's outputs, the stacked host fit
         vector, and the completion event (None on the CPU).
         """

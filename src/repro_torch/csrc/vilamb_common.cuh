@@ -3,7 +3,8 @@
 // The mixing constants and fmix32 are those of the reference's
 // repro/kernels/common.py; every word is a raw uint32, whatever the leaf's
 // dtype.  Folds are XOR: each thread XORs its lanes, a warp XOR-shuffles,
-// and the warps meet in shared memory.
+// and the warps meet in shared memory.  The mbarrier helpers serve the
+// kernels that stage tiles through shared memory (flash attention, K3).
 #pragma once
 
 #include <cstdint>
@@ -71,6 +72,37 @@ __device__ __forceinline__ uint32_t block_xor(uint32_t v, uint32_t* smem) {
 inline int grid_for(int64_t items) {
   const int64_t cap = int64_t(1) << 30;
   return int(items < cap ? items : cap);
+}
+
+// ------------------------------------------------ mbarriers and bulk copies
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(bar), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(bar) : "memory");
+}
+
+// Returns once the barrier's phase of this parity has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  } while (!done);
 }
 
 }  // namespace vilamb

@@ -30,7 +30,11 @@ _P, _I, _D = ctypes.c_void_p, ctypes.c_int64, ctypes.c_double
 _SIGNATURES = {
     "vilamb_checksum": (_P, _P, _I, _I, _I, _P),
     "vilamb_parity": (_P, _P, _I, _I, _I, _P),
-    "vilamb_fused_update": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # descriptors, n_jobs, total items, items a grab, stripe, tile columns,
+    # ticket, counters, partials, stream.
+    "vilamb_fused_update_many": (_P, _I, _I, _I, _I, _I, _P, _P, _P, _P),
+    "vilamb_fused_update_max_jobs": (),
+    "vilamb_fused_update_grid": (_I, _I),
     # q, k, v, out; B, S, H, KV, hd, dtype, causal; 4 x (head, seq, batch)
     # byte strides; scale; stream.
     "vilamb_flash_attn": (_P, _P, _P, _P) + (_I,) * 7 + (_I,) * 12 + (_D, _P),

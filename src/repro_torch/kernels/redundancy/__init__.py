@@ -1,3 +1,3 @@
-from .ops import fused_update
+from .ops import fused_update, fused_update_many
 
-__all__ = ["fused_update"]
+__all__ = ["fused_update", "fused_update_many"]

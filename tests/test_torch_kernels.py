@@ -48,6 +48,16 @@ def cuda_device():
     return torch.device("cuda")
 
 
+def bits_of(bd: torch.Tensor) -> torch.Tensor:
+    """A bool block mask packed into dirty words on its device."""
+    from repro_torch.core import bits
+    return bits.pack_mask(bd)
+
+
+def _stripe_mask_t(bd: torch.Tensor, sw: int) -> torch.Tensor:
+    return torch.from_numpy(_stripe_mask(bd.cpu().numpy(), sw)).to(bd.device)
+
+
 def _stripe_mask(bd, sw):
     nb = len(bd)
     ns = -(-nb // sw)
@@ -75,13 +85,77 @@ def test_parity_plain_vs_pallas(ref, nb, L, sw):
     assert_bits_equal(want, tpops.stripe_parity(t32(lanes), sw))
 
 
-@pytest.mark.parametrize("ns,p", [(1, 0.0), (7, 1.0), (40, 0.3), (513, 0.05)])
-def test_work_queue_lists_dirty_stripes_in_order(ns, p):
-    sd = np.random.default_rng(ns).random(ns) < p
-    ids, count = trops._work_queue(torch.from_numpy(sd))
-    assert count.dtype == ids.dtype == torch.int32 and count.shape == (1,)
-    assert int(count) == sd.sum()
-    np.testing.assert_array_equal(ids[:int(count)].numpy(), np.flatnonzero(sd))
+def _words(bd, junk=False) -> np.ndarray:
+    """``bd`` packed into uint32 words, little-endian bits; with ``junk``
+    every bit past the last block is set (the kernel must ignore them)."""
+    nw = max(1, -(-len(bd) // 32))
+    bitv = np.full(nw * 32, bool(junk))
+    bitv[:len(bd)] = bd
+    return (bitv.reshape(nw, 32).astype(np.uint64) << np.arange(32, dtype=np.uint64)
+            ).sum(axis=1).astype(np.uint32)
+
+
+def _dirty(rng, nb, kind):
+    return {"zero": np.zeros(nb, bool), "one": np.arange(nb) == rng.integers(nb),
+            "all": np.ones(nb, bool), "random": rng.random(nb) < 0.4}[kind]
+
+
+def _many_vs_pallas(ref, leaves, sw, junk=False):
+    """The grouped plain version over ``leaves`` (``(lanes, old checksums,
+    old parity, block dirty)`` each, numpy) in one call, held leaf by leaf
+    against the reference's Pallas ``fused_update`` in interpret mode."""
+    jobs = [(t32(lanes), t32(c), t32(p), t32(_words(bd, junk))) for lanes, c, p, bd in leaves]
+    before = trops.LAUNCHES
+    got = trops.fused_update_many(jobs, sw)
+    assert trops.LAUNCHES == before              # a CPU tensor launches nothing
+    j = ref.jnp.asarray
+    for i, ((lanes, c, p, bd), job, (gc, gp)) in enumerate(zip(leaves, jobs, got)):
+        assert gc is job[1] and gp is job[2]     # in place
+        wc, wp = ref.fused.fused_update(j(lanes), j(c), j(p), j(bd), j(_stripe_mask(bd, sw)),
+                                        sw, use_pallas=True, interpret=True)
+        assert_bits_equal(wc, gc, f"leaf {i} checksums")
+        assert_bits_equal(wp, gp, f"leaf {i} parity")
+
+
+@pytest.mark.parametrize("L", [128, 256, 1024])
+@pytest.mark.parametrize("sw", [2, 4, 5])
+def test_fused_many_plain_vs_pallas(ref, L, sw):
+    """One grouped call over four leaves: a partial last stripe, whole
+    stripes, a single block; zero, one, all and random dirty blocks."""
+    rng = np.random.default_rng(L * sw)
+    leaves = []
+    for nb, kind in ((3 * sw + 1, "zero"), (2 * sw, "one"), (1, "all"),
+                     (5 * sw - 1, "random")):
+        ns = -(-nb // sw)
+        leaves.append((rand_u32(rng, nb, L), rand_u32(rng, nb), rand_u32(rng, ns, L),
+                       _dirty(rng, nb, kind)))
+    _many_vs_pallas(ref, leaves, sw, junk=L == 256)
+
+
+def test_fused_many_special_lanes(ref):
+    """NaN/Inf/zero/saturated payloads in two leaves of one call, the
+    words packed from the same masks, with junk bits past the last block."""
+    leaves = []
+    for nb, offset, dirty in ((12, 2, np.arange(12) % 5 == 0), (9, 5, np.ones(9, bool))):
+        lanes = special_lanes(nb, 256, offset=offset)
+        cks = np.asarray(tcref.block_checksums(t32(lanes))).view(np.uint32) ^ np.uint32(0xDEAD)
+        par = np.asarray(tpref.stripe_parity(t32(lanes), 4)).view(np.uint32) ^ np.uint32(0xBEEF)
+        leaves.append((lanes, cks, par, dirty))
+    _many_vs_pallas(ref, leaves, 4, junk=True)
+
+
+@settings(max_examples=10, deadline=None)
+@given(st.integers(0, 100), st.integers(1, 3), st.sampled_from([128, 256]),
+       st.sampled_from([1, 2, 4]), st.data())
+def test_fused_many_plain_vs_pallas_property(ref, seed, n_leaves, L, sw, data):
+    rng = np.random.default_rng(seed)
+    leaves = []
+    for _ in range(n_leaves):
+        nb = data.draw(st.integers(1, 14))
+        bd = np.array(data.draw(st.lists(st.booleans(), min_size=nb, max_size=nb)))
+        leaves.append((rand_u32(rng, nb, L), rand_u32(rng, nb),
+                       rand_u32(rng, -(-nb // sw), L), bd))
+    _many_vs_pallas(ref, leaves, sw, junk=bool(seed % 2))
 
 
 def _fused_both(ref, lanes, old_cks, old_par, bd, sd, sw):
@@ -177,6 +251,104 @@ def test_fused_kernel_on_card(cuda_device, nb, L, dirty):
     got = trops.fused_update(lanes, old_cks.clone(), old_par.clone(), bd, sd, 4)
     torch.cuda.synchronize()
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def _card_leaves(dev, sw, seed):
+    """A due group's mix at stripe width ``sw``: a 128-block leaf of 64 KiB
+    blocks, a 3-stripe leaf of them (its last stripe partial where sw > 1),
+    and the heap's 4 KiB rows; none, sparse and all dirty.  Returns jobs'
+    tensors ``(lanes, checksums, parity, block dirty)`` on ``dev``."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for nb, L, kind in ((128, 16384, "random"), (3 * sw - (sw > 1), 16384, "all"),
+                        (4096, 1024, "zero"), (4096, 1024, "random"),
+                        (128, 16384, "zero"), (64, 16384, "all")):
+        bd = _dirty(rng, nb, kind) if kind != "random" else rng.random(nb) < 0.1
+        out.append(tuple(t32(a).to(dev) if a.dtype != bool else torch.from_numpy(a).to(dev)
+                         for a in (rand_u32(rng, nb, L), rand_u32(rng, nb),
+                                   rand_u32(rng, -(-nb // sw), L), bd)))
+    return out
+
+
+def _junk_words(bd):
+    return t32(_words(bd.cpu().numpy(), junk=True)).to(bd.device)
+
+
+@pytest.mark.parametrize("sw,with_heap", [(1, True), (4, True), (4, False), (16, True)])
+def test_fused_many_kernel_on_card(cuda_device, sw, with_heap):
+    """One grouped launch over mixed leaves: bitwise equal to the plain
+    version and to one launch a leaf, in place, with junk bits past each
+    leaf's last block ignored.  With the heap's rows the launch has enough
+    stripes to take them whole; without, it splits them into runs of
+    tiles (the one-leaf launches split too)."""
+    leaves = _card_leaves(cuda_device, sw, sw)
+    if not with_heap:
+        leaves = [leaf for leaf in leaves if leaf[0].shape[1] == 16384]
+    jobs = [(lanes, c.clone(), p.clone(), _junk_words(bd)) for lanes, c, p, bd in leaves]
+    want = trref.fused_update_many(
+        [(lanes, c, p, bits_of(bd)) for lanes, c, p, bd in leaves], sw)
+    before = trops.LAUNCHES
+    got = trops.fused_update_many(jobs, sw)
+    torch.cuda.synchronize()
+    assert trops.LAUNCHES == before + 1
+    singles = [trops.fused_update(lanes, c.clone(), p.clone(), bd, _stripe_mask_t(bd, sw), sw)
+               for lanes, c, p, bd in leaves]
+    torch.cuda.synchronize()
+    assert trops.LAUNCHES == before + 1 + len(leaves)
+    for i, (job, (gc, gp), (wc, wp), (sc, sp)) in enumerate(zip(jobs, got, want, singles)):
+        assert gc is job[1] and gp is job[2], i
+        assert torch.equal(gc, wc) and torch.equal(gp, wp), i
+        assert torch.equal(sc, wc) and torch.equal(sp, wp), i
+
+
+def test_fused_many_two_streams_in_flight_on_card(cuda_device):
+    """Two grouped launches of few stripes of 64 KiB blocks (so each splits
+    its stripes into runs of tiles and folds their checksums through its
+    scratch) in flight at once on two streams, each behind a sleep: each
+    equals its plain version, so their scratch is never shared."""
+    groups = [[leaf for leaf in _card_leaves(cuda_device, 4, seed) if leaf[0].shape[1] == 16384]
+              for seed in (11, 12)]
+    want = [trref.fused_update_many([(l, c, p, bits_of(bd)) for l, c, p, bd in grp], 4)
+            for grp in groups]
+    jobs = [[(l, c.clone(), p.clone(), bits_of(bd)) for l, c, p, bd in grp] for grp in groups]
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream(cuda_device) for _ in groups]
+    for st, js in zip(streams, jobs):
+        with torch.cuda.stream(st):
+            torch.cuda._sleep(50_000_000)
+            trops.fused_update_many(js, 4)
+    torch.cuda.synchronize()
+    for js, ws in zip(jobs, want):
+        for (_, c, p, _), (wc, wp) in zip(js, ws):
+            assert torch.equal(c, wc) and torch.equal(p, wp)
+
+
+def test_engine_group_is_one_launch_on_card(cuda_device):
+    """An engine of several leaves of mixed shapes (one a padded copy)
+    updates them all in one launch, bit for bit as the CPU engine."""
+    from repro_torch.core import RedundancyConfig, RedundancyEngine
+    rng = np.random.default_rng(5)
+    leaves = {"a": rng.standard_normal((300, 1024)).astype(np.float32),
+              "b": rng.standard_normal((7, 333)).astype(np.float32),
+              "c": rng.standard_normal((64, 4096)).astype(np.float32)}
+    leaves = {n: torch.from_numpy(v) for n, v in leaves.items()}
+    ev = {"a": torch.from_numpy(rng.random(300) < 0.2), "b": "__all__",
+          "c": torch.from_numpy(rng.random(64) < 0.5)}
+    new = {n: v * 3 for n, v in leaves.items()}
+    cfg = RedundancyConfig(lanes_per_block=4096)
+    cpu = RedundancyEngine(leaves, cfg, device="cpu")
+    want = cpu.redundancy_step(new, cpu.mark_dirty(cpu.init(leaves), ev))
+    card = RedundancyEngine(leaves, cfg)
+    red = card.mark_dirty(card.init({n: v.to(cuda_device) for n, v in leaves.items()}),
+                          {n: e if isinstance(e, str) else e.to(cuda_device)
+                           for n, e in ev.items()})
+    before = trops.LAUNCHES
+    got = card.redundancy_step({n: v.to(cuda_device) for n, v in new.items()}, red)
+    torch.cuda.synchronize()
+    assert trops.LAUNCHES == before + 1
+    for n in leaves:
+        for f in ("checksums", "parity", "dirty", "shadow", "meta_ck"):
+            assert torch.equal(getattr(got[n], f).cpu(), getattr(want[n], f)), (n, f)
 
 
 def test_engine_default_device_on_card(cuda_device):

@@ -79,13 +79,14 @@ def test_fused_update_runs_on_side_stream_on_card(cuda_device, monkeypatch):
     """Every overlapped update launches K3 on the store's side stream, not
     the caller's; the settled state equals the blocking twin's."""
     streams = []
-    orig = fu_ops.fused_update
+    orig = fu_ops.fused_update_many
 
-    def spy(*a, **k):
-        streams.append(torch.cuda.current_stream())
-        return orig(*a, **k)
+    def spy(jobs, *a, **k):
+        jobs = list(jobs)
+        streams.extend(torch.cuda.current_stream() for _ in jobs)    # one a leaf
+        return orig(jobs, *a, **k)
 
-    monkeypatch.setattr(fu_ops, "fused_update", spy)
+    monkeypatch.setattr(fu_ops, "fused_update_many", spy)
     (sa, ha, ra), (sb, hb, rb) = _twins(cuda_device)
     g = torch.Generator(device=cuda_device).manual_seed(1)
     for step in range(1, 6):
@@ -167,6 +168,69 @@ def test_allocator_stress_matches_blocking_twin_on_card(cuda_device):
     _assert_equal(ra, rb, "after flush")
     assert torch.equal(ha, hb)
     assert int(sa.scrub({"heap": ha}, ra)["heap"].sum()) == 0
+
+
+def test_grouped_multi_tile_update_matches_blocking_twin_on_card(cuda_device):
+    """A group of four leaves at the default 64 KiB blocks (stripes split
+    over column tiles, a partial last stripe, a padded copy), due every
+    tick: each overlapped due tick is one K3 launch for the whole group,
+    updates are held in flight behind sleeps while memory churns, and the
+    state equals the blocking twin's on clean blocks after every settle and
+    everywhere after flush."""
+    shapes = {"a": (8192, 1024), "b": (40, 16384), "c": (11, 16384), "d": (1000, 77)}
+    policy = RedundancyPolicy.single("vilamb", period_steps=1)
+    g = torch.Generator(device=cuda_device).manual_seed(6)
+    twins = []
+    for async_tick in (True, False):
+        leaves = {n: torch.randn(sh, generator=torch.Generator(device=cuda_device)
+                                 .manual_seed(7), device=cuda_device)
+                  for n, sh in shapes.items()}
+        store = ProtectedStore(dataclasses.replace(policy, async_tick=async_tick)
+                               ).attach(leaves)
+        twins.append([store, leaves, store.init(leaves)])
+    (sa, la, _), _ = twins
+    for step in range(1, 31):
+        rows = {n: torch.randperm(shapes[n][0], generator=g, device=cuda_device)[:k]
+                for n, k in (("a", 96), ("c", 1 + step % 3))}
+        vals = {n: torch.randn((len(r), shapes[n][1]), generator=g, device=cuda_device)
+                for n, r in rows.items()}
+        full = {"b": torch.randn(shapes["b"], generator=g, device=cuda_device)
+                if step % 3 == 0 else None,
+                "d": torch.randn(shapes["d"], generator=g, device=cuda_device)}
+        if step % 4 == 0:
+            torch.cuda._sleep(SLEEP_CYCLES // 20)
+        for i, (store, leaves, red) in enumerate(twins):
+            events = {}
+            for n, r in rows.items():
+                leaves[n].index_copy_(0, r, vals[n])
+                ev = torch.zeros(shapes[n][0], dtype=torch.bool, device=cuda_device)
+                ev.index_fill_(0, r, True)
+                events[n] = ev
+            for n, v in full.items():
+                if v is not None:
+                    leaves[n].copy_(v)
+                    events[n] = "__all__"
+            red = store.on_write(red, events=events)
+            before = fu_ops.LAUNCHES
+            red, rep = store.tick(leaves, red, step)
+            if i == 0:      # one launch a dispatch; none where it coalesced
+                assert rep.updated, step
+                assert fu_ops.LAUNCHES == before + (0 if rep.coalesced else 1), step
+            twins[i][2] = red
+        junk = [torch.empty(1 << (14 + step % 7), device=cuda_device) for _ in range(3)]
+        del junk
+        if step % 10 == 0:
+            torch.cuda.empty_cache()
+            ra = sa.settle(twins[0][2], la, step=step)
+            twins[0][2] = ra
+            rb = twins[1][2]
+            for n, meta in sa.metas.items():
+                clean = ~bits.unpack(ra[n].dirty | ra[n].shadow, meta.n_blocks)
+                assert torch.equal(ra[n].checksums[clean], rb[n].checksums[clean]), (step, n)
+    ra = sa.flush(la, twins[0][2], step=31)
+    rb = twins[1][0].flush(twins[1][1], twins[1][2], step=31)
+    _assert_equal(ra, rb, "after flush")
+    assert int(sum(m.sum() for m in sa.scrub(la, ra).values())) == 0
 
 
 def _delay_side(store):
@@ -293,7 +357,7 @@ def test_failed_side_dispatch_reraises_on_card(cuda_device, monkeypatch):
     def fail(*a, **k):
         raise RuntimeError("fused_update kernel launch failed: CUDA error 1")
 
-    monkeypatch.setattr(fu_ops, "fused_update", fail)
+    monkeypatch.setattr(fu_ops, "fused_update_many", fail)
     red, rep = store.tick({"heap": heap}, red, 1)
     assert rep.updated
     with pytest.raises(RuntimeError, match="launch failed"):
@@ -404,11 +468,18 @@ def test_moe_sparse_step_touches_only_routed_slabs_on_card(cuda_device, monkeypa
     state = trainer.run(state, sparse, 1)
     leaves = protected_leaves(state.params, state.opt)
     calls = []
-    launch = fu_ops.fused_update
+    launch = fu_ops.fused_update_many
 
-    def spy(lanes, checksums, parity, block_dirty, stripe_dirty, *a, **kw):
-        calls.append((lanes.data_ptr(), int(stripe_dirty.sum())))
-        return launch(lanes, checksums, parity, block_dirty, stripe_dirty, *a, **kw)
+    def spy(jobs, stripe_width=4, **kw):
+        jobs = list(jobs)
+        for lanes, _, _, words in jobs:          # the stripes each leaf's words mark
+            nb = lanes.shape[0]
+            bd = bits.unpack(words, nb)
+            sd = torch.zeros(-(-nb // stripe_width) * stripe_width, dtype=torch.bool,
+                             device=bd.device)
+            sd[:nb] = bd
+            calls.append((lanes.data_ptr(), int(sd.view(-1, stripe_width).any(1).sum())))
+        return launch(jobs, stripe_width, **kw)
 
     for n, t in slabs.items():
         assert torch.equal(leaves[n][~routed].view(torch.int16), t[~routed].view(torch.int16)), n
@@ -420,9 +491,9 @@ def test_moe_sparse_step_touches_only_routed_slabs_on_card(cuda_device, monkeypa
     want = {blocks.to_lanes(leaves[n], store.metas[n]).data_ptr(): int(
         blocks.stripe_dirty_mask(store.metas[n], blocks.row_mask_block_mask(
             store.metas[n], routed, row_dims=2)).sum()) for n in slabs}
-    monkeypatch.setattr(fu_ops, "fused_update", spy)
+    monkeypatch.setattr(fu_ops, "fused_update_many", spy)
     state = trainer.flush(state)
-    monkeypatch.setattr(fu_ops, "fused_update", launch)
+    monkeypatch.setattr(fu_ops, "fused_update_many", launch)
     got = {p: c for p, c in calls if p in want}
     assert got == want
     assert trainer.scrub_check(state) == 0
