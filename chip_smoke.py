@@ -36,7 +36,9 @@ Phases, each of which must pass or the script exits non-zero:
    then a chunked plain recompute of all checksums and parity, bitwise;
 6. the flash-attention kernel against its plain version at small shapes
    (S in {1, 17, 128, 129, 255, 383, 1000}: around the kernel's 128-row
-   tiles; hd in {64, 128}, H/KV in {1, 3, 4, 8, 16}, causal and full, bf16),
+   tiles; hd in {64, 128}, H/KV in {1, 3, 4, 7, 8, 16}, causal and full,
+   bf16; and a key length of its own, (Sq, Sk) in {(1, 17), (129, 1000),
+   (1000, 129), (4096, 6144)} at H/KV 1 and 7),
    held to |got - want| <= 4e-3 + 1e-2 |want| and a
    relative L2 error ||got - want|| / ||want|| <= 1e-2, with the mean
    |want| printed beside each case's errors;
@@ -217,7 +219,42 @@ Phases, each of which must pass or the script exits non-zero:
    phase 15, the flipped lanes in an mLSTM ``C`` and in sLSTM's ``n`` (a
    padded copy).  Timed as phase 15 (prefill split between mLSTM and
    sLSTM), plus ``generate`` in turns with each store and without and the
-   due ticks' host ms.
+   due ticks' host ms;
+17. vlm serving: internvl2-1b at full width and depth (24 layers, d 896,
+   14 / 2 heads of 64, d_ff 4,864, vocab 151,655 padded to 153,600;
+   633,121,664 random bf16 params) with phase 7's traffic and store, its
+   256 image patches (standard normals from the seed) in front of each
+   4,096-token prompt: ``max_len`` 4,417, the KV caches (0.43 GB, a padded
+   copy under the store) under vilamb.  Checked: the launch counts (flash
+   once a layer), tokens and caches identical with the overlapped store,
+   the blocking store and no store, no scrub mismatch, every field equal
+   to the blocking twin's after settle and after a flush of both, a
+   chunked plain recompute after flush, one flipped lane in a K cache found
+   and rebuilt bitwise, layer 0's attention at S = 4,352 against its plain
+   version.  Timed: prefill, decode, a traced decode and a traced due
+   tick, the blocking twin's due ticks' host ms, flash at (8, 4,352, 14 /
+   2, hd 64, causal) beside its plain version and SDPA, the peak and the
+   phase's wall time;
+18. enc-dec serving and training: seamless-m4t-medium at full width and
+   depth (12 encoder and 12 decoder layers, d 1,024, 16 heads of 64, d_ff
+   4,096, layernorm and gelu, vocab 256,206 padded to 258,048; 880,930,816
+   random bf16 params).  Served as phase 17, the encoder reading 6,144
+   frames beside the 4,096-token prompt, so every cross attention runs the
+   flash kernel at Sk != Sq; the store covers the self caches (1.64 GB)
+   and the cross caches ``ck``/``cv`` (2.42 GB), which no decode step
+   marks dirty.  Checked as phase 17 (flash three times a layer), plus:
+   every K3 job over a cross cache has no dirty word, one flipped lane in
+   a ``ck`` leaf found by the scrub and rebuilt bitwise, the encoder's and
+   the cross attention's layer 0 against their plain versions.  Timed as
+   phase 17, plus the encoder's share of the prefill (CUDA events), K1
+   over a ``ck`` leaf (what ``init`` launches for it) against its bound,
+   and flash at the encoder's (8, 6,144, full), the decoder's (8, 4,096,
+   causal) and the cross attention's (8, 4,096 x 6,144, full) shapes
+   beside their plain versions and SDPA.  Then 4 training steps at batch
+   1 x 4,096 (2,048 frames and 2,048 tokens, the reference's split) under
+   phase 9's store and determinism settings, a flush and a clean scrub,
+   and the same steps with the blocking and no store: losses and final
+   params checksums bitwise equal; the median step and the peak.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 the per-kernel JSON record.  All data comes from ``--seed``.
@@ -286,6 +323,9 @@ SERVE_ARCH, SERVE_BATCH, PROMPT, GEN, SCRUB_EVERY = "llama3.2-3b", 8, 4096, 64, 
 # 2^-8 relative) separate them.  The relative L2 bound matters where the
 # outputs are small (long causal rows average thousands of keys).
 FLASH_ATOL, FLASH_RTOL, FLASH_REL_L2 = 4e-3, 1e-2, 1e-2
+# Phase 6's (Sq, Sk) cases with a key length of its own: ragged on both
+# sides of the 128-row tiles, and phase 18's decoder over its encoder.
+FLASH_CROSS_LENGTHS = ((1, 17), (129, 1000), (1000, 129), (4096, 6144))
 
 # Training (phase 9): llama3.2-3b at full size, batch 1 x train_4k's 4,096
 # tokens, params and both Adam moments under vilamb (the launcher's T=8).
@@ -340,6 +380,17 @@ HYBRID_PARAMS = 25_910_730_752
 HYBRID_CORRUPT = ("slot_0/h", "slot_4/k")       # a Mamba state, the K cache
 XLSTM_ARCH, XLSTM_PARAMS = "xlstm-1.3b", 1_217_335_488
 XLSTM_CORRUPT = ("slot_0/C", "slot_7/n")        # an mLSTM C, sLSTM's padded n
+
+# Phases 17-18, phase 7's traffic and store: internvl2-1b (the vision front
+# end: 256 patches in front of the 4,096-token prompt) and
+# seamless-m4t-medium (12 encoder and 12 decoder layers; the encoder reads
+# ENC_FRAMES frames, a length other than the prompt's, so the cross
+# attention runs the flash kernel at Sk != Sq), both at full size; then
+# ENCDEC_TRAIN_STEPS training steps of seamless at phase 9's batch.
+VLM_ARCH, VLM_PARAMS, VLM_CORRUPT = "internvl2-1b", 633_121_664, ("slot_0/k",)
+ENCDEC_ARCH, ENCDEC_PARAMS, ENC_FRAMES = "seamless-m4t-medium", 880_930_816, 6144
+ENCDEC_CORRUPT = ("slot_0/k", "slot_0/ck")      # a self and a cross cache
+ENCDEC_TRAIN_STEPS = 4
 
 # K3 before its Hopper redesign (PERF.md, PR 20's final chip run on the
 # H100 80GB HBM3 at 700 W), printed beside this run's times: ms.
@@ -918,18 +969,30 @@ def flash_err(got: torch.Tensor, want: torch.Tensor, what: str) -> dict:
 
 def phase_flash_small(g) -> list:
     """The flash kernel against its plain version at small shapes, bf16;
-    one [S, hd, H/KV, causal, max abs err, rel L2 err, mean |want|] a case."""
+    one [S, hd, H/KV, causal, max abs err, rel L2 err, mean |want|] a case,
+    S an int (Sq = Sk) or [Sq, Sk] (a key length of its own: cross
+    attention over an encoder memory)."""
     cases, KV = [], 2
+
+    def case(Sq, Sk, hd, group, causal):
+        q = torch.randn((2, Sq, KV * group, hd), generator=g, device=DEVICE).to(torch.bfloat16)
+        k, v = (torch.randn((2, Sk, KV, hd), generator=g, device=DEVICE).to(torch.bfloat16)
+                for _ in range(2))
+        e = flash_err(fa_ops.flash_attention(q, k, v, causal=causal),
+                      fa_ref.attention(q, k, v, causal=causal),
+                      f"Sq={Sq} Sk={Sk} hd={hd} H/KV={group} causal={causal}")
+        cases.append([Sq if Sq == Sk else [Sq, Sk], hd, group, causal, *e.values()])
+
     for S in (1, 17, 128, 129, 255, 383, 1000):
         for hd in (64, 128):
-            for group in (1, 3, 4, 8, 16):
+            for group in (1, 3, 4, 7, 8, 16):
                 for causal in (True, False):
-                    q, k, v = (torch.randn((2, S, n, hd), generator=g, device=DEVICE)
-                               .to(torch.bfloat16) for n in (KV * group, KV, KV))
-                    e = flash_err(fa_ops.flash_attention(q, k, v, causal=causal),
-                                  fa_ref.attention(q, k, v, causal=causal),
-                                  f"S={S} hd={hd} H/KV={group} causal={causal}")
-                    cases.append([S, hd, group, causal, *e.values()])
+                    case(S, S, hd, group, causal)
+    for Sq, Sk in FLASH_CROSS_LENGTHS:
+        for hd in (64, 128):
+            for group in (1, 7):
+                for causal in (True, False):
+                    case(Sq, Sk, hd, group, causal)
     torch.cuda.synchronize()
     return cases
 
@@ -1040,12 +1103,13 @@ def host_timed_ticks(store) -> list:
     return rec
 
 
-def generate(model, params, batch, store=None, timed_steps=False):
+def generate(model, params, batch, store=None, timed_steps=False,
+             max_len=PROMPT + GEN + 1):
     """One ``Server.generate`` of GEN tokens; returns (tokens, stats, the
     per-step record, wall seconds).  ``timed_steps`` synchronises around
     each step to time it (``instrument``); otherwise only the store's ticks
     are timed, on the host clock."""
-    srv = Server(model=model, store=store, max_len=PROMPT + GEN + 1)
+    srv = Server(model=model, store=store, max_len=max_len)
     if timed_steps:
         rec = instrument(srv, store)
     else:
@@ -1057,13 +1121,14 @@ def generate(model, params, batch, store=None, timed_steps=False):
     return tokens, stats, rec, time.perf_counter() - t0
 
 
-def profile_decode(model, params, batch, store=None, steps=4, first=2) -> dict:
+def profile_decode(model, params, batch, store=None, steps=4, first=2,
+                   max_len=PROMPT + GEN + 1) -> dict:
     """Trace ``steps`` warm decode steps from decode step ``first`` (with the
     store's on_write and tick when given) with torch.profiler: device busy
     time and kernel launches per token, the kernels that take the most
     device time, and the fused update's stream overlap."""
     from torch.profiler import ProfilerActivity, profile
-    srv = Server(model=model, store=store, max_len=PROMPT + GEN + 1)
+    srv = Server(model=model, store=store, max_len=max_len)
     with torch.inference_mode():
         logits, caches, pos = srv.prefill(params, batch)
         red = srv.init_redundancy(caches)
@@ -1309,40 +1374,54 @@ def layer0_qkv(model, params, batch):
     return attention._qkv({n: w[0] for n, w in p["attn"].items()}, h, model.cfg, pos)
 
 
-def layer0_err(q, k, v) -> dict:
-    """Layer 0's prefill attention, kernel against plain, for one sequence
-    at S = 4,096."""
-    return flash_err(fa_ops.flash_attention(q[:1], k[:1], v[:1]),
-                     fa_ref.attention(q[:1], k[:1], v[:1]), "layer 0, one sequence")
+def layer0_err(q, k, v, causal=True) -> dict:
+    """A layer's prefill attention, kernel against plain, for one sequence
+    at the prefill's lengths."""
+    return flash_err(fa_ops.flash_attention(q[:1], k[:1], v[:1], causal=causal),
+                     fa_ref.attention(q[:1], k[:1], v[:1], causal=causal),
+                     f"one sequence, Sq={q.shape[1]} Sk={k.shape[1]} causal={causal}")
 
 
-def flash_times(q, k, v) -> dict:
-    """The flash kernel at the prefill's shapes (layer 0's q, k, v of all 8
+def attention_flops(B: int, Sq: int, Sk: int, H: int, hd: int, causal: bool) -> int:
+    """Both products over the (query, key) pairs the mask keeps: row r sees
+    min(r + 1, Sk) keys when causal, all Sk otherwise."""
+    if not causal:
+        return 4 * B * H * hd * Sq * Sk
+    n = min(Sq, Sk)
+    pairs = n * (n + 1) // 2 + max(0, Sq - Sk) * Sk
+    return 4 * B * H * hd * pairs
+
+
+def flash_times(q, k, v, causal=True) -> dict:
+    """The flash kernel at the prefill's shapes (a layer's q, k, v of all 8
     sequences): against its plain version, timed beside it and beside
     scaled_dot_product_attention (the library column; the port never calls
     it), with its bound, TFLOP/s and share of the bound."""
     B, S, H, hd = q.shape
+    Sk = k.shape[1]
     with torch.inference_mode():
-        got, want = fa_ops.flash_attention(q, k, v), fa_ref.attention(q, k, v)
-        prefill_err = flash_err(got, want, f"the prefill's shapes {[B, S, H, hd]}")
+        got, want = (fa_ops.flash_attention(q, k, v, causal=causal),
+                     fa_ref.attention(q, k, v, causal=causal))
+        prefill_err = flash_err(got, want, f"the prefill's shapes {[B, S, Sk, H, hd]}")
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
 
         def sdpa():
             return torch.nn.functional.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True, enable_gqa=True)
+                qt, kt, vt, is_causal=causal, enable_gqa=True)
 
         sdpa_err = float((sdpa().transpose(1, 2).float() - want.float()).abs().max())
         del got, want
-        ms = per_call_ms(lambda: fa_ops.flash_attention(q, k, v), 10)
-        plain_ms = per_call_ms(lambda: fa_ref.attention(q, k, v), 2)
+        ms = per_call_ms(lambda: fa_ops.flash_attention(q, k, v, causal=causal), 10)
+        plain_ms = per_call_ms(lambda: fa_ref.attention(q, k, v, causal=causal), 2)
         library_ms = per_call_ms(sdpa, 10)
-    # Both products over the causal triangle's S(S+1)/2 (query, key) pairs;
-    # q, k, v read once and the output written once.
-    flops = 4 * B * H * hd * S * (S + 1) // 2
+    # Both products over the pairs the mask keeps; q, k, v read once and
+    # the output written once.
+    flops = attention_flops(B, S, Sk, H, hd, causal)
     nbytes = sum(t.numel() * t.element_size() for t in (q, k, v, q))
     bms, by = bound(nbytes, flops, BF16_FLOPS_PER_SEC)
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
             "library_ms": library_ms, "shape": [B, S, H, k.shape[2], hd],
+            "Sk": Sk, "causal": causal,
             "tflops": flops / (ms / 1e3) / 1e12, "share_of_bound": bms / ms,
             "library_tflops": flops / (library_ms / 1e3) / 1e12,
             "err_vs_plain": prefill_err, "sdpa_max_abs_err_vs_plain": sdpa_err}
@@ -1594,8 +1673,9 @@ def phase_train(seed: int) -> dict:
                                        for k in ("async", "blocking")}}
 
 
-def train_observe(model, data, opt, structs, seed: int, kind: str) -> dict:
-    """OBS_STEPS steps with the ``kind`` store from the seed: the losses (and
+def train_observe(model, data, opt, structs, seed: int, kind: str,
+                  steps: int = OBS_STEPS) -> dict:
+    """``steps`` steps with the ``kind`` store from the seed: the losses (and
     their bits), each step's wall ms, the run's wall time before and after
     draining the device, the due ticks' host ms, and a K1 checksum of every
     final params leaf."""
@@ -1606,7 +1686,7 @@ def train_observe(model, data, opt, structs, seed: int, kind: str) -> dict:
     on_step = step_recorder(trainer, rec)
     torch.cuda.synchronize()
     t0 = rec["last"] = time.perf_counter()
-    state = trainer.run(state, data, OBS_STEPS, on_step=on_step)
+    state = trainer.run(state, data, steps, on_step=on_step)
     run_s = time.perf_counter() - t0
     torch.cuda.synchronize()
     drained_s = time.perf_counter() - t0
@@ -3195,16 +3275,18 @@ def xlstm_config():
     return cfg
 
 
-def capture_flash():
+def capture_flash(keep=None):
     """Wrap the flash wrapper so that each call keeps clones of its q, k and
-    v (the launch count is the wrapper's own); returns the list and a
-    function that puts the wrapper back."""
+    v and its ``causal`` flag (the launch count is the wrapper's own), or
+    None for a call whose index is not in ``keep`` (default: every call);
+    returns the list and a function that puts the wrapper back."""
     calls: list = []
     launch = fa_ops.flash_attention
 
-    def record(q, k, v, *a, **kw):
-        calls.append((q.clone(), k.clone(), v.clone()))
-        return launch(q, k, v, *a, **kw)
+    def record(q, k, v, causal=True, **kw):
+        calls.append((q.clone(), k.clone(), v.clone(), causal)
+                     if keep is None or len(calls) in keep else None)
+        return launch(q, k, v, causal=causal, **kw)
 
     def restore():
         fa_ops.flash_attention = launch
@@ -3544,6 +3626,388 @@ def print_serve_recurrent(label: str, r: dict) -> None:
               f"{f['plain_ms']:.2f} ms", flush=True)
 
 
+# ----------------------------------------------------------- phases 17-18
+def vlm_config():
+    """internvl2-1b as published: full width and depth."""
+    cfg = get_arch(VLM_ARCH)
+    got = (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd, cfg.d_ff,
+           cfg.vocab_size, cfg.padded_vocab, cfg.frontend, cfg.frontend_len,
+           cfg.tie_embeddings, cfg.param_dtype)
+    check(got == (24, 896, 14, 2, 64, 4864, 151655, 153600, "vision", 256, False,
+                  "bfloat16"), f"{VLM_ARCH} is not at full size: {got}")
+    return cfg
+
+
+def encdec_config():
+    """seamless-m4t-medium as published: 12 encoder and 12 decoder layers
+    at full width."""
+    cfg = get_arch(ENCDEC_ARCH)
+    got = (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd, cfg.d_ff,
+           cfg.vocab_size, cfg.padded_vocab, cfg.norm, cfg.activation, cfg.enc_dec,
+           cfg.param_dtype)
+    check(got == (12, 1024, 16, 16, 64, 4096, 256206, 258048, "layernorm", "gelu", True,
+                  "bfloat16"), f"{ENCDEC_ARCH} is not at full size: {got}")
+    return cfg
+
+
+def record_k3_words():
+    """Wrap K3's grouped entry so that every job keeps its lanes' address
+    and a clone of the packed dirty words it was given (on the launching
+    stream: no host wait); returns the records and a function that puts
+    the entry back."""
+    jobs_seen: list = []
+    launch = fu_ops.fused_update_many
+
+    def record(jobs, *a, **kw):
+        jobs = list(jobs)
+        jobs_seen.extend((lanes.data_ptr(), words.clone()) for lanes, _, _, words in jobs)
+        return launch(jobs, *a, **kw)
+
+    def restore():
+        fu_ops.fused_update_many = launch
+    fu_ops.fused_update_many = record
+    return jobs_seen, restore
+
+
+def encoder_split(model, params, batch, max_len: int) -> dict:
+    """One prefill with CUDA events around the encoder: its ms beside the
+    prefill's total."""
+    spans: list = []
+    encode = model._encode
+
+    def timed_encode(*a, **kw):
+        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        s.record()
+        out = encode(*a, **kw)
+        e.record()
+        spans.append((s, e))
+        return out
+
+    model._encode = timed_encode
+    try:
+        with torch.inference_mode():
+            _, total_ms = timed(lambda: model.prefill(params, batch, max_len))
+        torch.cuda.synchronize()
+    finally:
+        del model._encode
+    enc_ms = sum(s.elapsed_time(e) for s, e in spans)
+    return {"encoder_ms": enc_ms, "prefill_ms": total_ms, "encoder_share": enc_ms / total_ms}
+
+
+def k1_on(store, leaves: dict, name: str) -> dict:
+    """K1 over one leaf's blocks (what ``init`` launches for it), against
+    its plain version bitwise, timed beside it, with its bound."""
+    lanes = blocks.to_lanes(leaves[name], store.metas[name])
+    nb, L = lanes.shape
+    got, want = ck_ops.block_checksums(lanes), ck_ref.block_checksums(lanes)
+    check(torch.equal(got, want), f"checksum kernel != plain over {name}")
+    del got, want
+    bms, by = bound(nb * L * 4 + nb * 4, nb * L * 12)
+    ms = per_call_ms(lambda: ck_ops.block_checksums(lanes), 10)
+    return {"leaf": name, "gb": nb * L * 4 / 1e9, "blocks": nb, "ms": ms,
+            "plain_ms": per_call_ms(lambda: ck_ref.block_checksums(lanes), 2),
+            "bound_ms": bms, "bound_by": by, "share_of_bound": bms / ms}
+
+
+def phase_serve_multimodal(g, cfg, n_params_want: int, corrupt: list) -> dict:
+    """Phases 17 and 18's serving: ``cfg`` at full size with phase 7's
+    traffic and store over every cache, internvl2-1b's 256 patches in front
+    of the prompt, seamless-m4t-medium's encoder over ENC_FRAMES frames
+    (its cross caches ``ck``/``cv`` under the store too); checked against a
+    blocking twin and no store, and timed (see the module docstring).
+    Returns the phase's record."""
+    dev = torch.device(DEVICE)
+    t_phase = time.perf_counter()
+    model = build_model(cfg, dev)
+    t0 = time.perf_counter()
+    params = model.init(g)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = n_params_of(params)
+    check(n_params == n_params_want, f"{n_params} params, want {n_params_want}")
+    patches = cfg.frontend_len if cfg.frontend == "vision" else 0
+    enc_len = ENC_FRAMES if cfg.enc_dec else 0
+    max_len = patches + PROMPT + GEN + 1
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (SERVE_BATCH, PROMPT),
+                                     generator=g, device=dev, dtype=torch.int32)}
+    if patches:
+        batch["frontend"] = torch.randn((SERVE_BATCH, patches, cfg.d_model), generator=g,
+                                        device=dev)
+    if enc_len:
+        batch["enc_input"] = torch.randn((SERVE_BATCH, enc_len, cfg.d_model), generator=g,
+                                         device=dev)
+    policy = RedundancyPolicy.single("vilamb", period_steps=PERIOD,
+                                     max_vulnerable_steps=DEADLINE)
+
+    def new_store(async_tick=True):
+        return ProtectedStore(dataclasses.replace(policy, async_tick=async_tick),
+                              device=dev).attach(model.cache_shapes(SERVE_BATCH, max_len,
+                                                                    enc_len))
+
+    # Warm-up (no store, two tokens), keeping layer 0's attention inputs:
+    # the decoder's self attention, and with an encoder the encoder's and
+    # the decoder's cross attention (calls 0, n_layers and n_layers + 1).
+    layer0 = {"self": 0} if not cfg.enc_dec else {
+        "encoder": 0, "self": cfg.n_layers, "cross": cfg.n_layers + 1}
+    calls, restore = capture_flash(set(layer0.values()))
+    try:
+        Server(model=model, max_len=max_len).generate(params, batch, 2)
+    finally:
+        restore()
+    qkv = {k: calls[i] for k, i in layer0.items()}
+    del calls
+
+    # The main path, every step timed, with the counts read around it; K3's
+    # jobs keep their dirty words.
+    store = new_store()
+    check(store.policy.async_tick, f"the {cfg.name} serving store is not overlapped")
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    k3_jobs, restore_k3 = record_k3_words()
+    try:
+        tokens, stats, rec, wall_s = generate(model, params, batch, store, True, max_len)
+    finally:
+        restore_k3()
+    launches = read_launches()
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    n_flash = cfg.n_layers * (3 if cfg.enc_dec else 1)     # encoder, self, cross
+    check(launches["flash_attn"] == n_flash,
+          f"flash launched {launches['flash_attn']} times in the prefill, want {n_flash}")
+    for name in ("checksum", "parity", "fused_update"):
+        check(launches[name] > 0, f"{name} kernel never launched serving {cfg.name}")
+    check(tuple(tokens.shape) == (SERVE_BATCH, GEN), f"tokens {tuple(tokens.shape)}")
+    check(stats["mismatches"] == 0, f"scrub ticks found {stats['mismatches']} mismatches")
+    check(stats["pos"] == patches + PROMPT + GEN - 1, f"pos {stats['pos']}")
+    due = [t["step"] for t in rec["ticks"] if t["updated"]]
+    check(due and all(b - a <= DEADLINE for a, b in zip([0] + due, due)),
+          f"due ticks at {due}")
+    leaves = flatten_dict(stats["caches"])
+    memory = sorted(n for n in leaves if n.endswith(("/ck", "/cv")))
+    check(bool(memory) == cfg.enc_dec and set(memory) <= set(store.metas),
+          f"cross caches {memory} under the store")
+    events = model.dirty_events_decode(stats["caches"], stats["pos"])
+    check(not set(memory) & set(events), "a decode step marks the cross caches dirty")
+    # K3 never touches a cross cache: every job over one has no dirty word.
+    ptrs = {leaves[n].data_ptr(): n for n in memory}
+    mem_jobs = [(ptrs[p], w) for p, w in k3_jobs if p in ptrs]
+    check(all(not bool(w.any()) for _, w in mem_jobs),
+          f"K3 was given dirty cross-cache blocks: {[n for n, w in mem_jobs if w.any()]}")
+    k3_record = {"jobs": len(k3_jobs), "cross_cache_jobs": len(mem_jobs),
+                 "cross_cache_dirty_words": sum(int(w.count_nonzero()) for _, w in mem_jobs)}
+    del k3_jobs, mem_jobs
+
+    # The blocking twin, no store and the overlapped store again (its ticks
+    # on the host clock alone): the same tokens and caches; every field of
+    # the twin's state equals the main run's after the final settle and
+    # after a flush of both.
+    walls = {"async": [], "none": [], "blocking": []}
+    host_ticks = {"blocking": [], "async": []}
+    with torch.inference_mode():
+        twin = None
+        for kind in ("blocking", "none", "async"):
+            st = None if kind == "none" else new_store(kind == "async")
+            toks, ost, trec, wall = generate(model, params, batch, st, max_len=max_len)
+            check(torch.equal(toks, tokens), f"{cfg.name} tokens differ with the {kind} store")
+            walls[kind].append(wall)
+            for n, t in flatten_dict(ost["caches"]).items():
+                check(torch.equal(t, leaves[n]), f"{cfg.name} cache {n} differs with the "
+                      f"{kind} store")
+            if st is not None:
+                host_ticks[kind].extend(trec["ticks"])
+                check(ost["mismatches"] == 0, f"the {kind} store's scrubs found mismatches")
+            if kind == "blocking":
+                fields_equal(stats["red"], ost["red"], f"{cfg.name} after settle")
+                twin = (st, flatten_dict(ost["caches"]), ost["red"])
+            del ost
+
+    split = encoder_split(model, params, batch, max_len) if cfg.enc_dec else None
+    prof = profile_decode(model, params, batch, new_store(), max_len=max_len)
+    prof_due = profile_decode(model, params, batch, new_store(), first=PERIOD - 1,
+                              max_len=max_len)
+
+    with torch.inference_mode():
+        red = stats["red"]
+        masks, scrub_ms = timed(lambda: store.scrub(leaves, red))
+        check(sum(int(m.sum()) for m in masks.values()) == 0, "scrub after generate flags blocks")
+        red, flush_ms = timed(lambda: store.flush(leaves, red, step=GEN))
+        tst, tleaves, tred = twin
+        fields_equal(red, tst.flush(tleaves, tred, step=GEN), f"{cfg.name} after flush")
+        del twin, tst, tleaves, tred
+        phase_full_check(store, leaves, red)
+        k1 = k1_on(store, leaves, memory[0]) if memory else None
+        caches, repairs = corrupt_and_repair(g, store, stats["caches"], red, corrupt)
+    decode_ms = sum(rec["decode_ms"]) + sum(t["ms"] for t in rec["ticks"])
+    out = {"arch": cfg.name, "n_layers": cfg.n_layers, "launches": launches,
+           "n_params": n_params, "init_s": init_s,
+           "params_gib": sum(p.numel() * p.element_size()
+                             for p in flatten_dict(params).values()) / 2**30,
+           "max_len": max_len, "enc_len": enc_len, "patches": patches,
+           "protected_gb": sum(m.data_bytes for m in store.metas.values()) / 1e9,
+           "cross_cache_gb": sum(store.metas[n].data_bytes for n in memory) / 1e9,
+           "k3_jobs": k3_record, "prefill_ms": rec["prefill_ms"][0], "encoder_split": split,
+           "decode_ms_per_token": decode_ms / (GEN - 1),
+           "decode_tokens_per_s": SERVE_BATCH * (GEN - 1) / (decode_ms / 1e3),
+           "generate_s_timed_steps": wall_s, "generate_s": walls, "due_tick_steps": due,
+           "due_tick_ms": [t["ms"] for t in rec["ticks"] if t["updated"]],
+           "due_tick_host_ms": {k: [t["ms"] for t in v if t["updated"]]
+                                for k, v in host_ticks.items()},
+           "decode_profile": {k: v for k, v in prof.items()
+                              if k != "top_kernels_ms_per_token"},
+           "decode_top_kernels_ms_per_token": prof["top_kernels_ms_per_token"],
+           "decode_profile_due": {k: v for k, v in prof_due.items()
+                                  if k != "top_kernels_ms_per_token"},
+           "scrub_ms": scrub_ms, "flush_ms": flush_ms, "k1_cross_cache": k1,
+           "repairs": repairs, "peak_mem_gib": peak_gb}
+    del model, params, store, stats, leaves, red, caches, batch, tokens
+    gc.collect()
+    torch.cuda.empty_cache()
+    # Layer 0's prefill attention against its plain version and timed
+    # beside it and SDPA, after the weights are freed.
+    out["attn_err"], out["flash"] = {}, {}
+    for k, (q, kk, v, causal) in qkv.items():
+        out["attn_err"][k] = layer0_err(q, kk, v, causal)
+        out["flash"][k] = flash_times(q, kk, v, causal)
+    del qkv, q, kk, v
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
+def phase_train_encdec(seed: int) -> dict:
+    """Phase 18's training: seamless-m4t-medium at full size, batch 1 x
+    4,096 (2,048 encoder frames and 2,048 tokens), phase 9's store (params
+    and both moments under vilamb T=8, deadline 16, scrub every 16) and
+    determinism settings; ENCDEC_TRAIN_STEPS steps with the overlapped
+    store, then a flush (K3 over every dirty stripe), a clean scrub, and
+    the same steps with the blocking and no store: losses and final params
+    checksums bitwise equal."""
+    t_phase = time.perf_counter()
+    cfg = encdec_config()
+    model = build_model(cfg, DEVICE)
+    data = SyntheticPipeline(cfg, ShapeConfig("train_4k_batch1", TRAIN_SEQ, TRAIN_BATCH,
+                                              "train"), seed=seed, device=DEVICE)
+    b0 = data.get(0)
+    check({k: tuple(v.shape) for k, v in b0.items()} == {
+        "enc_input": (TRAIN_BATCH, TRAIN_SEQ // 2, cfg.d_model),
+        "tokens": (TRAIN_BATCH, TRAIN_SEQ // 2), "labels": (TRAIN_BATCH, TRAIN_SEQ // 2)},
+        f"the enc-dec batch {[(k, tuple(v.shape)) for k, v in b0.items()]}")
+    del b0
+    opt = AdamW(lr=warmup_cosine(1e-3, 10, TRAIN_STEPS), moment_dtype=cfg.moment_dtype)
+    meta = Model(cfg, torch.device("meta")).init()
+    structs = protected_structs(meta, opt.init(meta))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    trainer = train_trainer(model, opt, structs, "async")
+    store = trainer.store
+    ticks = host_timed_ticks(store)
+    state = trainer.init_state(torch.Generator(device=DEVICE).manual_seed(seed))
+    steps: dict = {}
+    on_step = step_recorder(trainer, steps)
+    torch.cuda.synchronize()
+    steps["last"] = time.perf_counter()
+    state = trainer.run(state, data, ENCDEC_TRAIN_STEPS, on_step=on_step)
+    torch.cuda.synchronize()
+    leaves = protected_leaves(state.params, state.opt)
+    red, flush_ms = timed(lambda: store.flush(leaves, state.red, step=ENCDEC_TRAIN_STEPS))
+    check(store.scrub_check(leaves, red) == 0, "scrub after the enc-dec training flush")
+    launches = read_launches()
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    with uncounted():
+        main_sums = params_checksums(state)
+    losses = torch.stack(steps["losses"]).float()
+    check(len(steps["losses"]) == ENCDEC_TRAIN_STEPS and bool(torch.isfinite(losses).all()),
+          f"losses {losses.tolist()}")
+    check(trainer.corruption_alarms == 0, f"alarms {trainer.corruption_alarms}")
+    check(launches["flash_attn"] == 0, "training launched the forward-only flash kernel")
+    for name in ("checksum", "parity", "fused_update"):
+        check(launches[name] > 0, f"{name} kernel never launched training {cfg.name}")
+    main = {"losses": losses.tolist(), "loss_bits": losses.view(torch.int32).clone(),
+            "step_wall_ms": steps["wall_ms"],
+            "median_step_ms": statistics.median(steps["wall_ms"][1:]),
+            "due_tick_host_ms": [t["ms"] for t in ticks if t["updated"]],
+            "flush_ms": flush_ms, "launches": launches, "peak_mem_gib": peak_gib,
+            "memory_gb": {"state": sum(t.numel() * t.element_size()
+                                       for t in leaves.values()) / 1e9,
+                          "parity": sum(r.parity.numel() * 4 for r in red.values()) / 1e9,
+                          "leaves": len(leaves)}}
+    del trainer, store, state, leaves, red, on_step
+    gc.collect()
+    torch.cuda.empty_cache()
+    obs = {}
+    for kind in ("blocking", "none"):
+        o = train_observe(model, data, opt, structs, seed, kind, steps=ENCDEC_TRAIN_STEPS)
+        gc.collect()
+        torch.cuda.empty_cache()
+        check(torch.equal(o["loss_bits"], main["loss_bits"]),
+              f"enc-dec losses differ between the overlapped store and {kind}: "
+              f"{main['losses']} vs {o['losses']}")
+        check(o["checksums"].keys() == main_sums.keys()
+              and all(torch.equal(v, main_sums[n]) for n, v in o["checksums"].items()),
+              f"final enc-dec params checksums differ between the overlapped store and {kind}")
+        o["median_step_ms"] = statistics.median(o["step_wall_ms"][1:])
+        del o["loss_bits"], o["checksums"]
+        obs[kind] = o
+    del main["loss_bits"]
+    return {"main": main, "observe": obs, "phase_s": time.perf_counter() - t_phase}
+
+
+def print_serve_multimodal(label: str, r: dict) -> None:
+    rp, k3 = r["repairs"], r["k3_jobs"]
+    print(f"{label} ({r['phase_s']:.1f} s): {r['arch']}, {r['n_layers']} layers"
+          + (" (and as many encoder layers)" if r["enc_len"] else "")
+          + f", {r['n_params']} params ({r['params_gib']:.2f} GiB, drawn in "
+          f"{r['init_s']:.1f} s); max_len {r['max_len']} ({r['patches']} patches), encoder "
+          f"frames {r['enc_len']}; protected caches {r['protected_gb']:.3f} GB, of which "
+          f"{r['cross_cache_gb']:.3f} GB cross caches; launches {r['launches']}; peak "
+          f"{r['peak_mem_gib']:.2f} GiB")
+    print(f"{label}: prefill {r['prefill_ms']:.1f} ms"
+          + (f" (encoder {r['encoder_split']})" if r["encoder_split"] else "")
+          + f"; decode {r['decode_ms_per_token']:.2f} ms/token "
+          f"({r['decode_tokens_per_s']:.1f} tokens/s); traced decode "
+          f"{r['decode_profile']['launches_per_token']:.0f} launches and "
+          f"{r['decode_profile']['device_busy_ms_per_token']} ms of device time a token; "
+          f"due ticks {r['due_tick_steps']} {[round(x, 2) for x in r['due_tick_ms']]} ms "
+          f"(synchronised); due ticks' host ms (no device sync) "
+          f"{ {k: [round(x, 3) for x in v] for k, v in r['due_tick_host_ms'].items()} }; "
+          f"generate s {r['generate_s']} (untimed steps)")
+    print(f"{label}: trace of the due tick's decode steps {r['decode_profile_due']}")
+    print(f"{label}: tokens and caches identical with the overlapped, blocking and no "
+          f"store; every field equal to the blocking twin's after settle and after flush; "
+          f"scrub clean; full check passed after flush ({r['flush_ms']:.2f} ms); K3 jobs "
+          f"{k3}; blocks {rp['corrupted_blocks']} corrupted, found and rebuilt bitwise "
+          f"(adopted {rp['adopted']})", flush=True)
+    if r["k1_cross_cache"]:
+        k = r["k1_cross_cache"]
+        print(f"{label}: K1 over {k['leaf']} ({k['gb']:.3f} GB, {k['blocks']} blocks): "
+              f"{k['ms']:.4f} ms against its {k['bound_ms']:.4f} ms bound ({k['bound_by']}, "
+              f"{100 * k['share_of_bound']:.1f}%); plain {k['plain_ms']:.2f} ms")
+    for k, f in r["flash"].items():
+        print(f"{label}: layer 0's {k} attention within bounds of plain: "
+              f"{r['attn_err'][k]}")
+        print(f"flash at the {label} {k} attention's shape {f['shape']}, Sk {f['Sk']}, "
+              f"causal {f['causal']}: {f['ms']:.4f} ms, {f['tflops']:.1f} TFLOP/s, "
+              f"{100 * f['share_of_bound']:.1f}% of its {f['bound_ms']:.4f} ms bound "
+              f"({f['bound_by']}); scaled_dot_product_attention {f['library_ms']:.4f} ms; "
+              f"plain {f['plain_ms']:.2f} ms", flush=True)
+
+
+def print_train_encdec(r: dict) -> None:
+    m = r["main"]
+    print(f"train enc-dec ({r['phase_s']:.1f} s): {ENCDEC_ARCH} full size, batch "
+          f"{TRAIN_BATCH} x {TRAIN_SEQ} ({TRAIN_SEQ // 2} frames, {TRAIN_SEQ // 2} tokens), "
+          f"{ENCDEC_TRAIN_STEPS} steps under the overlapped vilamb store over "
+          f"{m['memory_gb']['leaves']} leaves ({m['memory_gb']['state']:.2f} GB, "
+          f"{m['memory_gb']['parity']:.2f} GB parity); launches {m['launches']}; peak "
+          f"{m['peak_mem_gib']:.2f} GiB")
+    print(f"train enc-dec: losses {[round(x, 4) for x in m['losses']]}; median step "
+          f"{m['median_step_ms']:.2f} ms (overlapped), "
+          + ", ".join(f"{k} {o['median_step_ms']:.2f} ms" for k, o in r["observe"].items())
+          + f"; flush {m['flush_ms']:.2f} ms; losses and final params checksums bitwise "
+          f"equal for the overlapped, blocking and no store", flush=True)
+
+
 def smi_line() -> str:
     """The card's name and power limit, as nvidia-smi gives them."""
     smi = subprocess.run(
@@ -3749,6 +4213,22 @@ def main() -> int:
     print_serve_recurrent("serve xlstm", xl)
     print(smi_line())
     print(json.dumps({"serve_xlstm": xl}))
+    gc.collect()
+    torch.cuda.empty_cache()
+    vl = phase_serve_multimodal(g, vlm_config(), VLM_PARAMS, list(VLM_CORRUPT))
+    print_serve_multimodal("serve vlm", vl)
+    print(json.dumps({"serve_vlm": vl}))
+    gc.collect()
+    torch.cuda.empty_cache()
+    ed = phase_serve_multimodal(g, encdec_config(), ENCDEC_PARAMS, list(ENCDEC_CORRUPT))
+    print_serve_multimodal("serve enc-dec", ed)
+    print(json.dumps({"serve_encdec": ed}))
+    gc.collect()
+    torch.cuda.empty_cache()
+    te = phase_train_encdec(args.seed)
+    print_train_encdec(te)
+    print(smi_line())
+    print(json.dumps({"train_encdec": te}))
     for row in kernels:
         by_path = {"heap": heap_launches.get(row["name"], 0),
                    "serving": serve_launches[row["name"]],
@@ -3760,7 +4240,10 @@ def main() -> int:
                    "patrol": pt["launches"][row["name"]]
                    + patrol_serve["launches"][row["name"]],
                    "hybrid serving": hy["launches"][row["name"]],
-                   "xlstm serving": xl["launches"][row["name"]]}
+                   "xlstm serving": xl["launches"][row["name"]],
+                   "vlm serving": vl["launches"][row["name"]],
+                   "enc-dec serving": ed["launches"][row["name"]],
+                   "enc-dec training": te["main"]["launches"][row["name"]]}
         row["launches"] = sum(by_path.values())
         row["launches_by_path"] = by_path
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s")

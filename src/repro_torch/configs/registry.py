@@ -1,18 +1,15 @@
 """Architecture registry: ``--arch <id>`` resolves here.
 
-The port serves and trains the attention-only archs, dense and MoE, and
-serves the recurrent ones (jamba's Mamba, xLSTM's mLSTM and sLSTM).  The
-reference's other archs need a stack or front end the port does not have
-yet; asking for one raises ``NotImplementedError`` naming its
-``ROADMAP.md`` item.
+Every arch of the reference: the attention-only ones, dense and MoE, the
+recurrent ones (jamba's Mamba, xLSTM's mLSTM and sLSTM), the
+encoder-decoder seamless-m4t-medium and the vision-front-end internvl2-1b.
 """
 from __future__ import annotations
 
 import importlib
-from typing import Dict, List, Tuple
+from typing import List
 
 from ..models.config import ModelConfig
-from ..models.transformer import not_ported
 
 _ARCH_MODULES = {
     "olmo-1b": "olmo_1b",
@@ -23,13 +20,8 @@ _ARCH_MODULES = {
     "arctic-480b": "arctic_480b",
     "jamba-1.5-large-398b": "jamba_1_5_large_398b",
     "xlstm-1.3b": "xlstm_1_3b",
-}
-
-# The reference's other archs, by the kinds they need that the port does
-# not have yet (``models.transformer.NOT_PORTED`` names their items).
-NEEDS: Dict[str, Tuple[str, ...]] = {
-    "seamless-m4t-medium": ("enc_dec",),
-    "internvl2-1b": ("frontend",),
+    "seamless-m4t-medium": "seamless_m4t_medium",
+    "internvl2-1b": "internvl2_1b",
 }
 
 
@@ -38,8 +30,6 @@ def list_archs() -> List[str]:
 
 
 def _module(name: str):
-    if name in NEEDS:
-        raise not_ported(f"arch {name!r}", NEEDS[name])
     if name not in _ARCH_MODULES:
         raise KeyError(f"unknown arch {name!r}; ported: {list_archs()}")
     return importlib.import_module(f"{__package__}.{_ARCH_MODULES[name]}")

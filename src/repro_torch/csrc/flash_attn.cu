@@ -11,7 +11,8 @@
 //   s   = (q[r] . k[c]) * scale in fp32 (q and k taken to fp32; bf16 and
 //         fp16 products are exact in fp32, so the tensor cores' fp32
 //         accumulation gives the same scores up to summation order);
-//   s   = -1e30 where the causal mask `r >= c` fails or c >= S (not -inf);
+//   s   = -1e30 where c >= Sk or the causal mask `r >= c` fails (absolute
+//         indices, as the Pallas kernel's iotas; not -inf);
 //   m, l: the running max and sum, fp32; p = exp(s - m) rounded to v's
 //         dtype before p . v, which accumulates in fp32;
 //   out = acc / max(l, 1e-30), cast to q's dtype.
@@ -20,18 +21,20 @@
 // rounding to bf16).  Query head h reads KV head h / (H / KV): the head
 // order of the reference's `expand_kv`, without its copy.
 //
-// Layouts: q (B, S, H, hd), k and v (B, S, KV, hd) and out (B, S, H, hd),
+// Layouts: q (B, Sq, H, hd), k and v (B, Sk, KV, hd) and out (B, Sq, H, hd),
 // each addressed by its (head, seq, batch) byte strides with a unit stride
 // on hd, every stride a multiple of 16 bytes and every base 16-byte aligned
 // (what a TMA tensor map can describe; the wrapper copies other layouts).
-// No transpose, no expansion and no padding of hd; S is any length >= 1.
+// No transpose, no expansion and no padding of hd; Sq and Sk are any
+// lengths >= 1 (cross attention reads an encoder memory of its own length).
 // hd is 64 or 128; bf16 or fp16.
 //
-// Bound: operations.  Causal prefill does 4 * B * H * hd * S(S+1)/2 FLOPs
-// (both products over the lower triangle) against (2*H + 2*KV) * B * S *
-// hd * 2 bytes: at B=8, S=4096, H=24, KV=8, hd=128 that is 8.25e11 FLOPs,
-// 0.83 ms of bf16 tensor work at 989 TFLOP/s, against 0.54 GB, 0.16 ms of
-// HBM traffic at 3.35 TB/s on an H100 SXM.  So the design keeps the tensor
+// Bound: operations.  Causal prefill (Sq = Sk = S) does 4 * B * H * hd *
+// S(S+1)/2 FLOPs (both products over the lower triangle) against (2*H +
+// 2*KV) * B * S * hd * 2 bytes: at B=8, S=4096, H=24, KV=8, hd=128 that
+// is 8.25e11 FLOPs, 0.83 ms of bf16 tensor work at 989 TFLOP/s, against
+// 0.54 GB, 0.16 ms of HBM traffic at 3.35 TB/s on an H100 SXM (full
+// attention does 4 * B * H * hd * Sq * Sk FLOPs).  So the design keeps the tensor
 // cores fed:
 //   * one CTA of three warpgroups per (b * H + h, 128-query tile).
 //     Warpgroup 0 is the producer: it gives up registers (setmaxnreg.dec)
@@ -40,9 +43,9 @@
 //     (setmaxnreg.inc);
 //   * TMA: q is loaded once; K and V tiles of 128 keys come through a ring
 //     of stages in dynamic shared memory, under full/empty mbarriers.  The
-//     tensor maps are 4-d (hd, heads, S, B) by stride, so TMA reads each
-//     input in place and zero-fills rows past S without touching the next
-//     sequence.  A 128-byte swizzle (64 elements: a row of hd = 128 takes
+//     tensor maps are 4-d (hd, heads, S, B) by stride (Sq rows for q and
+//     out, Sk for k and v), so TMA reads each input in place and zero-fills
+//     rows past its length without touching the next sequence.  A 128-byte swizzle (64 elements: a row of hd = 128 takes
 //     two boxes) is the layout wgmma reads without bank conflicts;
 //   * S = Q . K^T is `wgmma.mma_async` m64n128k16 with both operands in
 //     shared memory (K-major); O += P . V is wgmma with P in registers
@@ -54,16 +57,16 @@
 //     tile j - 1 runs, so its softmax overlaps its own products; and the
 //     two consumers take turns to issue their products (named barriers),
 //     so one's softmax also runs under the other's;
-//   * the softmax is instructions, not tensor work: only the diagonal tile
-//     and the ragged tail get a masked copy of it (a separate
+//   * the softmax is instructions, not tensor work: only a CTA's last key
+//     tile (the diagonal, or the ragged tail past Sk) gets a masked copy of it (a separate
 //     instantiation, so the other tiles carry no mask code), the max is
 //     taken on raw scores and the scale folded into the exp2's FFMA;
-//   * causal tiles past the diagonal are never loaded.  Blocks run (b, KV
+//   * causal tiles past the diagonal, and tiles past Sk, are never loaded.  Blocks run (b, KV
 //     head) by (b, KV head), the query tiles from the heaviest (last) down
 //     and the heads of a GQA group side by side, so the CTAs in flight
 //     share K/V tiles in L2 and the long rows start first;
 //   * the epilogue writes O over the consumer's own rows of the q tile in
-//     shared memory and stores it with TMA, which clips rows past S.
+//     shared memory and stores it with TMA, which clips rows past Sq.
 #include <cstdint>
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -281,18 +284,18 @@ __device__ __forceinline__ void pv(float (&o)[HD / 2], const uint32_t (&p)[32], 
 // of the warp's 16: element 4j + 2i + e is row g + 8i, column 8j + 2t + e):
 // update the running max and sum and leave p = exp2(s * c - m * c) in `s`,
 // c = scale * log2(e) >= 0 (the wrapper folds a negative scale into q).
-// kMask (the diagonal or ragged tile only): a masked score is -1e30 for
-// the max and its p is 0, the reference's exp(-1e30 - m) for any row that
-// has a key, as every row here has (key 0).  Returns the correction
+// kMask (the last tile only: the diagonal or the ragged tail): a masked
+// score is -1e30 for the max and its p is 0, the reference's exp(-1e30 - m)
+// for any row that has a key, as every row here has (key 0, since Sk >= 1).  Returns the correction
 // factors of the old accumulator rows in `corr`.
 template <bool kMask>
 __device__ __forceinline__ void softmax_tile(float (&s)[64], float (&m)[2], float (&l)[2],
                                              float (&corr)[2], float c, bool causal,
-                                             int row0, int col0, int S) {
+                                             int row0, int col0, int Sk) {
   auto masked = [&](int j, int e) {
     const int row = row0 + (e >> 1) * 8;
     const int col = col0 + 8 * j + (e & 1);
-    return col >= S || (causal && col > row);
+    return col >= Sk || (causal && col > row);
   };
   if constexpr (kMask) {
 #pragma unroll
@@ -343,7 +346,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
                  const __grid_constant__ CUtensorMap tk,
                  const __grid_constant__ CUtensorMap tv,
-                 const __grid_constant__ CUtensorMap to, int S, int H, int group,
+                 const __grid_constant__ CUtensorMap to, int Sq, int Sk, int H, int group,
                  float scale_log2, bool causal) {
   using L = Layout<HD>;
   constexpr int kStages = L::kStages;
@@ -357,16 +360,20 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
   // Block order: (b, KV head) slowest, then query tiles from the heaviest
   // (last) down, then the query heads of one GQA group: the CTAs in flight
   // share K/V tiles in L2, and the long causal rows start first.
-  const int n_q = (S + kBlockM - 1) / kBlockM;
+  const int n_q = (Sq + kBlockM - 1) / kBlockM;
   const int per_kv = n_q * group;
   const int bkv = blockIdx.x / per_kv, rem = blockIdx.x % per_kv;
   const int n_kv = H / group;
   const int b = bkv / n_kv, kvh = bkv % n_kv, h = kvh * group + rem % group;
   const int q_tile = n_q - 1 - rem / group;
   const int q0 = q_tile * kBlockM;
-  const int n_tiles = causal ? q_tile + 1 : (S + kBlockN - 1) / kBlockN;
-  // Only the last tile can hold masked keys: the diagonal or the tail.
-  const bool mask_last = causal || (S % kBlockN) != 0;
+  // Key tiles up to the diagonal (causal) and never past Sk.  Only the
+  // last one can hold masked keys: the diagonal, or the tail past Sk (a
+  // causal CTA whose diagonal lies past Sk ends on the tail tile, whose
+  // keys all precede its rows).
+  const int n_k = (Sk + kBlockN - 1) / kBlockN;
+  const int n_tiles = causal ? min(q_tile + 1, n_k) : n_k;
+  const bool mask_last = causal || (Sk % kBlockN) != 0;
   const int wg = threadIdx.x / 128;
 
   if (threadIdx.x == 0) {
@@ -456,9 +463,9 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
     fence_regs(s);
     release(bar_k_empty);
     if (mask_last && n_tiles == 1) {
-      softmax_tile<true>(s, m, l, corr, scale_log2, causal, row0, 2 * t, S);
+      softmax_tile<true>(s, m, l, corr, scale_log2, causal, row0, 2 * t, Sk);
     } else {
-      softmax_tile<false>(s, m, l, corr, scale_log2, causal, row0, 2 * t, S);
+      softmax_tile<false>(s, m, l, corr, scale_log2, causal, row0, 2 * t, Sk);
     }
     pack_p<Ty>(p, s);
 
@@ -485,9 +492,9 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
       fence_regs(s);
       release(bar_k_empty + 8 * stage);
       if (mask_last && j == n_tiles - 1) {
-        softmax_tile<true>(s, m, l, corr, scale_log2, causal, row0, j * kBlockN + 2 * t, S);
+        softmax_tile<true>(s, m, l, corr, scale_log2, causal, row0, j * kBlockN + 2 * t, Sk);
       } else {
-        softmax_tile<false>(s, m, l, corr, scale_log2, causal, row0, j * kBlockN + 2 * t, S);
+        softmax_tile<false>(s, m, l, corr, scale_log2, causal, row0, j * kBlockN + 2 * t, Sk);
       }
       wgmma_wait<0>();                     // P . V of tile j - 1 is in
       fence_regs(o);
@@ -592,27 +599,27 @@ struct Strides {
 };
 
 template <class Ty, int HD>
-int launch(const void* q, const void* k, const void* v, void* o, int64_t B, int64_t S,
-           int64_t H, int64_t KV, Strides qs, Strides ks, Strides vs, Strides os,
+int launch(const void* q, const void* k, const void* v, void* o, int64_t B, int64_t Sq,
+           int64_t Sk, int64_t H, int64_t KV, Strides qs, Strides ks, Strides vs, Strides os,
            float scale, bool causal, cudaStream_t stream) {
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
   CUtensorMap tq, tk, tv, to;
-  CUresult r = make_map(&tq, fn, Ty::kMapType, q, HD, H, S, B, qs.h, qs.s, qs.b, kBlockM);
+  CUresult r = make_map(&tq, fn, Ty::kMapType, q, HD, H, Sq, B, qs.h, qs.s, qs.b, kBlockM);
   if (r == CUDA_SUCCESS)
-    r = make_map(&tk, fn, Ty::kMapType, k, HD, KV, S, B, ks.h, ks.s, ks.b, kBlockN);
+    r = make_map(&tk, fn, Ty::kMapType, k, HD, KV, Sk, B, ks.h, ks.s, ks.b, kBlockN);
   if (r == CUDA_SUCCESS)
-    r = make_map(&tv, fn, Ty::kMapType, v, HD, KV, S, B, vs.h, vs.s, vs.b, kBlockN);
+    r = make_map(&tv, fn, Ty::kMapType, v, HD, KV, Sk, B, vs.h, vs.s, vs.b, kBlockN);
   if (r == CUDA_SUCCESS)
-    r = make_map(&to, fn, Ty::kMapType, o, HD, H, S, B, os.h, os.s, os.b, kBlockM / 2);
+    r = make_map(&to, fn, Ty::kMapType, o, HD, H, Sq, B, os.h, os.s, os.b, kBlockM / 2);
   if (r != CUDA_SUCCESS) return -static_cast<int>(r);
   auto kernel = flash_fwd_kernel<Ty, HD>;
   const cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Layout<HD>::kDynamic);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid(unsigned(B * H * ((S + kBlockM - 1) / kBlockM)));
+  const dim3 grid(unsigned(B * H * ((Sq + kBlockM - 1) / kBlockM)));
   kernel<<<grid, kThreads, Layout<HD>::kDynamic, stream>>>(
-      tq, tk, tv, to, int(S), int(H), int(H / KV), scale * kLog2e, causal);
+      tq, tk, tv, to, int(Sq), int(Sk), int(H), int(H / KV), scale * kLog2e, causal);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -624,14 +631,14 @@ extern "C" int vilamb_flash_smem_bytes(int64_t hd) {
   return hd == 128 ? Layout<128>::kDynamic : hd == 64 ? Layout<64>::kDynamic : 0;
 }
 
-// q, out: (B, S, H, hd); k, v: (B, S, KV, hd); strides in bytes (head, seq,
+// q, out: (B, Sq, H, hd); k, v: (B, Sk, KV, hd); strides in bytes (head, seq,
 // batch), hd contiguous, every stride a positive multiple of 16 and every
 // pointer 16-byte aligned.  dtype: 0 = bf16, 1 = fp16.  hd: 64 or 128.
 // Returns 0, the launch's cudaError (an unsupported dtype or hd returns
 // cudaErrorInvalidValue without launching), or minus the CUresult of a
 // tensor map that cuTensorMapEncodeTiled refused.
 extern "C" int vilamb_flash_attn(const void* q, const void* k, const void* v, void* out,
-                                 int64_t B, int64_t S, int64_t H, int64_t KV,
+                                 int64_t B, int64_t Sq, int64_t Sk, int64_t H, int64_t KV,
                                  int64_t hd, int64_t dtype, int64_t causal,
                                  int64_t q_sh, int64_t q_ss, int64_t q_sb,
                                  int64_t k_sh, int64_t k_ss, int64_t k_sb,
@@ -644,9 +651,9 @@ extern "C" int vilamb_flash_attn(const void* q, const void* k, const void* v, vo
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float sc = static_cast<float>(scale);
   const bool c = causal != 0;
-  if (dtype == 0 && hd == 128) return launch<Bf16, 128>(q, k, v, out, B, S, H, KV, qs, ks, vs, os, sc, c, st);
-  if (dtype == 0 && hd == 64) return launch<Bf16, 64>(q, k, v, out, B, S, H, KV, qs, ks, vs, os, sc, c, st);
-  if (dtype == 1 && hd == 128) return launch<Fp16, 128>(q, k, v, out, B, S, H, KV, qs, ks, vs, os, sc, c, st);
-  if (dtype == 1 && hd == 64) return launch<Fp16, 64>(q, k, v, out, B, S, H, KV, qs, ks, vs, os, sc, c, st);
+  if (dtype == 0 && hd == 128) return launch<Bf16, 128>(q, k, v, out, B, Sq, Sk, H, KV, qs, ks, vs, os, sc, c, st);
+  if (dtype == 0 && hd == 64) return launch<Bf16, 64>(q, k, v, out, B, Sq, Sk, H, KV, qs, ks, vs, os, sc, c, st);
+  if (dtype == 1 && hd == 128) return launch<Fp16, 128>(q, k, v, out, B, Sq, Sk, H, KV, qs, ks, vs, os, sc, c, st);
+  if (dtype == 1 && hd == 64) return launch<Fp16, 64>(q, k, v, out, B, Sq, Sk, H, KV, qs, ks, vs, os, sc, c, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -4,11 +4,14 @@ The port of ``repro.data.pipeline``.  Batches are pure functions of
 ``(seed, step)``, drawn from the same numpy ``default_rng((seed, step))``
 as the reference, so the port's batches equal the reference's bit for
 bit.  Token streams are zipf-skewed, so embedding-row dirty tracking sees
-a hot/cold key distribution (the paper's YCSB analogue).  ``get`` puts
-the batch on the pipeline's device, the card unless ``device="cpu"``.
-The reference's ``mesh`` argument and ``batch_spec`` (sharded batches)
-are ROADMAP.md, Queue 1 item 11; the vision and encoder inputs wait for
-their models (item 5).
+a hot/cold key distribution (the paper's YCSB analogue).  A vision front
+end's batch carries ``frontend`` patches (B, frontend_len, d) and its text
+is that much shorter; an encoder-decoder's carries ``enc_input`` frames
+(B, S - S // 2, d) and S // 2 tokens: both fp32 standard normals drawn
+before the token stream, in the reference's order.  ``get`` puts the
+batch on the pipeline's device, the card unless ``device="cpu"``.  The
+reference's ``mesh`` argument and ``batch_spec`` (sharded batches) are
+ROADMAP.md, Queue 1 item 11.
 """
 from __future__ import annotations
 
@@ -21,7 +24,6 @@ import torch
 from ..common.device import DeviceLike, resolve_device
 from ..core.blocks import ShapeDtype
 from ..models.config import ModelConfig, ShapeConfig
-from ..models.transformer import not_ported
 
 
 def _zipf_tokens(rng: np.random.Generator, shape, vocab: int, a: float = 1.3):
@@ -30,18 +32,26 @@ def _zipf_tokens(rng: np.random.Generator, shape, vocab: int, a: float = 1.3):
     return ((z - 1) % vocab).astype(np.int32)
 
 
-def _text_only(cfg: ModelConfig) -> None:
-    kinds = [k for k in ("enc_dec", "frontend") if getattr(cfg, k)]
-    if kinds:
-        raise not_ported(f"{cfg.name}'s batches", kinds)
+def _text_len(cfg: ModelConfig, S: int) -> int:
+    """The tokens of a batch of sequence length ``S``: the vision patches
+    and an encoder's frames take their share of it."""
+    if cfg.enc_dec:
+        return S // 2
+    return S - cfg.frontend_len if cfg.frontend == "vision" else S
 
 
 def batch_shapes(cfg: ModelConfig, shape: ShapeConfig) -> Dict[str, ShapeDtype]:
     """Shapes and dtypes of one training batch (the reference's
-    ``batch_structs``)."""
-    _text_only(cfg)
-    spec = ShapeDtype((shape.global_batch, shape.seq_len), torch.int32)
-    return {"tokens": spec, "labels": spec}
+    ``batch_structs``, whose front-end and encoder inputs are fp32 here, as
+    both pipelines yield them)."""
+    B, S = shape.global_batch, shape.seq_len
+    out: Dict[str, ShapeDtype] = {}
+    if cfg.frontend == "vision":
+        out["frontend"] = ShapeDtype((B, cfg.frontend_len, cfg.d_model), torch.float32)
+    if cfg.enc_dec:
+        out["enc_input"] = ShapeDtype((B, S - S // 2, cfg.d_model), torch.float32)
+    spec = ShapeDtype((B, _text_len(cfg, S)), torch.int32)
+    return dict(out, tokens=spec, labels=spec)
 
 
 @dataclasses.dataclass
@@ -53,16 +63,24 @@ class SyntheticPipeline:
     device: DeviceLike = None
 
     def __post_init__(self):
-        _text_only(self.cfg)
         self.device = resolve_device(self.device, "SyntheticPipeline")
 
     def _numpy_batch(self, step: int) -> Dict[str, np.ndarray]:
         rng = np.random.default_rng((self.seed, step))
-        B, S = self.shape.global_batch, self.shape.seq_len
-        stream = _zipf_tokens(rng, (B, S + 1), self.cfg.vocab_size, self.zipf_a)
-        return {"tokens": stream[:, :-1], "labels": stream[:, 1:].copy()}
+        B, S, cfg = self.shape.global_batch, self.shape.seq_len, self.cfg
+        out: Dict[str, np.ndarray] = {}
+        if cfg.frontend == "vision":
+            out["frontend"] = rng.standard_normal(
+                (B, cfg.frontend_len, cfg.d_model)).astype(np.float32)
+        if cfg.enc_dec:
+            out["enc_input"] = rng.standard_normal(
+                (B, S - S // 2, cfg.d_model)).astype(np.float32)
+        stream = _zipf_tokens(rng, (B, _text_len(cfg, S) + 1), cfg.vocab_size, self.zipf_a)
+        return dict(out, tokens=stream[:, :-1], labels=stream[:, 1:].copy())
 
     def get(self, step: int) -> Dict[str, torch.Tensor]:
-        """The batch of ``step``: ``{"tokens", "labels"}`` (B, S) int32."""
+        """The batch of ``step``: ``{"tokens", "labels"}`` int32 of the
+        text's length, and ``"frontend"`` or ``"enc_input"`` fp32 where the
+        model takes them (see :func:`batch_shapes`)."""
         return {k: torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
                 for k, v in self._numpy_batch(step).items()}

@@ -37,7 +37,7 @@ _SIGNATURES = {
     "vilamb_fused_update_grid": (_I, _I),
     # q, k, v, out; B, S, H, KV, hd, dtype, causal; 4 x (head, seq, batch)
     # byte strides; scale; stream.
-    "vilamb_flash_attn": (_P, _P, _P, _P) + (_I,) * 7 + (_I,) * 12 + (_D, _P),
+    "vilamb_flash_attn": (_P, _P, _P, _P) + (_I,) * 8 + (_I,) * 12 + (_D, _P),
     "vilamb_flash_smem_bytes": (_I,),
 }
 

@@ -2,10 +2,12 @@
 
 A CUDA tensor launches the kernel (or raises); a CPU tensor runs the plain
 version in ``ref.py``.  ``LAUNCHES`` counts kernel launches.  The kernel
-reads q ``(B, S, H, hd)`` and k, v ``(B, S, KV, hd)`` in place through TMA
+reads q ``(B, Sq, H, hd)`` and k, v ``(B, Sk, KV, hd)`` in place through TMA
 tensor maps of dims ``(hd, heads, S, B)`` and the byte strides that
 ``tensor_map_layout`` computes: GQA needs no expanded copy and hd no
-padding.  Layouts a tensor map cannot describe are copied first.
+padding.  Layouts a tensor map cannot describe are copied first.  The key
+length may differ from the query's (cross attention over an encoder
+memory), as in the TPU kernel.
 """
 from __future__ import annotations
 
@@ -21,7 +23,7 @@ LAUNCHES = 0
 HEAD_DIMS = (64, 128)
 _DTYPES = {torch.bfloat16: 0, torch.float16: 1}
 _BLOCK_M = 128                # query rows a CTA
-_MAX_GRID = 2**31 - 1        # CTAs: B * H * ceil(S / 128) on the grid's x axis
+_MAX_GRID = 2**31 - 1        # CTAs: B * H * ceil(Sq / 128) on the grid's x axis
 _MAX_STRIDE = 1 << 40        # TMA: byte strides below 2^40
 
 
@@ -58,7 +60,10 @@ def _strided(x: torch.Tensor) -> torch.Tensor:
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True,
                     scale: Optional[float] = None) -> torch.Tensor:
-    """Softmax attention, (B, S, H, hd) out in q's dtype; causal by default.
+    """Softmax attention, (B, Sq, H, hd) out in q's dtype; causal by
+    default.  q is (B, Sq, H, hd), k and v (B, Sk, KV, hd): query row r
+    attends to keys c < Sk, and with ``causal`` only to c <= r (absolute
+    indices, as the TPU kernel's mask).
 
     ``scale`` defaults to ``1 / sqrt(hd)``.  H must be a multiple of KV.
     Forward only: raises when grad mode is on and an input requires grad
@@ -71,14 +76,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            "gradient: training takes the tiled attention "
                            "(models.attention.causal_attention(..., train=True))")
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
-        raise ValueError(f"flash_attention: want q (B, S, H, hd) and k, v "
-                         f"(B, S, KV, hd), got {tuple(q.shape)}, "
+        raise ValueError(f"flash_attention: want q (B, Sq, H, hd) and k, v of one "
+                         f"shape (B, Sk, KV, hd), got {tuple(q.shape)}, "
                          f"{tuple(k.shape)}, {tuple(v.shape)}")
     B, S, H, hd = q.shape
-    KV = k.shape[2]
-    if k.shape[0] != B or k.shape[1] != S or k.shape[3] != hd or H % KV:
+    Sk, KV = k.shape[1], k.shape[2]
+    if k.shape[0] != B or k.shape[3] != hd or H % KV:
         raise ValueError(f"flash_attention: k, v {tuple(k.shape)} do not fit q "
                          f"{tuple(q.shape)} (H must be a multiple of KV)")
+    if S < 1 or Sk < 1:
+        raise ValueError(f"flash_attention: want Sq >= 1 and Sk >= 1, got "
+                         f"Sq={S}, Sk={Sk}")
     if q.device.type == "cpu":
         return ref.attention(q, k, v, causal, scale)
     if q.device.type != "cuda" or k.device != q.device or v.device != q.device:
@@ -89,9 +97,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"{q.dtype}, {k.dtype}, {v.dtype}")
     if hd not in HEAD_DIMS:
         raise ValueError(f"flash_attention: hd must be one of {HEAD_DIMS}, got {hd}")
-    if S < 1 or B * H * -(-S // _BLOCK_M) > _MAX_GRID:
-        raise ValueError(f"flash_attention: want S >= 1 and B * H * ceil(S / "
-                         f"{_BLOCK_M}) <= {_MAX_GRID}, got B={B}, S={S}, H={H}")
+    if B * H * -(-S // _BLOCK_M) > _MAX_GRID:
+        raise ValueError(f"flash_attention: want B * H * ceil(Sq / {_BLOCK_M}) "
+                         f"<= {_MAX_GRID}, got B={B}, Sq={S}, H={H}")
     scale = scale if scale is not None else 1.0 / math.sqrt(hd)
     if scale < 0:            # the kernel takes scale >= 0: (-q) k (-scale) is exact
         q, scale = -q, -scale
@@ -100,7 +108,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     strides = [s for t in (q, k, v, out) for s in tensor_map_layout(t)[1]]
     rc = _build.library().vilamb_flash_attn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        B, S, H, KV, hd, _DTYPES[q.dtype], int(bool(causal)), *strides,
+        B, S, Sk, H, KV, hd, _DTYPES[q.dtype], int(bool(causal)), *strides,
         float(scale), _build.stream_handle(q))
     if rc < 0:
         raise RuntimeError(f"flash_attn: cuTensorMapEncodeTiled refused a tensor "

@@ -6,9 +6,11 @@ It follows the reference's exact-softmax oracle
 from q and k taken to fp32, masked scores set to ``NEG_INF`` (not -inf),
 ``p = exp(s - max)`` in fp32 rounded to v's dtype before ``p . v``, which
 accumulates in fp32, and the sum ``l`` of the unrounded ``p`` dividing at
-the end.  Query head ``h`` reads KV head ``h // (H // KV)``.  One batch
-element at a time, so the fp32 score matrix is ``(H, S, S)``, never
-``(B, H, S, S)``.
+the end.  Query head ``h`` reads KV head ``h // (H // KV)``.  The key
+length ``Sk`` may differ from the query's ``Sq``; the causal mask keeps
+``col <= row`` in absolute indices, as the TPU kernel's.  One batch
+element at a time, so the fp32 score matrix is ``(H, Sq, Sk)``, never
+``(B, H, Sq, Sk)``.
 """
 from __future__ import annotations
 
@@ -22,20 +24,21 @@ NEG_INF = -1e30
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               causal: bool = True, scale: Optional[float] = None) -> torch.Tensor:
-    """q: (B, S, H, hd); k, v: (B, S, KV, hd) -> (B, S, H, hd) in q's dtype."""
+    """q: (B, Sq, H, hd); k, v: (B, Sk, KV, hd) -> (B, Sq, H, hd) in q's dtype."""
     B, S, H, hd = q.shape
+    Sk = k.shape[1]
     group = H // k.shape[2]
     scale = scale if scale is not None else 1.0 / math.sqrt(hd)
     out = torch.empty_like(q)
     keep = None
     if causal:
-        pos = torch.arange(S, device=q.device)
-        keep = pos[:, None] >= pos[None, :]
+        keep = (torch.arange(S, device=q.device)[:, None]
+                >= torch.arange(Sk, device=q.device)[None, :])
     for b in range(B):
         qb = q[b].transpose(0, 1).float()                              # (H, S, hd)
         kb = k[b].transpose(0, 1).float().repeat_interleave(group, dim=0)
         vb = v[b].transpose(0, 1).repeat_interleave(group, dim=0)
-        s = torch.matmul(qb, kb.transpose(1, 2)) * scale               # (H, S, S)
+        s = torch.matmul(qb, kb.transpose(1, 2)) * scale               # (H, Sq, Sk)
         if keep is not None:
             s = torch.where(keep, s, NEG_INF)
         p = torch.exp(s - s.amax(dim=-1, keepdim=True))

@@ -1,5 +1,6 @@
 """Serving launcher: batched prefill + decode with Vilamb-protected caches
-(the KV caches, and the recurrent states of jamba and xlstm-1.3b).
+(the KV caches, the recurrent states of jamba and xlstm-1.3b, and
+seamless-m4t-medium's cross-attention caches).
 
 Example (on the card; ``--device cpu`` runs the plain versions instead):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-3b --smoke \\
@@ -9,7 +10,12 @@ Per-leaf policies (e.g. protect K pages harder than V pages):
   ... --policy "*/k=vilamb:8,*/v=vilamb:64" --max-vulnerable-steps 128
 
 The weights come from a generator seeded 0 and the prompt from one seeded
-7, on the chosen device.
+7, on the chosen device; internvl2-1b's image patches (``frontend_len`` of
+them) and seamless-m4t-medium's encoder frames (``--prompt-len`` of them,
+the reference's convention) are standard normals from the prompt's
+generator.  The caches hold the patches, the prompt and the new tokens:
+``max_len`` counts the patches, where the reference's launcher leaves them
+out and cannot serve internvl2-1b (ROADMAP.md, Queue 3).
 """
 from __future__ import annotations
 
@@ -49,10 +55,19 @@ def main(argv=None):
     cfg = get_smoke(args.arch) if args.smoke else get_arch(args.arch)
     model = build_model(cfg, device)
     params = model.init(torch.Generator(device=device).manual_seed(0))
-    max_len = args.prompt_len + args.gen + 1
+    patches = cfg.frontend_len if cfg.frontend == "vision" else 0
+    max_len = patches + args.prompt_len + args.gen + 1
+    enc_len = args.prompt_len if cfg.enc_dec else 0
+    gen = torch.Generator(device=device).manual_seed(7)
     batch = {"tokens": torch.randint(
         0, cfg.vocab_size, (args.batch, args.prompt_len), dtype=torch.int32,
-        generator=torch.Generator(device=device).manual_seed(7), device=device)}
+        generator=gen, device=device)}
+    if patches:
+        batch["frontend"] = torch.randn((args.batch, patches, cfg.d_model),
+                                        generator=gen, device=device)
+    if enc_len:
+        batch["enc_input"] = torch.randn((args.batch, enc_len, cfg.d_model),
+                                         generator=gen, device=device)
 
     store = None
     if args.redundancy != "none" or args.policy:
@@ -60,7 +75,7 @@ def main(argv=None):
             args.policy, default_mode=args.redundancy, period_steps=args.period,
             max_vulnerable_steps=args.max_vulnerable_steps)
         store = ProtectedStore(policy, device=device).attach(
-            model.cache_shapes(args.batch, max_len))
+            model.cache_shapes(args.batch, max_len, enc_len))
 
     srv = Server(model=model, store=store, max_len=max_len)
     t0 = time.perf_counter()

@@ -1,11 +1,14 @@
-"""GQA attention: causal attention for the prefill and for training, and decode.
+"""GQA attention: causal and full (encoder, cross) attention for the
+prefill and for training, and decode.
 
-The port of ``repro.models.attention``.  The caller picks the causal path:
-the prefill takes ``kernels.flash_attn.flash_attention``, the hand-written
+The port of ``repro.models.attention``.  The caller picks the path: the
+prefill takes ``kernels.flash_attn.flash_attention``, the hand-written
 CUDA kernel on the card (its plain version on the CPU), which is
 forward-only and refuses a gradient; training takes the reference's
-differentiable tiled path (a static lower-triangle schedule of (q, kv)
-tiles, merged flash-style), whose backward is autograd's.  The kernel maps
+differentiable paths (causal: a static lower-triangle schedule of (q, kv)
+tiles, merged flash-style; full: one unmasked tile over every key), whose
+backward is autograd's.  Cross attention reads keys of the encoder's
+length, which the kernel takes beside the decoder's queries.  The kernel maps
 query head ``h`` to KV head ``h // (H // KV)``, the head order of
 ``expand_kv``, so on the prefill k and v are never expanded.
 
@@ -178,33 +181,67 @@ def causal_attention(params, x: torch.Tensor, cfg,
     return _out_proj(out, params["wo"]), (k, v)
 
 
+def full_attention(params, x: torch.Tensor, cfg, kv_x: Optional[torch.Tensor] = None,
+                   rope: bool = False, *, train: bool = False
+                   ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
+    """Non-causal GQA (the encoder's self attention, the decoder's cross
+    attention) of x (B, Sq, d) over ``kv_x`` (B, Sk, d), x by default.
+    Returns ``(out, (k, v))``, k and v (B, Sk, KV, hd) (after RoPE where
+    ``rope``, at positions ``0 .. Sk - 1``; queries at ``0 .. Sq - 1``).
+
+    ``train=False`` (the prefill) runs the flash kernel with ``causal=False``
+    at Sk keys; ``train=True`` the differentiable path, the reference's one
+    unmasked tile over all Sk keys.
+    """
+    src = x if kv_x is None else kv_x
+    q = _proj(x, params["wq"])
+    k = _proj(src, params["wk"])
+    v = _proj(src, params["wv"])
+    if rope:
+        q = apply_rope(q, torch.arange(x.shape[1], device=x.device)[None, :],
+                       cfg.rope_theta)
+        k = apply_rope(k, torch.arange(src.shape[1], device=x.device)[None, :],
+                       cfg.rope_theta)
+    if not train:
+        out = flash_ops.flash_attention(q, k, v, causal=False)    # (B, Sq, H, hd)
+        return _out_proj(out.to(x.dtype), params["wo"]), (k, v)
+    H = cfg.n_heads
+    acc, _, l = _tile_attn(q, expand_kv(k, H), expand_kv(v, H), 1.0 / math.sqrt(cfg.hd))
+    out = (acc / l[..., None].clamp_min(1e-30)).transpose(1, 2).to(x.dtype)
+    return _out_proj(out, params["wo"]), (k, v)
+
+
 def decode_attention(params, x: torch.Tensor, cfg, k_cache: torch.Tensor,
-                     v_cache: torch.Tensor, pos: int, rope: bool = True
-                     ) -> torch.Tensor:
+                     v_cache: torch.Tensor, pos: int, rope: bool = True,
+                     cross: bool = False) -> torch.Tensor:
     """One-token decode.  x: (B, 1, d); caches (S_max, B, KV, hd).
 
     Writes this token's k and v at row ``pos`` of the caches, in place, and
     attends over rows ``<= pos`` by a mask over all S_max rows, with an fp32
-    softmax, as the reference does.  Returns the (B, 1, d) output (the
-    reference also returns the new caches; here they are the inputs,
-    written in place).
+    softmax, as the reference does.  With ``cross`` the caches are the
+    encoder memory: nothing is written and every row is attended to.
+    Returns the (B, 1, d) output (the reference also returns the new
+    caches; here they are the inputs, written in place).
     """
     B = x.shape[0]
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     S_max = k_cache.shape[0]
     positions = torch.full((B, 1), pos, device=x.device)
     q = _proj(x, params["wq"])
-    k_new = _proj(x, params["wk"])
-    v_new = _proj(x, params["wv"])
     if rope:
         q = apply_rope(q, positions, cfg.rope_theta)
-        k_new = apply_rope(k_new, positions, cfg.rope_theta)
-    k_cache[pos] = k_new[:, 0].to(k_cache.dtype)
-    v_cache[pos] = v_new[:, 0].to(v_cache.dtype)
+    if not cross:
+        k_new = _proj(x, params["wk"])
+        v_new = _proj(x, params["wv"])
+        if rope:
+            k_new = apply_rope(k_new, positions, cfg.rope_theta)
+        k_cache[pos] = k_new[:, 0].to(k_cache.dtype)
+        v_cache[pos] = v_new[:, 0].to(v_cache.dtype)
     qg = q.reshape(B, KV, H // KV, hd)
     s = torch.einsum("bkgd,sbkd->bkgs", qg, k_cache).float() / math.sqrt(hd)
-    valid = torch.arange(S_max, device=x.device) <= pos
-    s = torch.where(valid, s, NEG_INF)
+    if not cross:
+        valid = torch.arange(S_max, device=x.device) <= pos
+        s = torch.where(valid, s, NEG_INF)
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bkgs,sbkd->bkgd", p.to(v_cache.dtype), v_cache)
     return _out_proj(out.reshape(B, 1, H, hd).to(x.dtype), params["wo"])

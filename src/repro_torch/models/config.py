@@ -3,11 +3,10 @@
 The fields that fix a model's shapes and arithmetic are kept with the
 reference's names and defaults, so a config and its weights carry across;
 the MoE fields among them (expert count, top-k, expert width, the dense
-residual, the capacity factor) and the recurrent mixers' (Mamba's state
-width, convolution width and expansion; xLSTM's sLSTM period).
-Of the other kinds' fields, only those that ``layer_kind``, ``ffn_kind``
-and ``group_size`` read are here, so that an unported kind is recognised
-and refused; each later slice adds the fields of the code it ports.
+residual, the capacity factor), the recurrent mixers' (Mamba's state
+width, convolution width and expansion; xLSTM's sLSTM period) and the
+encoder-decoder stack's and front ends' (``enc_dec``, ``frontend``,
+``frontend_len``).
 The training numerics are here with the reference's names and defaults:
 ``moment_dtype``, ``remat`` (per-slot activation checkpointing),
 ``norm_vjp`` (the custom-VJP norms), ``bf16_grad_boundaries`` and
@@ -72,8 +71,9 @@ class ModelConfig:
     rope_theta: float = 10000.0
 
     # --- structure ---
-    enc_dec: bool = False
-    frontend: str = ""          # "" | vision | audio
+    enc_dec: bool = False       # n_layers encoder layers + n_layers decoder layers
+    frontend: str = ""          # "" | vision | audio (precomputed embeddings)
+    frontend_len: int = 256     # vision: patches put in front of the prompt
     tie_embeddings: bool = False
     head_dim: int = 0           # 0 -> d_model // n_heads
 

@@ -1,14 +1,18 @@
 """Top-level Model: init, loss, prefill and decode, plus Vilamb dirty events.
 
-The port of ``repro.models.model`` for decoder-only models: dense, MoE,
-and the recurrent mixers' (jamba's Mamba, xLSTM's mLSTM and sLSTM), which
-serve.  ``build_model(cfg)`` returns a :class:`Model` on the card unless
-the caller passes ``device="cpu"``.  The model reports which embedding
-rows a train step touched, and which expert slabs its tokens were routed
-to (``dirty_events_train``), and which KV-cache pages a decode step
-wrote, every recurrent state being rewritten whole
-(``dirty_events_decode``), feeding the store's bitvectors (the paper's
-dirty bits, generated at the writer).
+The port of ``repro.models.model``: decoder-only models (dense, MoE, and
+the recurrent mixers' (jamba's Mamba, xLSTM's mLSTM and sLSTM), which
+serve), the encoder-decoder stack (seamless-m4t-medium: the encoder runs
+once over the batch's ``enc_input`` frames, and every decoder slot's
+cross attention reads its memory) and the vision front end (internvl2-1b:
+the batch's ``frontend`` patches go in front of the prompt).
+``build_model(cfg)`` returns a :class:`Model` on the card unless the
+caller passes ``device="cpu"``.  The model reports which embedding rows a
+train step touched, and which expert slabs its tokens were routed to
+(``dirty_events_train``), and which KV-cache pages a decode step wrote,
+every recurrent state being rewritten whole and the cross-attention
+caches never (``dirty_events_decode``), feeding the store's bitvectors
+(the paper's dirty bits, generated at the writer).
 """
 from __future__ import annotations
 
@@ -116,12 +120,24 @@ class Model:
         params: Dict[str, Any] = {
             "embed": embed_init(gen, (cfg.padded_vocab, cfg.d_model), self.dtype, dev),
             "final_norm": norm_init(cfg.d_model, dev),
-            "stack": tfm.stack_init(gen, cfg, cfg.n_groups, self.dtype, dev),
+            "stack": tfm.stack_init(gen, cfg, cfg.n_groups, self.dtype, dev,
+                                    cross=cfg.enc_dec),
         }
         if not cfg.tie_embeddings:
             params["head"] = embed_init(gen, (cfg.d_model, cfg.padded_vocab),
                                         self.dtype, dev)
+        if cfg.enc_dec:
+            enc = self._enc_cfg
+            params["enc_stack"] = tfm.stack_init(gen, enc, enc.n_layers, self.dtype, dev)
+            params["enc_final_norm"] = norm_init(cfg.d_model, dev)
         return params
+
+    @property
+    def _enc_cfg(self) -> ModelConfig:
+        """The encoder's config: attention and dense FFNs only, one layer a
+        group."""
+        return dataclasses.replace(self.cfg, attn_every=0, ssm_kind="", n_experts=0,
+                                   slstm_every=0)
 
     # ---------------------------------------------------------------- embed
     def _embed(self, params, tokens: torch.Tensor) -> torch.Tensor:
@@ -134,10 +150,31 @@ class Model:
             return x @ params["embed"].T
         return x @ params["head"]
 
+    def _encode(self, params, enc_input: torch.Tensor, train: bool = False) -> torch.Tensor:
+        """The encoder over ``enc_input`` (B, S_enc, d): its stack with full
+        attention (the flash kernel on the prefill), then its final norm."""
+        enc = self._enc_cfg
+        _, norm = make_norm(enc)
+        x, _ = tfm.stack_apply_full(params["enc_stack"], enc_input.to(self.dtype), enc,
+                                    train=train, causal=False)
+        return norm(params["enc_final_norm"], x)
+
+    def _inputs(self, params, batch: Dict[str, torch.Tensor], train: bool):
+        """The decoder's input (the vision patches in front of the prompt's
+        embeddings) and the encoder's memory (None without an encoder)."""
+        memory = self._encode(params, batch["enc_input"], train) if self.cfg.enc_dec else None
+        x = self._embed(params, batch["tokens"])
+        if self.cfg.frontend == "vision":
+            x = torch.cat([batch["frontend"].to(x.dtype), x], dim=1)
+        return x, memory
+
     # ----------------------------------------------------------------- loss
     def loss(self, params, batch: Dict[str, torch.Tensor]
              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-        """Training loss of a batch ``{"tokens", "labels"}`` (B, S) int.
+        """Training loss of a batch ``{"tokens", "labels"}`` (B, S) int,
+        with ``"frontend"`` (B, frontend_len, d) patches for a vision front
+        end and ``"enc_input"`` (B, S_enc, d) frames for an encoder; the
+        loss covers the text positions only.
 
         Returns ``(loss, aux)``: the loss is ``ce + 0.01 * aux_loss``, aux
         ``{"ce", "aux_loss", "expert_counts", "logits_mean"}`` with
@@ -147,8 +184,11 @@ class Model:
         """
         cfg = self.cfg
         _, norm = make_norm(cfg)
-        x = self._embed(params, batch["tokens"])
-        x, (counts, aux_loss) = tfm.stack_apply_full(params["stack"], x, cfg, train=True)
+        x, memory = self._inputs(params, batch, train=True)
+        x, (counts, aux_loss) = tfm.stack_apply_full(params["stack"], x, cfg, train=True,
+                                                     memory=memory)
+        if cfg.frontend == "vision":
+            x = x[:, batch["frontend"].shape[1]:]
         logits = self._logits(params, norm(params["final_norm"], x))
         ce = cross_entropy(logits, batch["labels"], cfg.vocab_size)
         with torch.no_grad():
@@ -158,14 +198,17 @@ class Model:
             "expert_counts": counts}
 
     # ---------------------------------------------------------------- caches
-    def cache_shapes(self, batch: int, max_len: int) -> Dict[str, Dict[str, ShapeDtype]]:
+    def cache_shapes(self, batch: int, max_len: int, enc_len: int = 0
+                     ) -> Dict[str, Dict[str, ShapeDtype]]:
         """Shape and dtype of every cache, per slot by its mixer: attention's
         sequence-major ``k`` and ``v`` ``(G, max_len, B, KV, hd)``; Mamba's
         fp32 ``h`` ``(G, B, d_inner, d_state)`` and ``conv`` ``(G, B,
         d_conv - 1, d_inner)``; mLSTM's fp32 ``C`` ``(G, B, H, hd, hd)`` and
         ``n`` ``(G, B, H, hd)``; sLSTM's fp32 ``c`` ``(G, B, H, hd)`` and
-        ``n`` ``(G, B, H)``.  Enough for ``ProtectedStore.attach`` (the
-        reference uses ``jax.eval_shape(init_caches)``)."""
+        ``n`` ``(G, B, H)``; an encoder-decoder's cross-attention ``ck``
+        and ``cv`` ``(G, enc_len, B, KV, hd)`` in every slot.  Enough for
+        ``ProtectedStore.attach`` (the reference uses
+        ``jax.eval_shape(init_caches)``)."""
         cfg, G, B = self.cfg, self.cfg.n_groups, batch
         f32 = torch.float32
         hd = cfg.d_model // cfg.n_heads          # the recurrent mixers' head width
@@ -183,14 +226,18 @@ class Model:
             else:
                 c = {"c": ShapeDtype((G, B, cfg.n_heads, hd), f32),
                      "n": ShapeDtype((G, B, cfg.n_heads), f32)}
+            if cfg.enc_dec:
+                mem = ShapeDtype((G, enc_len, B, cfg.n_kv_heads, cfg.hd), self.dtype)
+                c = dict(c, ck=mem, cv=mem)
             out[f"slot_{s}"] = c
         return out
 
-    def init_caches(self, batch: int, max_len: int) -> Dict[str, Dict[str, torch.Tensor]]:
+    def init_caches(self, batch: int, max_len: int, enc_len: int = 0
+                    ) -> Dict[str, Dict[str, torch.Tensor]]:
         """The caches of :meth:`cache_shapes` on the model's device: zeros,
         but for sLSTM's normaliser ``n``, which starts at 1e-6 as in the
         reference."""
-        shapes = self.cache_shapes(batch, max_len)
+        shapes = self.cache_shapes(batch, max_len, enc_len)
         out: Dict[str, Dict[str, torch.Tensor]] = {}
         for s, (mixer, _) in enumerate(tfm.slot_kinds(self.cfg)):
             out[f"slot_{s}"] = {
@@ -203,12 +250,15 @@ class Model:
     def prefill(self, params, batch: Dict[str, torch.Tensor], max_len: int
                 ) -> Tuple[torch.Tensor, Dict[str, Dict[str, torch.Tensor]], int]:
         """Full forward filling the caches; returns ``(last_logits, caches,
-        pos)``, the logits (B, padded_vocab) of the last prompt position."""
+        pos)``, the logits (B, padded_vocab) of the last prompt position and
+        ``pos`` the decoder's length (the vision patches and the prompt).
+        An encoder runs once here; its memory fills ``ck`` and ``cv`` and is
+        never recomputed in decode."""
         _, norm = make_norm(self.cfg)
-        x = self._embed(params, batch["tokens"])
+        x, memory = self._inputs(params, batch, train=False)
         B, S, _ = x.shape
-        caches = self.init_caches(B, max_len)
-        x, _ = tfm.stack_apply_full(params["stack"], x, self.cfg, caches)
+        caches = self.init_caches(B, max_len, memory.shape[1] if memory is not None else 0)
+        x, _ = tfm.stack_apply_full(params["stack"], x, self.cfg, caches, memory=memory)
         x = norm(params["final_norm"], x[:, -1:])
         return self._logits(params, x)[:, 0], caches, S
 
@@ -253,7 +303,9 @@ class Model:
         A KV cache's mask is (n_groups, S_max) bool over its sequence-major
         leading dims: only the written position's row goes dirty.  A
         recurrent state (``h``, ``conv``, ``C``, ``n``, ``c``) is rewritten
-        whole every step: ``ALL``.
+        whole every step: ``ALL``.  The cross-attention caches ``ck`` and
+        ``cv`` are the encoder memory, written once by the prefill: no
+        event.
         """
         events: Dict[str, Any] = {}
         for s, (mixer, _) in enumerate(tfm.slot_kinds(self.cfg)):
@@ -266,11 +318,11 @@ class Model:
                 events[f"slot_{s}/v"] = ev
             else:
                 for key in c:
-                    events[f"slot_{s}/{key}"] = ALL
+                    if key not in ("ck", "cv"):
+                        events[f"slot_{s}/{key}"] = ALL
         return events
 
 
 def build_model(cfg: ModelConfig, device: DeviceLike = None) -> Model:
     """A :class:`Model` on ``device`` (the card unless told otherwise)."""
-    tfm.check_supported(cfg)
     return Model(cfg=cfg, device=resolve_device(device, "build_model"))

@@ -1,5 +1,5 @@
-"""Layer stacks of a decoder-only LM: attention, Mamba, mLSTM and sLSTM
-mixers with dense, MoE or no FFNs.
+"""Layer stacks of decoder-only and encoder-decoder LMs: attention, Mamba,
+mLSTM and sLSTM mixers with dense, MoE or no FFNs, and cross attention.
 
 The port of ``repro.models.transformer``.  Parameters stay stacked by
 group on a leading axis, with the reference's names and shapes
@@ -13,9 +13,11 @@ MoE (``models/moe.py``; arctic's dense residual beside it); the full
 forward returns every slot's expert counts and the summed aux loss, as
 the reference's scan does.  The recurrent mixers (``models/mamba.py``,
 ``models/xlstm.py``) serve: the prefill writes each one's final state
-into its cache, and decode rewrites that state in place.  Training
-through them, the encoder-decoder stack and the vision front end raise
-``NotImplementedError`` naming their ``ROADMAP.md`` item.
+into its cache, and decode rewrites that state in place; training through
+them raises ``NotImplementedError`` naming its ``ROADMAP.md`` item.  An
+encoder-decoder's decoder slots carry a cross attention (``cross_norm``,
+``cross``) over the encoder's memory; the encoder is a stack of its own,
+run with ``causal=False``.
 """
 from __future__ import annotations
 
@@ -31,13 +33,7 @@ from . import xlstm as xlstm_mod
 from .config import ModelConfig
 from .layers import ffn_apply, ffn_init, make_norm
 
-# What the port cannot run yet, by kind, with its ROADMAP.md item.  The one
-# owner of these strings: the registry refers to them for the archs it
-# does not serve.
-NOT_PORTED = {
-    "enc_dec": "the encoder-decoder stack: ROADMAP.md, Queue 1 item 5",
-    "frontend": "the vision front end: ROADMAP.md, Queue 1 item 5",
-}
+# What the port cannot run yet, with its ROADMAP.md item.
 TRAIN_NOT_PORTED = ("training through the recurrent mixers (Mamba, mLSTM, sLSTM): "
                     "ROADMAP.md, Queue 1 item 13")
 
@@ -56,20 +52,6 @@ def slot_kinds(cfg: ModelConfig) -> List[Tuple[str, str]]:
     return [(cfg.layer_kind(s), cfg.ffn_kind(s)) for s in range(cfg.group_size)]
 
 
-def not_ported(name: str, kinds) -> NotImplementedError:
-    """The error for ``name``, which needs the unported ``kinds``."""
-    return NotImplementedError(f"{name} is not ported yet: it needs "
-                               + "; ".join(v for k, v in NOT_PORTED.items() if k in kinds))
-
-
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for what the port cannot run yet."""
-    kinds = {k for pair in slot_kinds(cfg) for k in pair}
-    kinds |= {k for k in ("enc_dec", "frontend") if getattr(cfg, k)}
-    if kinds & NOT_PORTED.keys():
-        raise not_ported(cfg.name, kinds)
-
-
 def _unbind(tree: Dict[str, Any], n_groups: int) -> List[Dict[str, Any]]:
     """A stacked tree split into its ``n_groups`` groups (views, no copies),
     each leaf split once by ``unbind(0)``."""
@@ -83,12 +65,15 @@ def _unbind(tree: Dict[str, Any], n_groups: int) -> List[Dict[str, Any]]:
 
 # --------------------------------------------------------------------- init
 def _slot_init(gen, cfg: ModelConfig, mixer: str, ffn: str, dtype: torch.dtype,
-               device, n_groups: int) -> Dict[str, Any]:
+               device, n_groups: int, cross: bool) -> Dict[str, Any]:
     norm_init, _ = make_norm(cfg)
     lead = (n_groups,)
     mixer_init = attn_mod.attn_init if mixer == "attn" else RECURRENT[mixer][0]
     p: Dict[str, Any] = {"mixer_norm": norm_init(cfg.d_model, device, lead),
                          mixer: mixer_init(gen, cfg, dtype, device, lead)}
+    if cross:
+        p["cross_norm"] = norm_init(cfg.d_model, device, lead)
+        p["cross"] = attn_mod.attn_init(gen, cfg, dtype, device, lead)
     if ffn != "none":
         p["ffn_norm"] = norm_init(cfg.d_model, device, lead)
         if ffn == "moe":
@@ -101,9 +86,10 @@ def _slot_init(gen, cfg: ModelConfig, mixer: str, ffn: str, dtype: torch.dtype,
 
 
 def stack_init(gen, cfg: ModelConfig, n_groups: int, dtype: torch.dtype,
-               device=None) -> Dict[str, Any]:
-    check_supported(cfg)
-    return {f"slot_{s}": _slot_init(gen, cfg, mixer, ffn, dtype, device, n_groups)
+               device=None, cross: bool = False) -> Dict[str, Any]:
+    """Every slot's parameters stacked over ``n_groups``; ``cross`` adds
+    each slot's cross attention (an encoder-decoder's decoder)."""
+    return {f"slot_{s}": _slot_init(gen, cfg, mixer, ffn, dtype, device, n_groups, cross)
             for s, (mixer, ffn) in enumerate(slot_kinds(cfg))}
 
 
@@ -123,19 +109,30 @@ def _ffn(p, h: torch.Tensor, cfg: ModelConfig, ffn: str):
 
 
 def _slot_apply_full(p, x: torch.Tensor, cfg: ModelConfig, mixer: str, ffn: str,
-                     train: bool):
+                     train: bool, memory: Optional[torch.Tensor] = None,
+                     causal: bool = True):
     """Full-sequence slot (prefill or training).  Returns ``(x, state,
     counts, aux)``: the state for the cache (attention's k and v (B, S, KV,
-    hd), a recurrent mixer's final state), counts and aux None without a
-    router."""
+    hd), a recurrent mixer's final state; with ``memory``, the cross
+    attention's ``ck`` and ``cv`` (B, S_enc, KV, hd) too), counts and aux
+    None without a router.  ``causal=False`` is the encoder's attention
+    (full, RoPE)."""
     _, norm = make_norm(cfg)
     h = norm(p["mixer_norm"], x)
-    if mixer == "attn":
+    if mixer == "attn" and causal:
         y, (k, v) = attn_mod.causal_attention(p["attn"], h, cfg, train=train)
+        state = {"k": k, "v": v}
+    elif mixer == "attn":                  # the encoder's: full, with RoPE
+        y, (k, v) = attn_mod.full_attention(p["attn"], h, cfg, rope=True, train=train)
         state = {"k": k, "v": v}
     else:
         y, state = RECURRENT[mixer][1](p[mixer], h, cfg)
     x = x + y
+    if memory is not None:                 # the decoder's cross attention
+        y, (ck, cv) = attn_mod.full_attention(p["cross"], norm(p["cross_norm"], x), cfg,
+                                              kv_x=memory, rope=False, train=train)
+        state = dict(state, ck=ck, cv=cv)
+        x = x + y
     counts = aux = None
     if ffn != "none":
         y, counts, aux = _ffn(p, norm(p["ffn_norm"], x), cfg, ffn)
@@ -143,15 +140,18 @@ def _slot_apply_full(p, x: torch.Tensor, cfg: ModelConfig, mixer: str, ffn: str,
     return x, state, counts, aux
 
 
-def _slot_train(p, x: torch.Tensor, cfg: ModelConfig, ffn: str):
-    x, _, counts, aux = _slot_apply_full(p, x, cfg, "attn", ffn, train=True)
+def _slot_train(p, x: torch.Tensor, memory: Optional[torch.Tensor], cfg: ModelConfig,
+                ffn: str, causal: bool):
+    x, _, counts, aux = _slot_apply_full(p, x, cfg, "attn", ffn, train=True,
+                                         memory=memory, causal=causal)
     return x, counts, aux
 
 
 def _slot_apply_decode(p, x: torch.Tensor, cfg: ModelConfig, mixer: str, ffn: str,
                        cache: Dict[str, torch.Tensor], pos: int) -> torch.Tensor:
     """One-token slot.  x: (B, 1, d).  Writes attention's cache row ``pos``,
-    or a recurrent mixer's whole state, in place."""
+    or a recurrent mixer's whole state, in place; a cross attention reads
+    the encoder memory ``ck``/``cv`` and writes nothing."""
     _, norm = make_norm(cfg)
     h = norm(p["mixer_norm"], x)
     if mixer == "attn":
@@ -159,6 +159,10 @@ def _slot_apply_decode(p, x: torch.Tensor, cfg: ModelConfig, mixer: str, ffn: st
     else:
         y = RECURRENT[mixer][2](p[mixer], h, cfg, cache)
     x = x + y
+    if "ck" in cache:
+        x = x + attn_mod.decode_attention(p["cross"], norm(p["cross_norm"], x), cfg,
+                                          cache["ck"], cache["cv"], pos, rope=False,
+                                          cross=True)
     if ffn != "none":
         x = x + _ffn(p, norm(p["ffn_norm"], x), cfg, ffn)[0]
     return x
@@ -166,7 +170,8 @@ def _slot_apply_decode(p, x: torch.Tensor, cfg: ModelConfig, mixer: str, ffn: st
 
 def stack_apply_full(stack, x: torch.Tensor, cfg: ModelConfig,
                      caches: Optional[Dict[str, Dict[str, torch.Tensor]]] = None,
-                     *, train: bool = False
+                     *, train: bool = False, memory: Optional[torch.Tensor] = None,
+                     causal: bool = True
                      ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """Run the stack over the sequence, group by group.  Returns ``(x,
     (counts, aux_loss))``: counts ``(G, group_size, max(E, 1))`` int32, every
@@ -178,16 +183,20 @@ def stack_apply_full(stack, x: torch.Tensor, cfg: ModelConfig,
     (``init_caches``' sequence-major ``(G, S_max, B, KV, hd)`` tensors), so
     the stacked ``(G, B, S, KV, hd)`` copies the reference builds never
     exist; a recurrent layer's final state goes into its group of its
-    caches the same way.  Training (``train=True``, no caches): the
-    differentiable tiled attention, each slot under
-    ``torch.utils.checkpoint`` unless ``cfg.remat == "none"``, so a slot's
-    backward recomputes its forward from its input and holds only that
-    slot's activations; a recurrent slot raises ``NotImplementedError``
-    (:data:`TRAIN_NOT_PORTED`).
+    caches the same way, and with ``memory`` (the encoder's output, (B,
+    S_enc, d)) the cross attention's k and v go whole into ``ck`` and
+    ``cv``.  Training (``train=True``, no caches): the differentiable
+    attention, each slot under ``torch.utils.checkpoint`` unless
+    ``cfg.remat == "none"``, with ``memory`` an explicit input so that its
+    gradient reaches the encoder, so a slot's backward recomputes its
+    forward from its inputs and holds only that slot's activations; a
+    recurrent slot raises ``NotImplementedError`` (:data:`TRAIN_NOT_PORTED`).
+    ``causal=False`` runs the encoder: full attention with RoPE, and no
+    caches in either mode.
     """
-    if train != (caches is None):
-        raise ValueError("stack_apply_full fills caches on the prefill and "
-                         "none in training")
+    if (train or not causal) != (caches is None):
+        raise ValueError("stack_apply_full fills caches on the decoder's prefill "
+                         "and none in training or in the encoder")
     kinds = slot_kinds(cfg)
     if train and any(mixer != "attn" for mixer, _ in kinds):
         raise NotImplementedError(f"{cfg.name} cannot train yet: {TRAIN_NOT_PORTED}")
@@ -198,19 +207,19 @@ def stack_apply_full(stack, x: torch.Tensor, cfg: ModelConfig,
         for s, (mixer, ffn) in enumerate(kinds):
             p = groups[s][g]
             if train and cfg.remat != "none":
-                x, c, a = checkpoint(_slot_train, p, x, cfg, ffn, use_reentrant=False)
+                x, c, a = checkpoint(_slot_train, p, x, memory, cfg, ffn, causal,
+                                     use_reentrant=False)
             elif train:
-                x, c, a = _slot_train(p, x, cfg, ffn)
+                x, c, a = _slot_train(p, x, memory, cfg, ffn, causal)
             else:
-                x, state, c, a = _slot_apply_full(p, x, cfg, mixer, ffn, train=False)
-                dst = caches[f"slot_{s}"]
-                if mixer == "attn":
-                    S = state["k"].shape[1]
-                    dst["k"][g, :S] = state["k"].transpose(0, 1)
-                    dst["v"][g, :S] = state["v"].transpose(0, 1)
-                else:
-                    for key, t in state.items():
-                        dst[key][g] = t
+                x, state, c, a = _slot_apply_full(p, x, cfg, mixer, ffn, train=False,
+                                                  memory=memory, causal=causal)
+                for key, t in (state.items() if caches is not None else ()):
+                    dst = caches[f"slot_{s}"][key]
+                    if key in ("k", "v", "ck", "cv"):  # rows :S, sequence-major
+                        dst[g, :t.shape[1]] = t.transpose(0, 1)
+                    else:
+                        dst[g] = t
             if c is None:                  # no router: zeros, as the reference's
                 c = torch.zeros((max(cfg.n_experts, 1),), dtype=torch.int32,
                                 device=x.device)

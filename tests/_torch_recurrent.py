@@ -1,6 +1,7 @@
-"""Shared checks of the recurrent archs (jamba's Mamba, xLSTM's mLSTM and
-sLSTM) against the JAX package, for tests/test_torch_mamba.py and
-tests/test_torch_xlstm.py.
+"""Shared checks of served archs against the JAX package: the recurrent
+ones (jamba's Mamba, xLSTM's mLSTM and sLSTM) for tests/test_torch_mamba.py
+and tests/test_torch_xlstm.py, and the encoder-decoder and vision ones for
+tests/test_torch_encdec.py and tests/test_torch_vlm.py.
 
 Models run in fp32 with the reference's own weights carried across
 (``test_torch_models._pair``).  ``reference_generate`` runs the
@@ -17,6 +18,12 @@ blocking tick to the states the record holds, on the overlapped tick to a
 reference store driven beside it.  Before each tick of the overlapped
 stores the reference's update is waited for, so both adopt at the next
 tick (the port's CPU dispatch runs to completion).
+
+The prompt is ``prompt(cfg)``'s tokens, or ``inputs(cfg)``'s numpy batch:
+the tokens and, where the model takes them, vision patches ``frontend``
+(put in front of the prompt, so the caches and positions are that much
+longer) or encoder frames ``enc_input`` (ENC_LEN of them, a length other
+than the prompt's, filling the cross-attention caches).
 """
 import dataclasses
 import types
@@ -36,6 +43,7 @@ from repro_torch.models import build_model
 from repro_torch.serve import Server
 
 B, S, GEN, L = 2, 16, 12, 128      # generate: batch, prompt, new tokens, lanes a block
+ENC_LEN = 24                       # encoder frames (cross attention: Sk != Sq)
 SCRUB = 3
 REPORT_FIELDS = ("updated", "coalesced", "overflowed", "deadline_fired",
                  "scrubbed", "mismatches", "alarms")
@@ -51,6 +59,41 @@ def prompt(cfg):
     return np.random.default_rng(2).integers(0, cfg.vocab_size, (B, S)).astype(np.int32)
 
 
+def inputs(cfg) -> dict:
+    """The numpy batch of a generate: ``prompt``'s tokens, then from the
+    same generator the vision patches or the encoder frames (fp32)."""
+    rng = np.random.default_rng(2)
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32)}
+    if cfg.frontend == "vision":
+        batch["frontend"] = rng.standard_normal(
+            (B, cfg.frontend_len, cfg.d_model)).astype(np.float32)
+    if cfg.enc_dec:
+        batch["enc_input"] = rng.standard_normal((B, ENC_LEN, cfg.d_model)).astype(np.float32)
+    return batch
+
+
+def _batch(tokens) -> dict:
+    """A numpy batch from ``prompt``'s tokens or ``inputs``' batch."""
+    return dict(tokens) if isinstance(tokens, dict) else {"tokens": tokens}
+
+
+def lengths(tokens):
+    """``(patches, enc_len, max_len)`` of a batch: the vision patches in
+    front of the prompt, the encoder frames, and the caches' length."""
+    batch = _batch(tokens)
+    patches = batch["frontend"].shape[1] if "frontend" in batch else 0
+    enc_len = batch["enc_input"].shape[1] if "enc_input" in batch else 0
+    return patches, enc_len, patches + S + GEN + 1
+
+
+def jbatch(tokens) -> dict:
+    return {k: jnp.asarray(v) for k, v in _batch(tokens).items()}
+
+
+def tbatch(tokens) -> dict:
+    return {k: torch.from_numpy(v) for k, v in _batch(tokens).items()}
+
+
 def _snap(red):
     """numpy copies of a reference redundancy state's fields."""
     return {n: types.SimpleNamespace(**{f: np.array(getattr(r, f)) for f in RED_FIELDS})
@@ -63,9 +106,9 @@ def reference_generate(jm, jp, tokens):
     Returns its tokens and stats, the prefill's logits and flat numpy
     caches, each decode step's ``(logits, next tokens)``, and the ``(step,
     flat numpy caches)`` each tick saw."""
-    max_len = S + GEN + 1
+    _, enc_len, max_len = lengths(tokens)
     store = JStore(policy(JPolicy, False)).attach(
-        jflatten(jax.eval_shape(lambda: jm.init_caches(B, max_len, 0))))
+        jflatten(jax.eval_shape(lambda: jm.init_caches(B, max_len, enc_len))))
     srv = JServer(model=jm, store=store, max_len=max_len)
     rec = {"ticks": [], "decode": []}
     prefill, decode, tick = srv.prefill, srv.decode, store.tick
@@ -98,9 +141,8 @@ def reference_generate(jm, jp, tokens):
 
     srv.prefill, srv.decode, store.tick = recorded_prefill, recorded_decode, recorded_tick
     srv.init_redundancy = recorded_init
-    jtok, jstats = srv.generate(jp, {"tokens": jnp.asarray(tokens)}, GEN,
-                                scrub_every=SCRUB)
-    rec["tokens"], rec["stats"] = np.asarray(jtok), jstats
+    jtok, jstats = srv.generate(jp, jbatch(tokens), GEN, scrub_every=SCRUB)
+    rec["tokens"], rec["stats"], rec["batch"] = np.asarray(jtok), jstats, _batch(tokens)
     return rec
 
 
@@ -110,8 +152,8 @@ def port_runs(arch, jm, tm, tp, tokens, rec):
     them (the reference's caches as nested numpy trees)."""
     jl, jc, jpos = rec["prefill"]
     with torch.inference_mode():
-        tl, tc, tpos = tm.prefill(tp, {"tokens": torch.from_numpy(tokens)}, S + GEN + 1)
-        out = {"arch": arch, "jm": jm, "tm": tm,
+        tl, tc, tpos = tm.prefill(tp, tbatch(tokens), lengths(tokens)[2])
+        out = {"arch": arch, "jm": jm, "tm": tm, "pos": lengths(tokens)[0] + S,
                "prefill": (jl, junflatten(jc), jpos, tl.clone(),
                            {s: {k: t.clone() for k, t in c.items()} for s, c in tc.items()},
                            tpos)}
@@ -129,12 +171,11 @@ def check_generate(tm, tp, tokens, rec, async_tick):
     """The port's generate under a vilamb store: the reference's tokens, no
     mismatch, the settled dirty bitvectors equal, the caches close, and a
     clean scrub of the settled state."""
-    max_len = S + GEN + 1
+    _, enc_len, max_len = lengths(tokens)
     store = ProtectedStore(policy(RedundancyPolicy, async_tick), device="cpu").attach(
-        tm.cache_shapes(B, max_len))
+        tm.cache_shapes(B, max_len, enc_len))
     srv = Server(model=tm, store=store, max_len=max_len)
-    ttok, tstats = srv.generate(tp, {"tokens": torch.from_numpy(tokens)}, GEN,
-                                scrub_every=SCRUB)
+    ttok, tstats = srv.generate(tp, tbatch(tokens), GEN, scrub_every=SCRUB)
     jstats = rec["stats"]
     assert set(tstats) == set(jstats)
     np.testing.assert_array_equal(ttok.numpy(), rec["tokens"])
@@ -158,20 +199,20 @@ def replay_store(jm, tm, rec, async_tick):
     reference's from inside its decode step), tick, settle and flush.  On
     the blocking tick the reference's states are those the record holds;
     on the overlapped tick a reference store of its own runs beside."""
-    max_len = S + GEN + 1
+    patches, enc_len, max_len = lengths(rec["batch"])
     ts = ProtectedStore(policy(RedundancyPolicy, async_tick), device="cpu").attach(
-        tm.cache_shapes(B, max_len))
+        tm.cache_shapes(B, max_len, enc_len))
     js = None
     if async_tick:
         js = JStore(policy(JPolicy, True)).attach(
-            jflatten(jax.eval_shape(lambda: jm.init_caches(B, max_len, 0))))
+            jflatten(jax.eval_shape(lambda: jm.init_caches(B, max_len, enc_len))))
     leaves = rec["prefill"][1]
     jred = rec["init"] if js is None else js.init(jnp_leaves(leaves))
     tred = ts.init(convert.leaves_from_numpy(leaves, "cpu"))
     assert_red_equal(jred, tred, "init")
     updated = 0
     for step, leaves, jwritten, jticked, jrep in rec["ticks"]:
-        pos = S + step - 1
+        pos = patches + S + step - 1
         jl, tl = jnp_leaves(leaves), convert.leaves_from_numpy(leaves, "cpu")
         tred = ts.on_write(tred, events=tm.dirty_events_decode(unflatten_dict(tl), pos))
         if js is None:
@@ -203,7 +244,8 @@ def replay_store(jm, tm, rec, async_tick):
 
 def check_decode_equals_prefill(cfg, seed=1):
     """The port alone: one decode step after a prefill of S tokens gives
-    the logits of a prefill of the S + 1 tokens (fp32, no MoE drops), to
+    the logits of a prefill of the S + 1 tokens (fp32, no MoE drops; the
+    same patches or encoder frames in front or beside), to
     1e-4 of their scale as tests/test_decode_consistency.py holds the
     reference."""
     kw = {"param_dtype": "float32"}
@@ -211,13 +253,15 @@ def check_decode_equals_prefill(cfg, seed=1):
         kw["capacity_factor"] = float(cfg.n_experts)
     model = build_model(dataclasses.replace(cfg, **kw), "cpu")
     params = model.init(torch.Generator().manual_seed(seed))
+    batch = tbatch(inputs(cfg))
     tokens = torch.from_numpy(np.random.default_rng(5).integers(
         0, cfg.vocab_size, (B, S)).astype(np.int32))
+    max_len = lengths(inputs(cfg))[0] + 64
     with torch.inference_mode():
-        logits, caches, pos = model.prefill(params, {"tokens": tokens}, 64)
+        logits, caches, pos = model.prefill(params, dict(batch, tokens=tokens), max_len)
         tok = torch.argmax(logits, -1).to(torch.int32)
         got, _, _ = model.decode_step(params, caches, tok, pos)
-        want, _, _ = model.prefill(params, {"tokens": torch.cat([tokens, tok[:, None]], 1)},
-                                   64)
+        want, _, _ = model.prefill(
+            params, dict(batch, tokens=torch.cat([tokens, tok[:, None]], 1)), max_len)
     err = float((got - want).abs().max()) / (float(want.abs().max()) + 1e-9)
     assert err < 1e-4, f"{cfg.name}: rel err {err:.2e}"

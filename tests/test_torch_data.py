@@ -8,6 +8,7 @@ import dataclasses
 
 import numpy as np
 import pytest
+import torch
 
 from repro.configs import get_arch as jget_arch, get_smoke as jget_smoke
 from repro.data import SyntheticPipeline as JPipeline
@@ -64,10 +65,26 @@ def test_batch_shapes_match_the_reference_structs():
     assert SHAPES == {k: ShapeConfig(**dataclasses.asdict(v)) for k, v in JSHAPES.items()}
 
 
-@pytest.mark.parametrize("kind", [dict(frontend="vision"), dict(enc_dec=True)])
-def test_unported_inputs_are_refused(kind):
-    cfg = dataclasses.replace(get_smoke("llama3.2-3b"), **kind)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        SyntheticPipeline(cfg, ShapeConfig("t", 8, 1, "train"), device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        batch_shapes(cfg, SHAPES["train_4k"])
+@pytest.mark.parametrize("arch", ["internvl2-1b", "seamless-m4t-medium"])
+def test_multimodal_inputs_equal_the_reference_bitwise(arch):
+    """The vision patches and the encoder frames are drawn before the token
+    stream, in the reference's order: every key equal bit for bit, at the
+    full config's widths and the smoke's.  ``batch_shapes`` has the
+    reference structs' keys and shapes; its patches and frames are fp32,
+    as both pipelines yield them (the reference's structs say bf16)."""
+    for get, jget in ((get_arch, jget_arch), (get_smoke, jget_smoke)):
+        jp = JPipeline(jget(arch), JShape("t", 384, 2, "train"), seed=4)
+        tp = SyntheticPipeline(get(arch), ShapeConfig("t", 384, 2, "train"), seed=4,
+                               device="cpu")
+        jb, tb = jp.get(1), tp.get(1)
+        assert set(tb) == set(jb) and len(tb) == 3
+        for k in jb:
+            assert tb[k].dtype == {"int32": torch.int32, "float32": torch.float32}[
+                str(np.asarray(jb[k]).dtype)]
+            np.testing.assert_array_equal(tb[k].numpy(), np.asarray(jb[k]), err_msg=k)
+        got = batch_shapes(get(arch), ShapeConfig("t", 384, 2, "train"))
+        want = jbatch_structs(jget(arch), JShape("t", 384, 2, "train"))
+        assert {k: s.shape for k, s in got.items()} == \
+            {k: tuple(s.shape) for k, s in want.items()}
+        assert {k: tuple(v.shape) for k, v in tb.items()} == \
+            {k: s.shape for k, s in got.items()}

@@ -10,6 +10,8 @@ JAX side gets ``np.repeat(k, H // KV, axis=2)``, the head order of
 2e-5 in fp32 (summation order) and 2e-2 in bf16 (p is rounded to bf16
 before p . v, at other points than the reference's exact-softmax oracle).
 
+The cases with ``S = (Sq, Sk)`` give the keys a length of their own.
+
 ``tensor_map_layout`` (the TMA tensor maps' dims and byte strides, computed
 in the wrapper) is checked on the CPU, with the layouts it must copy.
 
@@ -62,12 +64,13 @@ def _card_close(got, want):
 
 
 def _inputs(seed, B, S, H, KV, hd, dtype):
-    """q (B, S, H, hd), k and v (B, S, KV, hd) as numpy arrays of ``dtype``
-    (bf16 through ml_dtypes)."""
+    """q (B, Sq, H, hd), k and v (B, Sk, KV, hd) as numpy arrays of
+    ``dtype`` (bf16 through ml_dtypes); ``S`` is Sq = Sk, or (Sq, Sk)."""
+    Sq, Sk = S if isinstance(S, tuple) else (S, S)
     rng = np.random.default_rng(seed)
-    q = rng.standard_normal((B, S, H, hd), dtype=np.float32)
-    k = rng.standard_normal((B, S, KV, hd), dtype=np.float32)
-    v = rng.standard_normal((B, S, KV, hd), dtype=np.float32)
+    q = rng.standard_normal((B, Sq, H, hd), dtype=np.float32)
+    k = rng.standard_normal((B, Sk, KV, hd), dtype=np.float32)
+    v = rng.standard_normal((B, Sk, KV, hd), dtype=np.float32)
     if dtype == "bfloat16":
         import ml_dtypes
         q, k, v = (x.astype(ml_dtypes.bfloat16) for x in (q, k, v))
@@ -93,9 +96,17 @@ def _f32(x) -> np.ndarray:
     (1, 256, 8, 2, 64, True, "bfloat16"),
     (2, 96, 3, 1, 128, False, "bfloat16"),
     (2, 128, 4, 2, 128, True, "bfloat16"),
+    # (Sq, Sk): a key length of its own (cross attention over an encoder
+    # memory); the Pallas kernel takes Sk % min(256, Sk) == 0.
+    (2, (64, 256), 4, 2, 64, True, "float32"),
+    (2, (64, 256), 4, 2, 64, False, "float32"),
+    (1, (256, 96), 6, 3, 32, True, "float32"),
+    (1, (256, 96), 6, 3, 32, False, "float32"),
+    (1, (96, 512), 4, 4, 128, False, "bfloat16"),
+    (2, (256, 64), 4, 1, 64, True, "bfloat16"),
 ])
 def test_plain_vs_pallas(jflash, B, S, H, KV, hd, causal, dtype):
-    q, k, v = _inputs(B * S + H, B, S, H, KV, hd, dtype)
+    q, k, v = _inputs(B * q_len(S) + H, B, S, H, KV, hd, dtype)
     G = H // KV
     want = jflash.ops.flash_attention(
         jflash.jnp.asarray(q), jflash.jnp.asarray(np.repeat(k, G, axis=2)),
@@ -103,8 +114,24 @@ def test_plain_vs_pallas(jflash, B, S, H, KV, hd, causal, dtype):
         use_pallas=True, interpret=True)
     tq, tk, tv = _torch((q, k, v))
     got = tops.flash_attention(tq, tk, tv, causal=causal)
-    assert got.dtype == tq.dtype and tuple(got.shape) == (B, S, H, hd)
+    assert got.dtype == tq.dtype and tuple(got.shape) == (B, q_len(S), H, hd)
     np.testing.assert_allclose(_f32(got), _f32(want), rtol=TOL[dtype], atol=TOL[dtype])
+
+
+def q_len(S) -> int:
+    return S[0] if isinstance(S, tuple) else S
+
+
+def test_plain_keys_past_sk_and_the_absolute_causal_mask():
+    """Sq > Sk: rows past Sk see every key; causal rows r < Sk see keys
+    c <= r, as in the TPU kernel's absolute-index mask."""
+    tq, tk, tv = _torch(_inputs(5, 1, (48, 20), 2, 1, 32, "float32"))
+    causal = tref.attention(tq, tk, tv, causal=True)
+    full = tref.attention(tq, tk, tv, causal=False)
+    assert torch.equal(causal[:, 20:], full[:, 20:])
+    assert not torch.equal(causal[:, :19], full[:, :19])
+    one = tref.attention(tq[:, :1], tk[:, :1], tv[:, :1], causal=False)
+    np.testing.assert_allclose(causal[:, :1].numpy(), one.numpy(), rtol=1e-6, atol=1e-6)
 
 
 def test_cpu_wrapper_is_the_plain_version():
@@ -129,9 +156,12 @@ def test_plain_causal_rows_ignore_later_keys():
 
 @pytest.mark.parametrize("shapes", [
     ((1, 8, 4, 16), (1, 8, 3, 16), (1, 8, 3, 16)),     # H % KV != 0
-    ((1, 8, 4, 16), (1, 9, 2, 16), (1, 9, 2, 16)),     # S differs
+    ((1, 8, 4, 16), (2, 9, 2, 16), (2, 9, 2, 16)),     # B differs
     ((1, 8, 4, 16), (1, 8, 2, 16), (1, 8, 2, 32)),     # k, v differ
     ((8, 4, 16), (8, 2, 16), (8, 2, 16)),              # not 4-d
+    ((1, 8, 4, 16), (1, 9, 2, 16), (1, 8, 2, 16)),     # k, v differ in length
+    ((1, 8, 4, 16), (1, 0, 2, 16), (1, 0, 2, 16)),     # Sk < 1
+    ((1, 0, 4, 16), (1, 8, 2, 16), (1, 8, 2, 16)),     # Sq < 1
 ])
 def test_wrapper_rejects_bad_shapes(shapes):
     q, k, v = (torch.zeros(s) for s in shapes)
@@ -202,6 +232,23 @@ def test_flash_kernel_on_card(cuda_device, S, hd, group, causal):
     assert tops.LAUNCHES == before + 1
     want = tref.attention(q, k, v, causal=causal)
     _card_close(got, want)
+
+
+@pytest.mark.parametrize("Sq,Sk", [(1, 17), (129, 1000), (1000, 129), (200, 383),
+                                   (383, 128)])
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_kernel_cross_lengths_on_card(cuda_device, Sq, Sk, hd, causal):
+    """A key length other than the query's, ragged on both sides of the
+    128-row tiles (cross attention over an encoder memory), 8 query heads
+    in 4 / 2 groups."""
+    q, k, v = _torch(_inputs(Sq + Sk + hd, 2, (Sq, Sk), 8, 2, hd, "bfloat16"),
+                     cuda_device)
+    before = tops.LAUNCHES
+    got = tops.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert tops.LAUNCHES == before + 1 and tuple(got.shape) == (2, Sq, 8, hd)
+    _card_close(got, tref.attention(q, k, v, causal=causal))
 
 
 def test_flash_kernel_fp16_and_strided_on_card(cuda_device):

@@ -33,7 +33,9 @@ ARCHS = ["llama3.2-3b", "glm4-9b", "olmo-1b", "nemotron-4-15b",
 # Served and held against the reference in tests/test_torch_mamba.py and
 # tests/test_torch_xlstm.py, which reuse this file's helpers.
 RECURRENT_ARCHS = ["jamba-1.5-large-398b", "xlstm-1.3b"]
-NOT_PORTED = ["seamless-m4t-medium", "internvl2-1b"]
+# Served and trained, and held against the reference, in
+# tests/test_torch_encdec.py and tests/test_torch_vlm.py.
+MULTIMODAL_ARCHS = ["seamless-m4t-medium", "internvl2-1b"]
 RTOL = ATOL = 1e-5
 B, S, STEPS = 2, 16, 8
 
@@ -86,7 +88,7 @@ def runs(request):
 
 
 # ------------------------------------------------------------ configs
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + MULTIMODAL_ARCHS)
 @pytest.mark.parametrize("smoke", [False, True])
 def test_config_matches_reference(arch, smoke):
     jc = (jget_smoke if smoke else jget_arch)(arch)
@@ -107,18 +109,23 @@ def test_llama_full_config():
         (28, 3072, 24, 8, 128, 8192)
     assert (c.vocab_size, c.padded_vocab, c.rope_theta, c.tie_embeddings,
             c.param_dtype) == (128256, 129024, 5e5, True, "bfloat16")
-    assert sorted(list_archs()) == sorted(ARCHS + RECURRENT_ARCHS)
+    assert sorted(list_archs()) == sorted(ARCHS + RECURRENT_ARCHS + MULTIMODAL_ARCHS)
 
 
-@pytest.mark.parametrize("arch", NOT_PORTED)
-def test_other_archs_raise_naming_the_roadmap(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue 1 item"):
-        get_arch(arch)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        get_smoke(arch)
+@pytest.mark.parametrize("arch", MULTIMODAL_ARCHS)
+def test_multimodal_archs_resolve_to_the_reference_config(arch):
+    """Both resolve in the port, to the reference's configs (full and
+    smoke), and build; an unknown name still raises."""
+    for get, jget in ((get_arch, jget_arch), (get_smoke, jget_smoke)):
+        c, jc = get(arch), jget(arch)
+        assert {f.name: getattr(c, f.name) for f in dataclasses.fields(c)} == \
+            {f.name: getattr(jc, f.name) for f in dataclasses.fields(c)}
+        assert build_model(c, "meta").cfg is c
+    with pytest.raises(KeyError, match="unknown arch"):
+        get_arch(arch + "-x")
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + MULTIMODAL_ARCHS)
 def test_param_tree_matches_reference(arch):
     """Names, shapes and dtypes of Model.init, at the full config."""
     jm = jbuild(jget_arch(arch))
@@ -189,7 +196,7 @@ def test_layernorms_match_reference(dtype):
     _close(tlayers.nonparam_ln(t), jlayers.nonparam_ln(jnp.asarray(a)), LAYER_TOL[dtype])
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + MULTIMODAL_ARCHS)
 def test_make_norm_matches_reference(arch):
     jcfg, tcfg = jget_smoke(arch), get_smoke(arch)
     jinit, japply = jlayers.make_norm(jcfg)
@@ -261,7 +268,7 @@ def test_decode_attention_matches_reference():
 # ------------------------------------------------------------ whole model
 def test_prefill_matches_reference(runs):
     jl, jc, jpos, tl, tc, tpos = runs["prefill"]
-    assert tpos == jpos == S
+    assert tpos == jpos == runs.get("pos", S)
     assert tl.shape == (B, runs["tm"].cfg.padded_vocab)
     _close(tl, jl, msg=f"{runs['arch']} prefill logits")
     assert set(tc) == set(jc)
@@ -298,15 +305,15 @@ def test_dirty_events_decode_match_reference(runs):
 
 
 def test_build_model_refuses_unported_kinds():
-    """What the port still refuses: the encoder-decoder stack, the vision
-    front end, and training through a recurrent slot."""
-    enc_dec = dataclasses.replace(get_smoke("llama3.2-3b"), enc_dec=True)
-    with pytest.raises(NotImplementedError,
-                       match="encoder-decoder stack: ROADMAP.md, Queue 1 item 5"):
-        build_model(enc_dec, "cpu")
-    vision = dataclasses.replace(get_smoke("llama3.2-3b"), frontend="vision")
-    with pytest.raises(NotImplementedError, match="vision front end: ROADMAP.md, Queue 1 item 5"):
-        build_model(vision, "cpu")
+    """What the port still refuses: training through a recurrent slot.
+    The encoder-decoder stack and the vision front end build (a llama
+    smoke config with either switched on, its tree the reference's)."""
+    for kind in (dict(enc_dec=True), dict(frontend="vision", frontend_len=4)):
+        cfg = dataclasses.replace(get_smoke("llama3.2-3b"), **kind)
+        want = jax.eval_shape(lambda: jbuild(dataclasses.replace(
+            jget_smoke("llama3.2-3b"), **kind)).init(jax.random.PRNGKey(0)))
+        got = build_model(cfg, "meta").init()
+        assert set(flatten_dict(got)) == set(jflatten(want)), kind
     xlstm = dataclasses.replace(get_smoke("llama3.2-3b"), ssm_kind="xlstm",
                                 slstm_every=2, n_layers=4, param_dtype="float32")
     model = build_model(xlstm, "cpu")
