@@ -254,7 +254,32 @@ Phases, each of which must pass or the script exits non-zero:
    1 x 4,096 (2,048 frames and 2,048 tokens, the reference's split) under
    phase 9's store and determinism settings, a flush and a clean scrub,
    and the same steps with the blocking and no store: losses and final
-   params checksums bitwise equal; the median step and the peak.
+   params checksums bitwise equal; the median step and the peak;
+19. xLSTM training: xlstm-1.3b at full size (48 layers, 42 mLSTM and 6
+   sLSTM, 1,217,335,488 random bf16 params) through ``Trainer.run`` with
+   phase 9's batch, data, schedule, store and determinism settings, each
+   chunk of the scans checkpointed inside each slot's checkpoint: 8 steps
+   under the overlapped store (the due tick at 8, traced), a flush and a
+   clean scrub, a chunked plain recompute of every checksum and parity
+   row, one flipped lane in an sLSTM params leaf and one in an mLSTM m/
+   leaf found and rebuilt bitwise; K1, K2 and K3 launched, flash never.
+   Then the blocking and no store: losses and params checksums bitwise
+   equal to the overlapped run's, over 8 steps, or 4 where the median step
+   exceeds 8 s.  Timed: the median step, the due tick's host ms, K3 in the
+   due tick against its bound, the trace of step 8 (device-busy share,
+   launches, top kernels), one sLSTM and one mLSTM slot's forward and
+   backward alone in turns (each kind's share of the mixers' time), the
+   peak and the model-FLOP share;
+20. hybrid training: jamba's Mamba mixer at full width (slot 0 of phase
+   15's config: d 8,192, d_inner 16,384, dt_rank 512, random bf16 weights)
+   on x (1, 4,096, 8,192) bf16 with a fixed random cotangent, forward and
+   backward with the per-chunk checkpoint, without, and with again: every
+   gradient finite and bitwise equal, each run's ms and peak (the
+   unchecked run's 35 GiB fits the card); then jamba's smoke
+   config (16 layers of d 64, 4 experts: Mamba, attention and MoE slots)
+   trained 8 steps through ``Trainer.run`` with the overlapped store (the
+   due tick at 8, a flush and a clean scrub), the blocking and no store:
+   losses and params checksums bitwise equal.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 the per-kernel JSON record.  All data comes from ``--seed``.
@@ -286,7 +311,7 @@ import torch  # noqa: E402
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch.common import flatten_dict, replace_leaves  # noqa: E402
-from repro_torch.configs import get_arch  # noqa: E402
+from repro_torch.configs import get_arch, get_smoke  # noqa: E402
 from repro_torch.core import LeafPolicy, ProtectedStore, RedundancyPolicy  # noqa: E402
 from repro_torch.core import bits, blocks  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
@@ -296,10 +321,13 @@ from repro_torch.kernels.parity import ops as par_ops, ref as par_ref  # noqa: E
 from repro_torch.kernels.redundancy import ops as fu_ops, ref as fu_ref  # noqa: E402
 from repro_torch.data import SyntheticPipeline  # noqa: E402
 from repro_torch.models import Model, ShapeConfig, attention, build_model, layers  # noqa: E402
+from repro_torch.models import mamba as mamba_mod, transformer as tfm  # noqa: E402
 from repro_torch.models.transformer import slot_kinds  # noqa: E402
 from repro_torch.optim import AdamW, warmup_cosine  # noqa: E402
 from repro_torch.serve import Server  # noqa: E402
 from repro_torch.train import Trainer, protected_leaves, protected_structs  # noqa: E402
+from repro_torch.train.train_loop import deterministic  # noqa: E402
+from torch.utils.checkpoint import checkpoint  # noqa: E402
 
 # H100 SXM peaks at 700 W: the HBM3 rate (NVIDIA data sheet), and the
 # INT32 rate for the kernels' integer operations: 132 SMs x 64 INT32
@@ -391,6 +419,18 @@ VLM_ARCH, VLM_PARAMS, VLM_CORRUPT = "internvl2-1b", 633_121_664, ("slot_0/k",)
 ENCDEC_ARCH, ENCDEC_PARAMS, ENC_FRAMES = "seamless-m4t-medium", 880_930_816, 6144
 ENCDEC_CORRUPT = ("slot_0/k", "slot_0/ck")      # a self and a cross cache
 ENCDEC_TRAIN_STEPS = 4
+
+# Phases 19-20, training through the recurrent mixers: xlstm-1.3b at full
+# size with phase 9's batch, data, schedule and store, XLSTM_TRAIN_STEPS
+# with the overlapped store (the due tick at 8), then as many with the
+# blocking and with no store, or XLSTM_SHORT_STEPS each where the median
+# step exceeds XLSTM_LONG_STEP_MS; jamba's Mamba mixer at full width (slot
+# 0 of hybrid_config()) on (1, MAMBA_SEQ, 8,192) bf16, with and without the
+# per-chunk checkpoint; jamba's smoke config trained through Trainer.run.
+XLSTM_TRAIN_STEPS, XLSTM_SHORT_STEPS, XLSTM_LONG_STEP_MS = 8, 4, 8000.0
+XLSTM_TRAIN_CORRUPT = ("params/stack/slot_7/slstm/wq", "m/stack/slot_0/mlstm/wq")
+MAMBA_SEQ = 4096
+HYBRID_SMOKE_STEPS, HYBRID_SMOKE_SEQ, HYBRID_SMOKE_BATCH = 8, 256, 2
 
 # K3 before its Hopper redesign (PERF.md, PR 20's final chip run on the
 # H100 80GB HBM3 at 700 W), printed beside this run's times: ms.
@@ -1440,17 +1480,23 @@ def phase_flash_time(serve: dict, err: float):
                                   "library_ms")}}, t)
 
 
+def busy_union(spans) -> float:
+    """The length of the union of ``(start, end)`` intervals."""
+    busy, end = 0, None
+    for s0, s1 in sorted(spans):
+        if end is None or s0 > end:
+            busy, end = busy + (s1 - s0), s1
+        elif s1 > end:
+            busy, end = busy + (s1 - end), s1
+    return busy
+
+
 def busy_share(prof, window_us: float) -> dict:
     """The union of every kernel's device interval in a trace (all
     streams), over the traced window's wall time, and the kernels that take
     the most device time."""
     kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy, end = 0.0, None
-    for s0, s1 in sorted((e.time_range.start, e.time_range.end) for e in kernels):
-        if end is None or s0 > end:
-            busy, end = busy + (s1 - s0), s1
-        elif s1 > end:
-            busy, end = busy + (s1 - end), s1
+    busy = busy_union((e.time_range.start, e.time_range.end) for e in kernels)
     by_kernel: dict = {}
     for e in kernels:
         by_kernel[e.name[:90]] = by_kernel.get(e.name[:90], 0.0) + e.time_range.elapsed_us() / 1e3
@@ -1702,13 +1748,14 @@ def train_observe(model, data, opt, structs, seed: int, kind: str,
     return out
 
 
-def train_corruption(store, leaves: dict, red: dict) -> dict:
-    """One corrupted lane in an m/ leaf and one in a params/ leaf: scrub
-    flags exactly those two blocks, ``recover_block`` (outside autograd)
-    rebuilds each bitwise from parity in place, and a rescrub is clean."""
+def train_corruption(store, leaves: dict, red: dict, names=None) -> dict:
+    """One corrupted lane in each leaf of ``names`` (TRAIN_CORRUPT's m/ and
+    params/ leaf by default): scrub flags exactly those blocks,
+    ``recover_block`` (outside autograd) rebuilds each bitwise from parity
+    in place, and a rescrub is clean."""
     g = torch.Generator(device=DEVICE).manual_seed(len(leaves))
     saved = {}
-    for name in TRAIN_CORRUPT:
+    for name in TRAIN_CORRUPT if names is None else names:
         meta = store.metas[name]
         lanes = blocks.to_lanes(leaves[name], meta)
         check(lanes.data_ptr() == leaves[name].data_ptr(), f"{name}: lane view is a copy")
@@ -4008,6 +4055,380 @@ def print_train_encdec(r: dict) -> None:
           f"equal for the overlapped, blocking and no store", flush=True)
 
 
+# ----------------------------------------------------------- phases 19-20
+def kernel_events(prof) -> list:
+    """``(name, stream, start ns, end ns)`` of every device activity in a
+    trace, read from kineto's records directly: a traced xLSTM step holds
+    some 340,000 kernels besides their runtime calls, too many to build
+    ``prof.events()`` from in the script's time."""
+    res = getattr(prof.profiler, "kineto_results", None)
+    if res is None:
+        return []
+    return [(e.name(), e.device_resource_id(), e.start_ns(), e.end_ns())
+            for e in res.events() if e.device_type() == torch.autograd.DeviceType.CUDA]
+
+
+def kernels_summary(kernels: list, window_ms: float) -> dict:
+    """The union of the device intervals over the traced window, the
+    launches, K3's device time, and the kernels that take the most time."""
+    busy = busy_union((k[2], k[3]) for k in kernels)
+    by_kernel: dict = {}
+    for name, _, s0, s1 in kernels:
+        by_kernel[name[:90]] = by_kernel.get(name[:90], 0.0) + (s1 - s0) / 1e6
+    k3 = [k for k in kernels if "fused_update_kernel" in k[0]]
+    if not kernels:
+        return {"window_ms": window_ms, "kernels": 0, "device_busy_ms": "not measured",
+                "device_busy_share": "not measured", "fused_update_ms": "not measured"}
+    return {"window_ms": window_ms, "kernels": len(kernels), "device_busy_ms": busy / 1e6,
+            "device_busy_share": busy / 1e6 / window_ms,
+            "fused_update_launches": len(k3),
+            "fused_update_ms": sum(k[3] - k[2] for k in k3) / 1e6,
+            "top_kernels_ms": dict(sorted(by_kernel.items(), key=lambda kv: -kv[1])[:10])}
+
+
+def due_tick_bound(store, words: dict) -> dict:
+    """K3's bound for a due tick from the snapshot it consumed (``words``,
+    each leaf's packed in-flight bits): every dirty stripe's members read,
+    its parity row and its blocks' checksums written, the words read."""
+    n_bytes = ops = stripes = 0
+    for n, w in words.items():
+        meta = store.metas[n]
+        P, L = meta.stripe_data_blocks, meta.lanes_per_block
+        ns = words_stripes(w, meta.n_blocks, P)
+        n_bytes += ns * P * L * 4 + ns * L * 4 + ns * P * 4 + w.numel() * 4
+        ops += ns * P * L * 13
+        stripes += ns
+    bms, by = bound(n_bytes, ops)
+    return {"stripes": stripes, "gb": n_bytes / 1e9, "bound_ms": bms, "bound_by": by}
+
+
+def xlstm_flops(cfg, n_params: int) -> float:
+    """Model FLOPs of one step: 6 N per token, plus each mLSTM layer's
+    chunkwise products (the intra-chunk q k and scores v over 256 keys,
+    masked half included, and the inter-chunk reads and updates of the
+    hd x hd state), three times (forward and backward).  The per-slot and
+    per-chunk recomputes are not counted."""
+    tokens, d = TRAIN_BATCH * TRAIN_SEQ, cfg.d_model
+    hd = d // cfg.n_heads
+    chunk = min(256, TRAIN_SEQ)
+    per_layer = 2 * 2 * tokens * chunk * d + 2 * 2 * tokens * d * hd
+    n_mlstm = sum(cfg.layer_kind(i) == "mlstm" for i in range(cfg.n_layers))
+    return 6 * n_params * tokens + 3 * per_layer * n_mlstm
+
+
+def slots_alone_ms(cfg, params, slots: dict, g, reps: int = 4) -> dict:
+    """Host ms (synchronised) of one slot's forward and backward alone at
+    the training batch's shape, as training runs it (the per-slot
+    checkpoint around the mixer's per-chunk ones, under the deterministic
+    mode), for each named slot of ``slots``: the slots in turns, ``reps``
+    rounds after a warm-up, the median of each (the host is shared, so
+    turns keep a slow stretch from landing on one slot alone)."""
+    runs: dict = {}
+    for name, slot in slots.items():
+        mixer, ffn = slot_kinds(cfg)[slot]
+        p = tfm._unbind(params["stack"][f"slot_{slot}"], cfg.n_groups)[0]
+        alias = {n: t.detach().requires_grad_() for n, t in flatten_dict(p).items()}
+        x = torch.randn(TRAIN_BATCH, TRAIN_SEQ, cfg.d_model, generator=g,
+                        device=DEVICE).to(torch.bfloat16).requires_grad_()
+        ct = torch.randn(x.shape, generator=g, device=DEVICE).to(torch.bfloat16)
+        runs[name] = (replace_leaves(p, alias), alias, x, ct, mixer, ffn)
+    times: dict = {name: [] for name in slots}
+    for _ in range(reps + 1):
+        for name, (p, alias, x, ct, mixer, ffn) in runs.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with deterministic():
+                y, _, _ = checkpoint(tfm._slot_train, p, x, None, cfg, mixer, ffn, True,
+                                     use_reentrant=False)
+                torch.autograd.grad(y, [x, *alias.values()], ct, materialize_grads=True)
+            torch.cuda.synchronize()
+            times[name].append((time.perf_counter() - t0) * 1e3)
+    return {name: statistics.median(t[1:]) for name, t in times.items()}
+
+
+def phase_train_xlstm(seed: int) -> dict:
+    """Phase 19: xlstm-1.3b trained at full size through ``Trainer.run``
+    (see the module docstring).  Returns the phase's record."""
+    from torch.profiler import ProfilerActivity, profile
+    t_phase = time.perf_counter()
+    cfg = xlstm_config()
+    model = build_model(cfg, DEVICE)
+    data = SyntheticPipeline(cfg, ShapeConfig("train_4k_batch1", TRAIN_SEQ, TRAIN_BATCH,
+                                              "train"), seed=seed, device=DEVICE)
+    opt = AdamW(lr=warmup_cosine(1e-3, 10, TRAIN_STEPS), moment_dtype=cfg.moment_dtype)
+    meta = Model(cfg, torch.device("meta")).init()
+    structs = protected_structs(meta, opt.init(meta))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    k3_streams, restore_k3 = record_k3()
+    reset_launches()
+    try:
+        trainer = train_trainer(model, opt, structs, "async")
+        store = trainer.store
+        check(store.policy.async_tick, "the training store is not on the overlapped tick")
+        ticks = host_timed_ticks(store)
+        state = trainer.init_state(torch.Generator(device=DEVICE).manual_seed(seed))
+        n_params = n_params_of(state.params)
+        check(n_params == XLSTM_PARAMS, f"{n_params} params, want {XLSTM_PARAMS}")
+        k3_first = len(k3_streams)            # attach's warmup and init before
+        rec: dict = {}
+        sums: dict = {}
+        snapshot: dict = {}
+        recorder = step_recorder(trainer, rec)
+
+        def on_step(st, metrics):
+            recorder(st, metrics)
+            if st.step == XLSTM_SHORT_STEPS:   # the short runs' comparison point
+                with uncounted():
+                    sums[st.step] = params_checksums(st)
+                rec["last"] = time.perf_counter()
+            if st.step == XLSTM_TRAIN_STEPS:   # the due tick's snapshot, in flight
+                snapshot.update({n: r.shadow.clone() for n, r in st.red.items()})
+        torch.cuda.synchronize()
+        rec["last"] = time.perf_counter()
+        state = trainer.run(state, data, XLSTM_TRAIN_STEPS - 1, on_step=on_step)
+        torch.cuda.synchronize()
+        t0 = rec["last"] = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            state = trainer.run(state, data, 1, on_step=on_step)   # step 8, due
+            torch.cuda.synchronize()
+        window_ms = (time.perf_counter() - t0) * 1e3
+        kernels = kernel_events(prof)
+        del prof
+        tick_k3 = k3_streams[k3_first:]
+        with uncounted():
+            sums[XLSTM_TRAIN_STEPS] = params_checksums(state)
+        state, flush_ms = timed(lambda: trainer.flush(state))
+        scrub_mm, scrub_ms = timed(lambda: trainer.scrub_check(state))
+        torch.cuda.synchronize()
+        launches = read_launches()
+    finally:
+        restore_k3()
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    trace = kernels_summary(kernels, window_ms)
+    del kernels
+    losses = torch.stack(rec["losses"]).float()
+    loss_list = losses.tolist()
+    check(len(loss_list) == XLSTM_TRAIN_STEPS and bool(torch.isfinite(losses).all()),
+          f"losses {loss_list}")
+    due = [t["step"] for t in ticks if t["updated"]]
+    scrubbed = [t["step"] for t in ticks if t["scrubbed"]]
+    check(due == [XLSTM_TRAIN_STEPS] and not scrubbed, f"due ticks {due}, scrubs {scrubbed}")
+    check(trainer.corruption_alarms == 0 and scrub_mm == 0,
+          f"alarms {trainer.corruption_alarms}, scrub after flush {scrub_mm}")
+    check(tick_k3 and all(c[0] == store._side_stream() for c in tick_k3),
+          "the due tick's fused update ran off the training store's side stream")
+    check(launches["flash_attn"] == 0, "training xLSTM launched the flash kernel")
+    for name in ("checksum", "parity", "fused_update"):
+        check(launches[name] > 0, f"{name} kernel never launched training {cfg.name}")
+    k3_due = due_tick_bound(store, snapshot)
+    del snapshot
+    leaves = protected_leaves(state.params, state.opt)
+    phase_full_check(store, leaves, state.red)
+    corrupt = train_corruption(store, leaves, state.red, XLSTM_TRAIN_CORRUPT)
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    n_slstm = sum(k == "slstm" for k in map(cfg.layer_kind, range(cfg.n_layers)))
+    slot_ms = slots_alone_ms(cfg, state.params, {"slstm": cfg.slstm_every - 1, "mlstm": 0}, g)
+    mixers_ms = {"slstm": n_slstm * slot_ms["slstm"],
+                 "mlstm": (cfg.n_layers - n_slstm) * slot_ms["mlstm"]}
+    median_ms = statistics.median(rec["wall_ms"][1:XLSTM_TRAIN_STEPS - 1])
+    main = {
+        "losses": loss_list, "loss_bits": losses.view(torch.int32).clone(),
+        "step_wall_ms": rec["wall_ms"], "median_step_ms": median_ms,
+        "launches": launches, "n_params": n_params,
+        "due_ticks": [{k: t[k] for k in ("step", "ms", "dispatch_ms", "scrub_ms")}
+                      for t in ticks if t["updated"]],
+        "quiet_tick_host_ms_mean": statistics.mean(t["ms"] for t in ticks
+                                                   if not t["updated"]),
+        "trace_step_8": trace, "k3_due_tick": {**k3_due, "ms": trace["fused_update_ms"]},
+        "flush_ms": flush_ms, "scrub_check_ms": scrub_ms, "peak_mem_gib": peak_gib,
+        "memory_gb": {"state": sum(t.numel() * t.element_size() for t in leaves.values()) / 1e9,
+                      "parity": sum(r.parity.numel() * 4 for r in state.red.values()) / 1e9,
+                      "leaves": len(leaves),
+                      "blocks": sum(m.n_blocks for m in store.metas.values())},
+        "corruption": corrupt,
+        "slot_alone_ms": slot_ms,
+        # Each kind's share of the mixers' time (every slot of a kind timed
+        # as the one alone), and that time over the median step.
+        "slstm_share": mixers_ms["slstm"] / sum(mixers_ms.values()),
+        "mlstm_share": mixers_ms["mlstm"] / sum(mixers_ms.values()),
+        "mixers_over_step": sum(mixers_ms.values()) / median_ms,
+    }
+    if not isinstance(trace["fused_update_ms"], str) and trace["fused_update_ms"] > 0:
+        main["k3_due_tick"]["share_of_bound"] = k3_due["bound_ms"] / trace["fused_update_ms"]
+    del trainer, store, state, leaves, on_step, recorder
+    gc.collect()
+    torch.cuda.empty_cache()
+    steps = XLSTM_TRAIN_STEPS if median_ms <= XLSTM_LONG_STEP_MS else XLSTM_SHORT_STEPS
+    want_bits, want_sums = main["loss_bits"][:steps], sums[steps]
+    obs = {}
+    for kind in ("blocking", "none"):
+        o = train_observe(model, data, opt, structs, seed, kind, steps=steps)
+        gc.collect()
+        torch.cuda.empty_cache()
+        check(torch.equal(o["loss_bits"], want_bits),
+              f"xLSTM losses differ between the overlapped store and {kind}: "
+              f"{loss_list[:steps]} vs {o['losses']}")
+        check(o["checksums"].keys() == want_sums.keys()
+              and all(torch.equal(v, want_sums[n]) for n, v in o["checksums"].items()),
+              f"final xLSTM params checksums differ between the overlapped store and {kind}")
+        o["median_step_ms"] = statistics.median(o["step_wall_ms"][1:])
+        del o["loss_bits"], o["checksums"]
+        obs[kind] = o
+    del main["loss_bits"]
+    flops = xlstm_flops(cfg, n_params)
+    main["model_flops_per_step"] = flops
+    main["model_flop_share"] = flops / (median_ms / 1e3) / BF16_FLOPS_PER_SEC
+    if not isinstance(trace["device_busy_ms"], str):
+        trace["device_busy_share_of_untraced_step"] = trace["device_busy_ms"] / median_ms
+    return {"main": main, "observe": obs, "compared_steps": steps,
+            "phase_s": time.perf_counter() - t_phase}
+
+
+def mamba_layer_run(params, x, ct, cfg, remat: str):
+    """One forward and backward of the Mamba mixer on ``x`` with the
+    cotangent ``ct`` under the deterministic mode: ``(y, grads of x and
+    every parameter, host ms synchronised, peak GiB above what was
+    allocated before)``."""
+    cfg = dataclasses.replace(cfg, remat=remat)
+    alias = {k: v.detach().requires_grad_() for k, v in params.items()}
+    xa = x.detach().requires_grad_()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    with deterministic():
+        y, _ = mamba_mod.mamba_apply(alias, xa, cfg)
+        grads = torch.autograd.grad(y, [xa, *alias.values()], ct)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    return y.detach(), grads, ms, (torch.cuda.max_memory_allocated() - base) / 2**30
+
+
+def phase_train_hybrid(seed: int) -> dict:
+    """Phase 20: jamba's Mamba mixer at full width, forward and backward
+    with and without the per-chunk checkpoint (bitwise equal gradients),
+    then jamba's smoke config trained through ``Trainer.run`` with each
+    store (see the module docstring).  Returns the phase's record."""
+    t_phase = time.perf_counter()
+    cfg = hybrid_config()
+    check(cfg.layer_kind(0) == "mamba", f"slot 0 of {cfg.name} is {cfg.layer_kind(0)}")
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    params = mamba_mod.mamba_init(g, cfg, torch.bfloat16, DEVICE)
+    n_params = sum(p.numel() for p in params.values())
+    x = torch.randn(1, MAMBA_SEQ, cfg.d_model, generator=g, device=DEVICE).to(torch.bfloat16)
+    ct = torch.randn(x.shape, generator=g, device=DEVICE).to(torch.bfloat16)
+    runs = [mamba_layer_run(params, x, ct, cfg, r) for r in ("full", "none", "full")]
+    (y0, g0, _, _), (y1, g1, ms_none, peak_none), (y2, g2, ms_full, peak_full) = runs
+    check(torch.equal(y0, y1) and torch.equal(y0, y2), "the Mamba layer's output differs "
+          "with and without the per-chunk checkpoint")
+    for n, a, b, c in zip(["x"] + list(params), g0, g1, g2):
+        check(bool(torch.isfinite(a).all()), f"the Mamba gradient of {n} is not finite")
+        check(torch.equal(a, b) and torch.equal(a, c),
+              f"the Mamba gradient of {n} differs with and without the per-chunk checkpoint")
+    layer = {"seq": MAMBA_SEQ, "d_model": cfg.d_model, "n_params": n_params,
+             "ms_checkpointed": ms_full, "ms_unchecked": ms_none, "ms_first": runs[0][2],
+             "peak_gib_checkpointed": peak_full, "peak_gib_unchecked": peak_none,
+             "inputs_gib": (n_params * 2 + 2 * x.numel() * 2) / 2**30}
+    del runs, y0, y1, y2, g0, g1, g2
+    del params, x, ct
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    smoke = get_smoke(HYBRID_ARCH)
+    model = build_model(smoke, DEVICE)
+    data = SyntheticPipeline(smoke, ShapeConfig("hybrid_smoke", HYBRID_SMOKE_SEQ,
+                                                HYBRID_SMOKE_BATCH, "train"),
+                             seed=seed, device=DEVICE)
+    opt = AdamW(lr=warmup_cosine(1e-3, 10, TRAIN_STEPS), moment_dtype=smoke.moment_dtype)
+    meta = Model(smoke, torch.device("meta")).init()
+    structs = protected_structs(meta, opt.init(meta))
+    reset_launches()
+    trainer = train_trainer(model, opt, structs, "async")
+    ticks = host_timed_ticks(trainer.store)
+    state = trainer.init_state(torch.Generator(device=DEVICE).manual_seed(seed))
+    rec: dict = {}
+    torch.cuda.synchronize()
+    rec["last"] = time.perf_counter()
+    state = trainer.run(state, data, HYBRID_SMOKE_STEPS, on_step=step_recorder(trainer, rec))
+    state = trainer.flush(state)
+    check(trainer.scrub_check(state) == 0, "scrub after the jamba smoke's flush")
+    launches = read_launches()
+    with uncounted():
+        want_sums = params_checksums(state)
+    losses = torch.stack(rec["losses"]).float()
+    check(len(rec["losses"]) == HYBRID_SMOKE_STEPS and bool(torch.isfinite(losses).all()),
+          f"jamba smoke losses {losses.tolist()}")
+    check([t["step"] for t in ticks if t["updated"]] == [HYBRID_SMOKE_STEPS],
+          f"due ticks {[t['step'] for t in ticks if t['updated']]}")
+    check(trainer.corruption_alarms == 0, f"alarms {trainer.corruption_alarms}")
+    check(launches["flash_attn"] == 0, "training the jamba smoke launched the flash kernel")
+    for name in ("checksum", "parity", "fused_update"):
+        check(launches[name] > 0, f"{name} kernel never launched training the jamba smoke")
+    kinds = {m for m, _ in slot_kinds(smoke)} | {f for _, f in slot_kinds(smoke)}
+    check({"mamba", "attn", "moe"} <= kinds, f"the jamba smoke's slots {kinds}")
+    smoke_rec = {"losses": losses.tolist(), "launches": launches,
+                 "median_step_ms": statistics.median(rec["wall_ms"][1:])}
+    del trainer, state
+    for kind in ("blocking", "none"):
+        o = train_observe(model, data, opt, structs, seed, kind, steps=HYBRID_SMOKE_STEPS)
+        check(torch.equal(o["loss_bits"], losses.view(torch.int32)),
+              f"jamba smoke losses differ between the overlapped store and {kind}: "
+              f"{losses.tolist()} vs {o['losses']}")
+        check(o["checksums"].keys() == want_sums.keys()
+              and all(torch.equal(v, want_sums[n]) for n, v in o["checksums"].items()),
+              f"final jamba smoke params checksums differ between the overlapped store "
+              f"and {kind}")
+        smoke_rec[f"median_step_ms_{kind}"] = statistics.median(o["step_wall_ms"][1:])
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"mamba_layer": layer, "smoke": smoke_rec, "launches": launches,
+            "phase_s": time.perf_counter() - t_phase}
+
+
+def print_train_xlstm(r: dict) -> None:
+    m, tr = r["main"], r["main"]["trace_step_8"]
+    print(f"train xlstm ({r['phase_s']:.1f} s): {XLSTM_ARCH} full size ({m['n_params']} "
+          f"params), batch {TRAIN_BATCH} x {TRAIN_SEQ}, {XLSTM_TRAIN_STEPS} steps under the "
+          f"overlapped vilamb store over {m['memory_gb']['leaves']} leaves "
+          f"({m['memory_gb']['state']:.2f} GB, {m['memory_gb']['parity']:.2f} GB parity); "
+          f"launches {m['launches']}; peak {m['peak_mem_gib']:.2f} GiB")
+    print(f"train xlstm: losses {[round(x, 4) for x in m['losses']]}; median step "
+          f"{m['median_step_ms']:.1f} ms (steps 2-7), model-FLOP share "
+          f"{100 * m['model_flop_share']:.3f}%; one slot's forward and backward alone "
+          f"{ {k: round(v, 1) for k, v in m['slot_alone_ms'].items()} } ms: of the mixers' "
+          f"time (all slots, each as the one alone: {100 * m['mixers_over_step']:.0f}% of "
+          f"the median step) the sLSTM {100 * m['slstm_share']:.1f}%, the mLSTM "
+          f"{100 * m['mlstm_share']:.1f}%")
+    print(f"train xlstm: due tick's host ms (no device sync) "
+          f"{[(t['step'], round(t['ms'], 3)) for t in m['due_ticks']]}; quiet ticks "
+          f"{m['quiet_tick_host_ms_mean']:.4f} ms; flush {m['flush_ms']:.2f} ms; scrub "
+          f"{m['scrub_check_ms']:.2f} ms; K3 in the due tick {m['k3_due_tick']}")
+    print(f"train xlstm: trace of step 8 (with its due tick): "
+          f"{ {k: v for k, v in tr.items() if k != 'top_kernels_ms'} }; top kernels "
+          f"{tr.get('top_kernels_ms')}")
+    print(f"train xlstm: {r['compared_steps']} steps each with the blocking and no store: "
+          + ", ".join(f"{k} median {o['median_step_ms']:.1f} ms" for k, o in r["observe"].items())
+          + "; losses and params checksums bitwise equal to the overlapped run's; scrub "
+          "clean; full check and the repair of "
+          f"{list(m['corruption'])} passed", flush=True)
+
+
+def print_train_hybrid(r: dict) -> None:
+    lay, sm = r["mamba_layer"], r["smoke"]
+    print(f"train hybrid ({r['phase_s']:.1f} s): {HYBRID_ARCH}'s Mamba mixer at full width "
+          f"({lay['n_params']} params), x (1, {lay['seq']}, {lay['d_model']}) bf16: checkpointed "
+          f"{lay['ms_checkpointed']:.1f} ms, peak {lay['peak_gib_checkpointed']:.2f} GiB above "
+          f"the inputs ({lay['inputs_gib']:.2f} GiB); unchecked {lay['ms_unchecked']:.1f} ms, "
+          f"peak {lay['peak_gib_unchecked']:.2f} GiB; gradients bitwise equal")
+    print(f"train hybrid: the jamba smoke, {HYBRID_SMOKE_STEPS} steps at "
+          f"{HYBRID_SMOKE_BATCH} x {HYBRID_SMOKE_SEQ}: losses "
+          f"{[round(x, 4) for x in sm['losses']]}, median step {sm['median_step_ms']:.1f} ms "
+          f"(blocking {sm['median_step_ms_blocking']:.1f}, none "
+          f"{sm['median_step_ms_none']:.1f}); launches {sm['launches']}; losses and params "
+          f"checksums bitwise equal for the overlapped, blocking and no store", flush=True)
+
+
 def smi_line() -> str:
     """The card's name and power limit, as nvidia-smi gives them."""
     smi = subprocess.run(
@@ -4229,6 +4650,16 @@ def main() -> int:
     print_train_encdec(te)
     print(smi_line())
     print(json.dumps({"train_encdec": te}))
+    gc.collect()
+    torch.cuda.empty_cache()
+    tx = phase_train_xlstm(args.seed)
+    print_train_xlstm(tx)
+    print(smi_line())
+    print(json.dumps({"train_xlstm": tx}))
+    th = phase_train_hybrid(args.seed)
+    print_train_hybrid(th)
+    print(smi_line())
+    print(json.dumps({"train_hybrid": th}))
     for row in kernels:
         by_path = {"heap": heap_launches.get(row["name"], 0),
                    "serving": serve_launches[row["name"]],
@@ -4243,7 +4674,9 @@ def main() -> int:
                    "xlstm serving": xl["launches"][row["name"]],
                    "vlm serving": vl["launches"][row["name"]],
                    "enc-dec serving": ed["launches"][row["name"]],
-                   "enc-dec training": te["main"]["launches"][row["name"]]}
+                   "enc-dec training": te["main"]["launches"][row["name"]],
+                   "xlstm training": tx["main"]["launches"][row["name"]],
+                   "hybrid training": th["launches"][row["name"]]}
         row["launches"] = sum(by_path.values())
         row["launches_by_path"] = by_path
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s")

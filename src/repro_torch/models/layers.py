@@ -9,11 +9,13 @@ the input dtype as well.  Initialisers draw from an explicit
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 
 def dense_init(gen: Optional[torch.Generator], shape, in_axis: int = -2,
@@ -32,6 +34,20 @@ def check_chunks(S: int, chunk: int) -> None:
     if S % chunk:
         raise ValueError(f"a sequence of {S} tokens is not a whole number of "
                          f"chunks of {chunk}")
+
+
+def chunk_checkpoint(fn: Callable, cfg, x: torch.Tensor,
+                     params: Dict[str, torch.Tensor]) -> Callable:
+    """``fn``, one chunk of a recurrent mixer's prefill, as training runs
+    it: under a non-reentrant ``torch.utils.checkpoint`` (the reference's
+    per-chunk ``jax.checkpoint``) where autograd records (grad mode on, and
+    ``x`` or a parameter requires grad) unless ``cfg.remat == "none"``;
+    else ``fn`` itself.  A chunk draws no random numbers, so no RNG state
+    is saved for its recompute."""
+    if (cfg.remat == "none" or not torch.is_grad_enabled()
+            or not (x.requires_grad or any(p.requires_grad for p in params.values()))):
+        return fn
+    return functools.partial(checkpoint, fn, use_reentrant=False, preserve_rng_state=False)
 
 
 def embed_init(gen: Optional[torch.Generator], shape,

@@ -8,10 +8,11 @@ recursion on the reduced half, the even elements fixed up), so the fp32
 products of up to 128 ``exp(dt * A)`` factors round as the reference's do.
 The ``(B, chunk, d_inner, d_state)`` tensors exist one chunk at a time.
 Decode is the O(1) recurrent step over the carried ``(h, conv)``, written
-into the caches in place.  The reference's per-chunk ``jax.checkpoint``
-belongs with training through this mixer, which the port does not run yet
-(``models/transformer.py``).  No Pallas kernel stands behind it: the
-reference is plain ``jnp``.
+into the caches in place.  In training each chunk runs under
+``torch.utils.checkpoint``, as the reference's ``jax.checkpoint(step)``
+does: the carried ``(h, conv)`` go in and come out, so the gradient
+crosses chunk boundaries, and a backward holds one chunk's scan at a time.
+No Pallas kernel stands behind it: the reference is plain ``jnp``.
 """
 from __future__ import annotations
 
@@ -21,7 +22,7 @@ from typing import Callable, Dict, Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
-from .layers import check_chunks, dense_init
+from .layers import check_chunks, chunk_checkpoint, dense_init
 
 
 def mamba_init(gen: Optional[torch.Generator], cfg, dtype: torch.dtype = torch.float32,
@@ -108,28 +109,39 @@ def _ssm_chunk(xc, dt, Bc, Cc, A, D, h0) -> Tuple[torch.Tensor, torch.Tensor]:
     return y, h[:, -1]
 
 
+def _chunk_step(params, cfg, A: torch.Tensor, xs: torch.Tensor, z: torch.Tensor,
+                h: torch.Tensor, conv: torch.Tensor):
+    """One chunk of the prefill: the conv over the carried ``conv``, SiLU,
+    ``x_proj``, ``dt``, the scan from ``h`` and the gate.  Returns ``(y,
+    h, conv)``."""
+    ds, dtr = cfg.d_state, cfg.dt_rank
+    xc, conv = _causal_conv_chunk(xs, conv, params["conv_w"], params["conv_b"])
+    xc = F.silu(xc)
+    dt_r, Bc, Cc = (xc @ params["x_proj"]).split([dtr, ds, ds], dim=-1)
+    dt = F.softplus((dt_r @ params["dt_proj"]).float() + params["dt_bias"])
+    y, h = _ssm_chunk(xc.float(), dt, Bc.float(), Cc.float(), A, params["D"], h)
+    return y.to(xs.dtype) * F.silu(z), h, conv
+
+
 def mamba_apply(params, x: torch.Tensor, cfg, chunk: int = 128
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Full-sequence mixer.  x: (B, S, d) -> ``((B, S, d), {"h", "conv"})``,
-    the final state for the cache."""
+    the final state for the cache.  Where autograd records, each chunk is
+    checkpointed unless ``cfg.remat == "none"``."""
     B, S, _ = x.shape
-    di, ds, dtr = cfg.d_inner, cfg.d_state, cfg.dt_rank
-    dt_ = x.dtype
+    di, ds = cfg.d_inner, cfg.d_state
     xs, z = (x @ params["in_proj"]).chunk(2, dim=-1)
     chunk = min(chunk, S)
     check_chunks(S, chunk)
     A = -torch.exp(params["A_log"])
-    w, b = params["conv_w"], params["conv_b"]
     h = torch.zeros((B, di, ds), dtype=torch.float32, device=x.device)
-    conv = torch.zeros((B, cfg.d_conv - 1, di), dtype=dt_, device=x.device)
+    conv = torch.zeros((B, cfg.d_conv - 1, di), dtype=x.dtype, device=x.device)
+    run = chunk_checkpoint(_chunk_step, cfg, x, params)
     ys = []
     for c0 in range(0, S, chunk):
-        xc, conv = _causal_conv_chunk(xs[:, c0:c0 + chunk], conv, w, b)
-        xc = F.silu(xc)
-        dt_r, Bc, Cc = (xc @ params["x_proj"]).split([dtr, ds, ds], dim=-1)
-        dt = F.softplus((dt_r @ params["dt_proj"]).float() + params["dt_bias"])
-        y, h = _ssm_chunk(xc.float(), dt, Bc.float(), Cc.float(), A, params["D"], h)
-        ys.append(y.to(dt_) * F.silu(z[:, c0:c0 + chunk]))
+        sl = slice(c0, c0 + chunk)
+        y, h, conv = run(params, cfg, A, xs[:, sl], z[:, sl], h, conv)
+        ys.append(y)
     y = torch.cat(ys, dim=1) if len(ys) > 1 else ys[0]
     return y @ params["out_proj"], {"h": h, "conv": conv}
 

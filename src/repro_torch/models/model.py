@@ -1,8 +1,8 @@
 """Top-level Model: init, loss, prefill and decode, plus Vilamb dirty events.
 
 The port of ``repro.models.model``: decoder-only models (dense, MoE, and
-the recurrent mixers' (jamba's Mamba, xLSTM's mLSTM and sLSTM), which
-serve), the encoder-decoder stack (seamless-m4t-medium: the encoder runs
+the recurrent mixers: jamba's Mamba, xLSTM's mLSTM and sLSTM), the
+encoder-decoder stack (seamless-m4t-medium: the encoder runs
 once over the batch's ``enc_input`` frames, and every decoder slot's
 cross attention reads its memory) and the vision front end (internvl2-1b:
 the batch's ``frontend`` patches go in front of the prompt).
@@ -283,7 +283,8 @@ class Model:
         (``aux["expert_counts"][:, s] > 0``) for its ``moe/wi``, ``wg`` and
         ``wo``.  Lazy AdamW leaves untouched rows and slabs bit-identical.
         The train loop expands the events to the params and both moments
-        and marks every other leaf ALL-dirty."""
+        and marks every other leaf ALL-dirty: every Mamba, mLSTM and sLSTM
+        leaf among them, as in the reference."""
         cfg = self.cfg
         tokens = batch["tokens"]
         presence = torch.zeros((cfg.padded_vocab,), dtype=torch.bool,

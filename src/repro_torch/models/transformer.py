@@ -12,9 +12,10 @@ reference's per-slot ``jax.checkpoint`` does.  A slot's FFN is dense or
 MoE (``models/moe.py``; arctic's dense residual beside it); the full
 forward returns every slot's expert counts and the summed aux loss, as
 the reference's scan does.  The recurrent mixers (``models/mamba.py``,
-``models/xlstm.py``) serve: the prefill writes each one's final state
-into its cache, and decode rewrites that state in place; training through
-them raises ``NotImplementedError`` naming its ``ROADMAP.md`` item.  An
+``models/xlstm.py``) serve and train: the prefill writes each one's final
+state into its cache, and decode rewrites that state in place; in
+training a recurrent slot runs under the per-slot checkpoint with each
+chunk of its scan checkpointed inside it, as in the reference.  An
 encoder-decoder's decoder slots carry a cross attention (``cross_norm``,
 ``cross``) over the encoder's memory; the encoder is a stack of its own,
 run with ``causal=False``.
@@ -32,10 +33,6 @@ from . import moe as moe_mod
 from . import xlstm as xlstm_mod
 from .config import ModelConfig
 from .layers import ffn_apply, ffn_init, make_norm
-
-# What the port cannot run yet, with its ROADMAP.md item.
-TRAIN_NOT_PORTED = ("training through the recurrent mixers (Mamba, mLSTM, sLSTM): "
-                    "ROADMAP.md, Queue 1 item 13")
 
 # Each mixer's (init, full-sequence apply, one-token decode step) beside
 # attention's: init(gen, cfg, dtype, device, lead); apply(p, x, cfg) ->
@@ -141,8 +138,8 @@ def _slot_apply_full(p, x: torch.Tensor, cfg: ModelConfig, mixer: str, ffn: str,
 
 
 def _slot_train(p, x: torch.Tensor, memory: Optional[torch.Tensor], cfg: ModelConfig,
-                ffn: str, causal: bool):
-    x, _, counts, aux = _slot_apply_full(p, x, cfg, "attn", ffn, train=True,
+                mixer: str, ffn: str, causal: bool):
+    x, _, counts, aux = _slot_apply_full(p, x, cfg, mixer, ffn, train=True,
                                          memory=memory, causal=causal)
     return x, counts, aux
 
@@ -190,16 +187,14 @@ def stack_apply_full(stack, x: torch.Tensor, cfg: ModelConfig,
     ``cfg.remat == "none"``, with ``memory`` an explicit input so that its
     gradient reaches the encoder, so a slot's backward recomputes its
     forward from its inputs and holds only that slot's activations; a
-    recurrent slot raises ``NotImplementedError`` (:data:`TRAIN_NOT_PORTED`).
-    ``causal=False`` runs the encoder: full attention with RoPE, and no
+    recurrent slot's recompute runs its mixer's per-chunk checkpoints in
+    turn (``layers.chunk_checkpoint``).  ``causal=False`` runs the encoder: full attention with RoPE, and no
     caches in either mode.
     """
     if (train or not causal) != (caches is None):
         raise ValueError("stack_apply_full fills caches on the decoder's prefill "
                          "and none in training or in the encoder")
     kinds = slot_kinds(cfg)
-    if train and any(mixer != "attn" for mixer, _ in kinds):
-        raise NotImplementedError(f"{cfg.name} cannot train yet: {TRAIN_NOT_PORTED}")
     groups = {s: _unbind(stack[f"slot_{s}"], cfg.n_groups) for s in range(len(kinds))}
     counts, aux = [], []
     for g in range(cfg.n_groups):
@@ -207,10 +202,10 @@ def stack_apply_full(stack, x: torch.Tensor, cfg: ModelConfig,
         for s, (mixer, ffn) in enumerate(kinds):
             p = groups[s][g]
             if train and cfg.remat != "none":
-                x, c, a = checkpoint(_slot_train, p, x, memory, cfg, ffn, causal,
+                x, c, a = checkpoint(_slot_train, p, x, memory, cfg, mixer, ffn, causal,
                                      use_reentrant=False)
             elif train:
-                x, c, a = _slot_train(p, x, memory, cfg, ffn, causal)
+                x, c, a = _slot_train(p, x, memory, cfg, mixer, ffn, causal)
             else:
                 x, state, c, a = _slot_apply_full(p, x, cfg, mixer, ffn, train=False,
                                                   memory=memory, causal=causal)

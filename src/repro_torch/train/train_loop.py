@@ -56,10 +56,12 @@ def deterministic():
 def loss_and_grads(model, params, batch):
     """``(loss, aux, grads)``: the loss and aux detached, grads by flat
     param path, taken through detached aliases of the params (which share
-    their memory and never require grad themselves)."""
+    their memory and never require grad themselves).  A leaf the loss does
+    not read (the sLSTM's ``wk`` and ``wv``) gets zeros, as under
+    ``jax.grad``."""
     alias = {n: p.detach().requires_grad_() for n, p in flatten_dict(params).items()}
     loss, aux = model.loss(replace_leaves(params, alias), batch)
-    grads = torch.autograd.grad(loss, list(alias.values()))
+    grads = torch.autograd.grad(loss, list(alias.values()), materialize_grads=True)
     return loss.detach(), {k: v.detach() for k, v in aux.items()}, dict(zip(alias, grads))
 
 

@@ -240,14 +240,6 @@ def test_store_matches_reference_tick_by_tick(pair, generated, async_tick):
     rec_mod.replay_store(jm, tm, generated[1], async_tick)
 
 
-def test_training_through_mamba_is_refused(pair):
-    _, _, tm, tp = pair
-    batch = {"tokens": torch.zeros((1, 8), dtype=torch.int32),
-             "labels": torch.zeros((1, 8), dtype=torch.int32)}
-    with pytest.raises(NotImplementedError, match="Queue 1 item 13"):
-        tm.loss(tp, batch)
-
-
 def test_launcher_runs_on_the_cpu(capsys):
     tokens, stats = launcher.main(["--arch", ARCH, "--smoke", "--device", "cpu",
                                    "--batch", "2", "--prompt-len", "8", "--gen", "6",

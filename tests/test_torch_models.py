@@ -27,6 +27,7 @@ from repro_torch.core import ALL
 from repro_torch.core.convert import leaves_from_numpy
 from repro_torch.models import (attention as tattn, build_model, layers as tlayers,
                                 params_from_numpy, params_to_numpy)
+from repro_torch.train.train_loop import loss_and_grads
 
 ARCHS = ["llama3.2-3b", "glm4-9b", "olmo-1b", "nemotron-4-15b",
          "qwen3-moe-235b-a22b", "arctic-480b"]
@@ -305,9 +306,12 @@ def test_dirty_events_decode_match_reference(runs):
 
 
 def test_build_model_refuses_unported_kinds():
-    """What the port still refuses: training through a recurrent slot.
-    The encoder-decoder stack and the vision front end build (a llama
-    smoke config with either switched on, its tree the reference's)."""
+    """The port refuses no kind of model any more: the encoder-decoder
+    stack and the vision front end build (a llama smoke config with either
+    switched on, its tree the reference's), and a stack of mLSTM and sLSTM
+    slots builds and trains (a finite loss and a finite gradient for every
+    leaf; held against the reference in
+    tests/test_torch_recurrent_train.py)."""
     for kind in (dict(enc_dec=True), dict(frontend="vision", frontend_len=4)):
         cfg = dataclasses.replace(get_smoke("llama3.2-3b"), **kind)
         want = jax.eval_shape(lambda: jbuild(dataclasses.replace(
@@ -320,10 +324,10 @@ def test_build_model_refuses_unported_kinds():
     params = model.init(torch.Generator().manual_seed(0))
     batch = {"tokens": torch.zeros((1, 4), dtype=torch.int32),
              "labels": torch.zeros((1, 4), dtype=torch.int32)}
-    with pytest.raises(NotImplementedError,
-                       match="training through the recurrent mixers .*ROADMAP.md, "
-                             "Queue 1 item 13"):
-        model.loss(params, batch)
+    loss, _, grads = loss_and_grads(model, params, batch)
+    assert bool(torch.isfinite(loss))
+    assert set(grads) == set(flatten_dict(params))
+    assert all(bool(torch.isfinite(g).all()) for g in grads.values())
 
 
 def test_build_model_defaults_to_the_card():

@@ -1,5 +1,5 @@
 """jamba's and xlstm's smoke models served on the card, their recurrent
-caches under a vilamb store.
+caches under a vilamb store; and training through the three mixers.
 
 Each test needs a CUDA device and skips without one (decided at run
 time).  ``Server.generate`` runs with the overlapped store, with a
@@ -12,12 +12,16 @@ right after a due tick whose update is held behind a spin rewrites every
 recurrent state in place: the update must still read the states as they
 were at the tick (the step waits for it on the device), so the adopted
 checksums are those of the data before the step; with that wait removed
-they are not.  The module imports no
-JAX, so on the card it runs with:
+they are not.  The last test takes each mixer's gradients (Mamba, mLSTM,
+sLSTM, bf16 and fp32) with every chunk checkpointed and without, under
+deterministic algorithms (``CUBLAS_WORKSPACE_CONFIG`` set before cuBLAS
+first runs): the same bits.  The module imports no JAX, so on the card it
+runs with:
 
     PYTHONPATH=src python -m pytest -q --noconftest tests/test_torch_recurrent_on_card.py
 """
 import dataclasses
+import os
 
 import pytest
 import torch
@@ -27,8 +31,11 @@ from repro_torch.configs import get_smoke
 from repro_torch.core import ProtectedStore, RedundancyPolicy, blocks
 from repro_torch.core.state import FIELDS
 from repro_torch.kernels.checksum import ref as ck_ref
-from repro_torch.models import build_model
+from repro_torch.models import build_model, mamba, xlstm
 from repro_torch.serve import Server, make_decode_step
+from repro_torch.train.train_loop import deterministic
+
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 B, S, GEN = 2, 16, 12         # 29 cache rows: jamba's KV leaves end inside a block
 SLEEP_CYCLES = 20_000_000             # about 10 ms of one SM's clock
@@ -140,3 +147,33 @@ def test_decode_step_waits_for_the_inflight_update_on_card(cuda_device, arch, wa
                 assert all(same.values()), (t, same)
     if not wait:                          # the last (warm) round
         assert not all(same.values()), "the late read went unseen"
+
+
+MIXERS = {"mamba": ("jamba-1.5-large-398b", mamba.mamba_init, mamba.mamba_apply),
+          "mlstm": ("xlstm-1.3b", xlstm.mlstm_init, xlstm.mlstm_apply),
+          "slstm": ("xlstm-1.3b", xlstm.slstm_init, xlstm.slstm_apply)}
+
+
+def _mixer_grads(kind, dtype, remat, dev):
+    """One mixer at (2, 64, 64), chunk 16: its output and the gradients of
+    x and every parameter for a fixed cotangent."""
+    arch, init, apply = MIXERS[kind]
+    cfg = dataclasses.replace(get_smoke(arch), remat=remat)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    params = {k: v.requires_grad_() for k, v in init(gen, cfg, dtype, dev).items()}
+    x = torch.randn(2, 64, 64, generator=gen, device=dev).to(dtype).requires_grad_()
+    with deterministic():
+        y, _ = apply(params, x, cfg, chunk=16)
+        ct = torch.randn(y.shape, generator=gen, device=dev).to(dtype)
+        grads = torch.autograd.grad(y, [x, *params.values()], ct, materialize_grads=True)
+    return y, grads
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+@pytest.mark.parametrize("kind", sorted(MIXERS))
+def test_chunk_checkpoint_changes_no_gradient_bit_on_card(cuda_device, kind, dtype):
+    y, full = _mixer_grads(kind, dtype, "full", cuda_device)
+    y_none, none = _mixer_grads(kind, dtype, "none", cuda_device)
+    assert torch.equal(y, y_none)
+    for g, h in zip(full, none):
+        assert g.is_cuda and bool(torch.isfinite(g).all()) and torch.equal(g, h)

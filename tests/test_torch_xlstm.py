@@ -249,14 +249,6 @@ def test_adopted_repair_of_a_padded_leaf_is_decoded_in_place(pair):
     assert caches["slot_7"]["n"] is fixed and not torch.equal(fixed, saved)
 
 
-def test_training_through_xlstm_is_refused(pair):
-    _, _, tm, tp = pair
-    batch = {"tokens": torch.zeros((1, 8), dtype=torch.int32),
-             "labels": torch.zeros((1, 8), dtype=torch.int32)}
-    with pytest.raises(NotImplementedError, match="Queue 1 item 13"):
-        tm.loss(tp, batch)
-
-
 def test_launcher_runs_on_the_cpu(capsys):
     tokens, stats = launcher.main(["--arch", ARCH, "--smoke", "--device", "cpu",
                                    "--batch", "2", "--prompt-len", "8", "--gen", "6",
