@@ -161,8 +161,10 @@ Phases, each of which must pass or the script exits non-zero:
    a clean scrub after flush, and the two crash-plus-corruption cases;
    checkpoints in a temporary directory (free space checked first,
    removed at the end).  Last, ``python -m repro_torch.faults --smoke`` in
-   a process of its own on the card must exit 0 (its four passes, the
-   scrub patroller's detection the fourth).  Timed: planning, injection,
+   a process of its own on the card must exit 0 (its five passes, the
+   scrub patroller's detection the fourth, the sharded battery on a
+   simulated (2, 2, 2) mesh the fifth: its oracle and its seven crash
+   points recovered bitwise, and the not-ported line of its rebuild case).  Timed: planning, injection,
    scrub, repair, the step, each replay's drive, save and restore; the
    peak and the phase's wall time;
 14. patrol and health, on phase 4's heap (8 GiB of 4 KiB rows beside the
@@ -264,8 +266,8 @@ Phases, each of which must pass or the script exits non-zero:
    row, one flipped lane in an sLSTM params leaf and one in an mLSTM m/
    leaf found and rebuilt bitwise; K1, K2 and K3 launched, flash never.
    Then the blocking and no store: losses and params checksums bitwise
-   equal to the overlapped run's, over 8 steps, or 4 where the median step
-   exceeds 8 s.  Timed: the median step, the due tick's host ms, K3 in the
+   equal to the overlapped run's, over 8 steps, or 3 where the median step
+   exceeds 8 s (the script's time limit).  Timed: the median step, the due tick's host ms, K3 in the
    due tick against its bound, the trace of step 8 (device-busy share,
    launches, top kernels), one sLSTM and one mLSTM slot's forward and
    backward alone in turns (each kind's share of the mixers' time), the
@@ -279,7 +281,40 @@ Phases, each of which must pass or the script exits non-zero:
    config (16 layers of d 64, 4 experts: Mamba, attention and MoE slots)
    trained 8 steps through ``Trainer.run`` with the overlapped store (the
    due tick at 8, a flush and a clean scrub), the blocking and no store:
-   losses and params checksums bitwise equal.
+   losses and params checksums bitwise equal;
+21. the sharded heap: phase 4's store on a simulated (2, 2, 2) mesh (every
+   shard on this card): the 8 GiB heap under P(("pod", "data", "model"),
+   None), 8 shards of 262,144 blocks, the 64 MiB sync leaf under
+   P(("pod", "data"), None), 4 shards replicated over "model"; 64 steps of
+   4,096 random row writes on the overlapped tick beside a blocking twin
+   on the same mesh.  Checked: init is one K1 and one K2 launch a leaf for
+   all its shards, each due group one K3 launch (one job a shard), every
+   field equal to the twin's after flush, each shard's fields equal to a
+   machine-local store's over that shard's rows, a lane corrupted on shard
+   5 found by scrub at its global block id and rebuilt bitwise by repair, a
+   meta flip on shard 5 tripping verify_meta for the heap only, and the
+   sharded oracle (64 clean-block faults across shards, every one found,
+   no false positive).  Timed: K1 and K2 with the shard axis beside the
+   one-leaf launches over the same 8 GiB, K3 in the sharded due tick,
+   against their bounds; the due ticks' host ms, overlapped and blocking;
+22. sharded serving: phase 7's llama3.2-3b and traffic with the KV caches
+   (3.82 GB) under a store on the simulated (2, 2, 2) mesh with the specs
+   of ``cache_specs`` (8 shards a leaf: batch over pod x data, KV heads
+   over model; the shards are strided, so the engine stages each leaf into
+   one (8, *local) copy for the kernels).  Checked: tokens identical to
+   phase 7's (which equal no store's), clean scrubs, each due tick one K3
+   launch over every shard of both cache leaves, after the settle each
+   shard's clean checksums and stripes (after a flush, every field) equal
+   to a machine-local store's over that shard's cache, after the flush K1
+   and K2 over the staged (8, n_blocks, L) lanes against a chunked plain
+   recompute and against the store's checksums and parity, bitwise, a
+   corrupted K-cache lane found by scrub at its global block id, and
+   repair on that leaf raising the reference's ValueError.  Timed:
+   generate's wall time (the counted overlapped run, then blocking and
+   overlapped in turns, beside phase 7's runs with no store), the due
+   ticks' host ms, one due tick's update alone (traced), K3 over its 16
+   shard jobs (device ms between CUDA events) against its bound, and the
+   staging copies of both leaves.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 the per-kernel JSON record.  All data comes from ``--seed``.
@@ -320,6 +355,9 @@ from repro_torch.kernels.flash_attn import ops as fa_ops, ref as fa_ref  # noqa:
 from repro_torch.kernels.parity import ops as par_ops, ref as par_ref  # noqa: E402
 from repro_torch.kernels.redundancy import ops as fu_ops, ref as fu_ref  # noqa: E402
 from repro_torch.data import SyntheticPipeline  # noqa: E402
+from repro_torch.dist import P, cache_specs  # noqa: E402
+from repro_torch.launch.mesh import make_mesh  # noqa: E402
+from repro_torch.models.parallel import ParallelCtx  # noqa: E402
 from repro_torch.models import Model, ShapeConfig, attention, build_model, layers  # noqa: E402
 from repro_torch.models import mamba as mamba_mod, transformer as tfm  # noqa: E402
 from repro_torch.models.transformer import slot_kinds  # noqa: E402
@@ -427,7 +465,7 @@ ENCDEC_TRAIN_STEPS = 4
 # step exceeds XLSTM_LONG_STEP_MS; jamba's Mamba mixer at full width (slot
 # 0 of hybrid_config()) on (1, MAMBA_SEQ, 8,192) bf16, with and without the
 # per-chunk checkpoint; jamba's smoke config trained through Trainer.run.
-XLSTM_TRAIN_STEPS, XLSTM_SHORT_STEPS, XLSTM_LONG_STEP_MS = 8, 4, 8000.0
+XLSTM_TRAIN_STEPS, XLSTM_SHORT_STEPS, XLSTM_LONG_STEP_MS = 8, 3, 8000.0
 XLSTM_TRAIN_CORRUPT = ("params/stack/slot_7/slstm/wq", "m/stack/slot_0/mlstm/wq")
 MAMBA_SEQ = 4096
 HYBRID_SMOKE_STEPS, HYBRID_SMOKE_SEQ, HYBRID_SMOKE_BATCH = 8, 256, 2
@@ -436,6 +474,15 @@ HYBRID_SMOKE_STEPS, HYBRID_SMOKE_SEQ, HYBRID_SMOKE_BATCH = 8, 256, 2
 # H100 80GB HBM3 at 700 W), printed beside this run's times: ms.
 K3_BEFORE = {"heap": 0.5523, "xlstm all-dirty": 0.8963, "jamba all-dirty": 0.491,
              "train due tick": 12.82, "moe due tick": 14.48}
+
+# Phases 21-22, the sharded store on a simulated (2, 2, 2) mesh, every
+# shard on this card: phase 4's heap (8 shards of 262,144 blocks) and sync
+# leaf (4 shards, replicated over "model"); phase 7's serving with the
+# caches under cache_specs.  The oracle's clean-block faults, and the
+# steps of writes after the flush that make its window.
+MESH_SHAPE, MESH_AXES = (2, 2, 2), ("pod", "data", "model")
+HEAP_SPECS = {"heap": P(("pod", "data", "model"), None), "params": P(("pod", "data"), None)}
+SHARD_ORACLE_FAULTS, SHARD_WINDOW_STEPS = 64, 4
 
 SPIN_CYCLES = 20_000_000               # about 10 ms of one SM's clock
 
@@ -562,8 +609,71 @@ def phase_kernels(g) -> dict:
             check(torch.equal(gc, wc) and torch.equal(gp, wp) and torch.equal(sc, wc)
                   and torch.equal(sp, wp), f"grouped K3 != plain or per leaf (P={P}, leaf {i})")
             err["fused_update"] = max(err["fused_update"], abs_err(gc, wc), abs_err(gp, wp))
+    kernels_sharded(g, err)
     torch.cuda.synchronize()
     return err
+
+
+def kernels_sharded(g, err: dict) -> None:
+    """Phase 3, the sharded store's launches: K1 and K2 over a leading shard
+    axis (k in 1, 3, 8; partial stripes; shards whose last block is partial,
+    through their padded copy) in one launch each, and K3 over a due group
+    of sharded and unsharded leaves (one job a shard, the views of the
+    global arrays at the shard's offsets) in one launch, in place: bitwise
+    equal to the plain versions and to one launch a shard."""
+    for k in (1, 3, 8):
+        for nb, L, off, P_ in ((13, 128, 0, 4), (5, 1024, 7, 2), (2, 16384, 1, 4),
+                               (3, 256, 0, 5)):
+            lanes = rand_i32(g, k, nb, L)
+            n = ck_ops.LAUNCHES
+            got, want = ck_ops.block_checksums(lanes, off), ck_ref.block_checksums(lanes, off)
+            check(ck_ops.LAUNCHES == n + 1 and torch.equal(got, want)
+                  and torch.equal(got[-nb:], ck_ops.block_checksums(lanes[-1], off)),
+                  f"checksum kernel != plain with {k} shards of {nb}x{L}")
+            err["checksum"] = max(err["checksum"], abs_err(got, want))
+            n = par_ops.LAUNCHES
+            got, want = par_ops.stripe_parity(lanes, P_), par_ref.stripe_parity(lanes, P_)
+            ns = -(-nb // P_)
+            check(par_ops.LAUNCHES == n + 1 and torch.equal(got, want)
+                  and torch.equal(got[-ns:], par_ops.stripe_parity(lanes[-1], P_)),
+                  f"parity kernel != plain with {k} shards of {nb}x{L} P={P_}")
+            err["parity"] = max(err["parity"], abs_err(got, want))
+    leaf = torch.randn((8 * 5, 300), generator=g, device=DEVICE)
+    meta = blocks.make_meta(blocks.ShapeDtype((5, 300), torch.float32), 512, STRIPE)
+    lanes = blocks.shard_lanes(leaf, meta, (8, 1))
+    check(lanes.shape == (8, meta.n_blocks, 512), "padded shard lanes' shape")
+    for got, want in ((ck_ops.block_checksums(lanes), ck_ref.block_checksums(lanes)),
+                      (par_ops.stripe_parity(lanes, STRIPE), par_ref.stripe_parity(lanes, STRIPE))):
+        check(torch.equal(got, want), "a kernel != plain over padded shard copies")
+    # K3: 8 shards of 13 blocks (partial last stripes) of 1,024 lanes, 4
+    # shards of 40 blocks of 16,384 lanes, one unsharded leaf; sparse marks.
+    jobs, plain, globals_ = [], [], []
+    for k, nb, L in ((8, 13, 1024), (4, 40, 16384), (1, 37, 1024)):
+        ns, nw = -(-nb // STRIPE), -(-nb // 32)
+        lanes = rand_i32(g, k, nb, L)
+        bd = torch.rand((k, nb), generator=g, device=DEVICE) < 0.3
+        words = bits.pack_rows(bd)
+        cks, par = rand_i32(g, k * nb), rand_i32(g, k * ns, L)
+        globals_.append((cks, par, cks.clone(), par.clone()))
+        for s_ in range(k):
+            jobs.append((lanes[s_], cks[s_ * nb:(s_ + 1) * nb], par[s_ * ns:(s_ + 1) * ns],
+                         words[s_ * nw:(s_ + 1) * nw]))
+            plain.append((lanes[s_], cks[s_ * nb:(s_ + 1) * nb].clone(),
+                          par[s_ * ns:(s_ + 1) * ns].clone(), words[s_ * nw:(s_ + 1) * nw]))
+    want = fu_ref.fused_update_many(plain, STRIPE)
+    n = fu_ops.LAUNCHES
+    got = fu_ops.fused_update_many(jobs, STRIPE)
+    check(fu_ops.LAUNCHES == n + 1, "K3 took more than one launch for a sharded group")
+    for (gc, gp), (wc, wp), job in zip(got, want, jobs):
+        check(gc is job[1] and gp is job[2] and torch.equal(gc, wc) and torch.equal(gp, wp),
+              "sharded K3 job != plain or not in place")
+        err["fused_update"] = max(err["fused_update"], abs_err(gc, wc), abs_err(gp, wp))
+    i = 0
+    for (cks, par, _, _), k in zip(globals_, (8, 4, 1)):
+        check(torch.equal(cks, torch.cat([w[0] for w in want[i:i + k]]))
+              and torch.equal(par, torch.cat([w[1] for w in want[i:i + k]])),
+              "sharded K3 missed the global arrays")
+        i += k
 
 
 def words_stripes(words: torch.Tensor, nb: int, P: int) -> int:
@@ -1206,6 +1316,7 @@ def phase_serve(g) -> dict:
     dev = torch.device(DEVICE)
     cfg = get_arch(SERVE_ARCH)
     model = build_model(cfg, dev)
+    gen_state = g.get_state()           # phase 22 draws the same params and batch
     params = model.init(g)
     max_len = PROMPT + GEN + 1
     batch = {"tokens": torch.randint(0, cfg.vocab_size, (SERVE_BATCH, PROMPT),
@@ -1274,7 +1385,8 @@ def phase_serve(g) -> dict:
           "the overlapped store's fused update ran on the foreground's stream")
 
     out = {"model": model, "params": params, "batch": batch, "store": store,
-           "caches": stats["caches"], "launches": launches, "patrolled": patrol_serve}
+           "caches": stats["caches"], "launches": launches, "patrolled": patrol_serve,
+           "tokens": tokens, "gen_state": gen_state}
     with torch.inference_mode():
         out["red"], checks = serve_checks(g, store, flatten_dict(stats["caches"]),
                                           stats["red"])
@@ -2870,6 +2982,11 @@ def phase_faults(seed: int) -> dict:
     check(cli.returncode == 0 and "fault battery OK" in cli.stdout,
           f"python -m repro_torch.faults --smoke exited {cli.returncode}: "
           f"{cli.stdout[-2000:]} {cli.stderr[-2000:]}")
+    sharded = [ln for ln in rec["cli"]["lines"] if ln.startswith("  sharded ")]
+    check(len(sharded) == 9 and "OK" in sharded[0]
+          and all(ln.endswith("recovered_bitwise OK") for ln in sharded[1:8])
+          and "Queue 1 item 11.4" in sharded[8],
+          f"the battery's sharded pass printed {sharded}")
     rec["wall_s"] = time.perf_counter() - t_phase
     return rec
 
@@ -4429,6 +4546,540 @@ def print_train_hybrid(r: dict) -> None:
           f"checksums bitwise equal for the overlapped, blocking and no store", flush=True)
 
 
+def shard_fields_equal_local(store, name: str, leaf, r, live_only: bool = False) -> int:
+    """Each shard's fields of ``name`` against a machine-local engine's init
+    over that shard's local tensor (uncounted): every field, or with
+    ``live_only`` (a settled, not flushed, state) the clean blocks'
+    checksums and the clean stripes' parity.  Returns the shards checked."""
+    from repro_torch.core import RedundancyEngine
+    eng = store.engine_for(name)
+    meta = store.metas[name]
+    nb, ns = meta.n_blocks, meta.n_stripes
+    parts = blocks.shard_view(leaf, eng._splits[name])
+    k = parts.shape[0]
+    with uncounted():
+        for s_ in range(k):
+            part = parts[s_].contiguous()
+            local = RedundancyEngine({"x": part}, eng.config, device=part.device)
+            lr = local.init({"x": part})["x"]
+            got = eng._shard_red(name, r, s_)
+            if live_only:
+                live = bits.unpack(got.dirty | got.shadow, nb)
+                clean_stripes = ~blocks.stripe_dirty_mask(meta, live)
+                check(torch.equal(got.checksums[~live], lr.checksums[~live])
+                      and torch.equal(got.parity[clean_stripes], lr.parity[clean_stripes]),
+                      f"{name} shard {s_}: clean fields differ from a machine-local store's")
+            else:
+                check(all(torch.equal(getattr(got, f), getattr(lr, f))
+                          for f in ("checksums", "parity", "dirty", "shadow"))
+                      and int(got.meta_ck) == int(lr.meta_ck),
+                      f"{name} shard {s_}: fields differ from a machine-local store's")
+            check(got.checksums.shape == (nb,) and got.parity.shape[0] == ns,
+                  f"{name} shard {s_}: shard geometry")
+            del part, local, lr
+    return k
+
+
+def phase_sharded_heap(g) -> dict:
+    """Phase 21: phase 4's heap and sync leaf under a store on a simulated
+    (2, 2, 2) mesh, beside a blocking twin on the same mesh."""
+    from repro_torch.faults import (FaultInjector, FaultSpec, check_detection,
+                                    vulnerability_window)
+    t_phase = time.perf_counter()
+    dev = torch.device(DEVICE)
+    mesh = make_mesh(MESH_SHAPE, MESH_AXES, device=dev)
+    heap = torch.randn((N_ROWS, ROW), generator=g, device=dev)
+    params = torch.randn((16384, 1024), generator=g, device=dev)      # 64 MiB
+    state = {"heap": heap, "params": params}
+    twin_state = {k: v.clone() for k, v in state.items()}
+    plan = [(torch.randperm(N_ROWS, generator=g, device=dev)[:ROWS_PER_STEP],
+             torch.randn((ROWS_PER_STEP, ROW), generator=g, device=dev))
+            for _ in range(STEPS)]
+    store = ProtectedStore(heap_policy(async_tick=True), mesh=mesh).attach(
+        state, specs=HEAP_SPECS)
+    with uncounted():
+        twin = ProtectedStore(heap_policy(async_tick=False), mesh=mesh).attach(
+            twin_state, specs=HEAP_SPECS)
+        twin_red = twin.init(twin_state)
+    meta = store.metas["heap"]
+    nb = meta.n_blocks
+    check((store.shard_factor("heap"), store.shard_factor("params"), nb)
+          == (8, 4, N_ROWS // 8), f"sharded geometry {store.shard_factor('heap')}, "
+          f"{store.shard_factor('params')}, {nb} blocks a shard")
+    k3_streams, restore_k3 = record_k3()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    red, init_ms = timed(lambda: store.init(state))
+    init_launches = {"checksum": ck_ops.LAUNCHES, "parity": par_ops.LAUNCHES}
+    check(init_launches == {"checksum": 2, "parity": 2},
+          f"init launched {init_launches}: want one K1 and one K2 a leaf, every shard in it")
+    check(tuple(red["heap"].meta_ck.shape) == (8,) and tuple(red["params"].meta_ck.shape)
+          == (4,), "one meta-checksum a shard")
+    side = store._side_stream()
+    rec = {k: {"due_steps": [], "due_tick_host_ms": [], "window_ms": []}
+           for k in ("async", "blocking")}
+    red = heap_steps(store, state, red, plan, range(STEPS), rec["async"], k3_streams)
+    check(all(c[0] == side for c in k3_streams), "a sharded fused update ran off the side "
+          "stream")
+    n = len(k3_streams)
+    with uncounted():
+        twin_red = heap_steps(twin, twin_state, twin_red, plan, range(STEPS),
+                              rec["blocking"], k3_streams)
+    del k3_streams[n:]
+    for kind in rec:
+        check(rec[kind]["due_steps"] == [16, 32, 48],
+              f"sharded {kind}: due ticks at {rec[kind]['due_steps']}")
+    red, flush_ms = timed(lambda: store.flush(state, red, step=STEPS))
+    with uncounted():
+        twin_red, twin_flush_ms = timed(lambda: twin.flush(twin_state, twin_red, step=STEPS))
+    restore_k3()
+    check(all(torch.equal(state[k], twin_state[k]) for k in state), "the twins' leaves differ")
+    for name in red:
+        for f in ("checksums", "parity", "dirty", "shadow", "meta_ck"):
+            check(torch.equal(getattr(red[name], f), getattr(twin_red[name], f)),
+                  f"sharded: after flush {name}.{f} differs from the blocking twin's")
+    del twin, twin_red, twin_state, plan
+    torch.cuda.empty_cache()
+    # Each due group one K3 launch: the heap group's 8 shards, one job each.
+    check(K3_CALLS == [8] * 4, f"sharded K3 calls {K3_CALLS}: want 3 due ticks and the "
+          "flush, 8 jobs each")
+    shards = {n_: shard_fields_equal_local(store, n_, state[n_], red[n_])
+              for n_ in ("heap", "params")}
+
+    # A lane corrupted on shard 5: scrub flags its global block id, repair
+    # rebuilds it bitwise (in place: the heap's rows are the shard's view).
+    words = heap.view(torch.int32)                 # row = global block id
+    bad = 5 * nb + int(torch.randint(0, nb, (1,), generator=g, device=dev))
+    saved = words[bad].clone()
+    words[bad, 99] ^= 0xBAD
+    masks, scrub_ms = timed(lambda: store.scrub(state, red))
+    flagged_ = {k: torch.nonzero(m).flatten().tolist() for k, m in masks.items()}
+    check(flagged_["heap"] == [bad] and not flagged_["params"],
+          f"scrub flagged {flagged_}, want heap block {bad}")
+    (fixed_lv, fixed, lost), repair_ms = timed(lambda: store.repair(state, red, masks))
+    check(fixed == 1 and lost == 0 and fixed_lv["heap"].data_ptr() == heap.data_ptr()
+          and torch.equal(words[bad], saved), "repair did not rebuild shard 5's block bitwise")
+    _, red_m = store.inject(state, red, FaultSpec("meta_bitflip", "heap", block=5 * nb + 2,
+                                                  bit=7))
+    ok = store.verify_meta(red_m)
+    diff = torch.nonzero(red_m["heap"].meta_ck != red["heap"].meta_ck).flatten().tolist()
+    check(not bool(ok["heap"]) and bool(ok["params"]) and diff == [5],
+          f"a meta flip on shard 5: verify_meta {ok}, shards changed {diff}")
+    check(all(bool(v) for v in store.verify_meta(red).values()), "verify_meta failed")
+
+    # The sharded oracle: a window from a few steps of writes, then clean-
+    # block faults across shards, every one found, no false positive.
+    for step in range(STEPS + 1, STEPS + 1 + SHARD_WINDOW_STEPS):
+        red, _ = fault_step(store, state, red, torch.randperm(
+            N_ROWS, generator=g, device=dev)[:ROWS_PER_STEP], g, step)
+    red = store.settle(red, state, step=STEPS + SHARD_WINDOW_STEPS)
+    window = vulnerability_window(store, red)
+    inj = FaultInjector(store, seed=21)
+    specs, plan_ms = timed(lambda: inj.plan_clean_blocks(red, SHARD_ORACLE_FAULTS,
+                                                         kinds=("data_bitflip",)))
+    hit = sorted({sp.block // nb for sp in specs if sp.leaf == "heap"})
+    (lv2, _), inject_ms = timed(lambda: inj.inject_many(state, red, specs))
+    report, oracle_ms = timed(lambda: check_detection(store, lv2, red, specs, window=window))
+    n_ = lambda d: sum(len(v) for v in d.values())
+    check(len(specs) == SHARD_ORACLE_FAULTS and len(hit) >= 2 and report.ok
+          and n_(report.expected) == n_(report.detected) == SHARD_ORACLE_FAULTS,
+          f"sharded oracle: {len(specs)} specs on shards {hit}: {report.summary()}")
+    del lv2
+    torch.cuda.synchronize()
+    launches = read_launches()
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    for name in ("checksum", "parity", "fused_update"):
+        check(launches[name] > 0, f"{name} kernel never launched on the sharded heap")
+
+    # Timed, uncounted: K1 and K2 over the 8 shards beside the one-leaf
+    # launches over the same 8 GiB; K3 over a due tick's marks, 8 jobs.
+    times = {}
+    with uncounted():
+        lanes3 = store.engine_for("heap").lanes_by_shard(heap, "heap")
+        lanes2 = heap.view(torch.int32)
+        check(lanes3.data_ptr() == heap.data_ptr(), "the shard lanes are not a view")
+        L = ROW
+        # The store's checksums and parity are current outside the window.
+        live = store.vulnerable_masks(red)["heap"]
+        clean_stripes = ~live.view(-1, STRIPE).any(dim=1)
+        got, want = ck_ops.block_checksums(lanes3), ck_ref.block_checksums(lanes3)
+        check(torch.equal(got, want) and torch.equal(got[~live], red["heap"].checksums[~live]),
+              "sharded K1 != plain or the store's clean checksums")
+        del got, want
+        k1_bound = bound(N_ROWS * L * 4 + N_ROWS * 4, N_ROWS * L * 12)
+        times["checksum"] = {
+            "ms": per_call_ms(lambda: ck_ops.block_checksums(lanes3), 10),
+            "one_leaf_ms": per_call_ms(lambda: ck_ops.block_checksums(lanes2), 10),
+            "plain_ms": per_call_ms(lambda: ck_ref.block_checksums(lanes3), 2),
+            "bound_ms": k1_bound[0], "bound_by": k1_bound[1]}
+        got, want = par_ops.stripe_parity(lanes3, STRIPE), par_ref.stripe_parity(lanes3, STRIPE)
+        check(torch.equal(got, want)
+              and torch.equal(got[clean_stripes], red["heap"].parity[clean_stripes]),
+              "sharded K2 != plain or the store's clean parity")
+        del got, want
+        ns_all = N_ROWS // STRIPE
+        k2_bound = bound(N_ROWS * L * 4 + ns_all * L * 4, N_ROWS * L)
+        times["parity"] = {
+            "ms": per_call_ms(lambda: par_ops.stripe_parity(lanes3, STRIPE), 10),
+            "one_leaf_ms": per_call_ms(lambda: par_ops.stripe_parity(lanes2, STRIPE), 10),
+            "plain_ms": per_call_ms(lambda: par_ref.stripe_parity(lanes3, STRIPE), 2),
+            "bound_ms": k2_bound[0], "bound_by": k2_bound[1]}
+        bd = torch.zeros(N_ROWS, dtype=torch.bool, device=dev)
+        for _ in range(PERIOD):
+            bd[torch.randperm(N_ROWS, generator=g, device=dev)[:ROWS_PER_STEP]] = True
+        sd = stripe_mask(bd, STRIPE)
+        n_dirty, n_stripes = int(bd.sum()), int(sd.sum())
+        words_all = bits.pack_rows(bd.view(8, nb))
+        check(torch.equal(words_all, bits.pack_mask(bd)), "shard words != one leaf's words")
+        old_c = red["heap"].checksums.clone()
+        old_c[bd] ^= 0x5A5A5A5A
+        old_p = red["heap"].parity.clone()
+        old_p[sd] ^= 0x0F0F0F0F
+        nw, nsh = nb // 32, nb // STRIPE
+        cks, par = old_c.clone(), old_p.clone()
+        jobs = [(lanes3[i], cks[i * nb:(i + 1) * nb], par[i * nsh:(i + 1) * nsh],
+                 words_all[i * nw:(i + 1) * nw]) for i in range(8)]
+        want = fu_ref.fused_update_many([(a, b.clone(), c.clone(), w) for a, b, c, w in jobs],
+                                        STRIPE)
+        fu_ops.fused_update_many(jobs, STRIPE)
+        check(torch.equal(cks, torch.cat([w[0] for w in want]))
+              and torch.equal(par, torch.cat([w[1] for w in want])),
+              "sharded K3 != plain on the 8 GiB heap")
+        del want
+        one = [(lanes2, old_c.clone(), old_p.clone(), words_all)]
+        k3_bytes = (n_stripes * STRIPE * L * 4 + n_stripes * L * 4 + n_dirty * 4
+                    + words_all.numel() * 4)
+        k3_bound = bound(k3_bytes, n_stripes * STRIPE * L * 13)
+        times["fused_update"] = {
+            "ms": per_call_ms(lambda: fu_ops.fused_update_many(jobs, STRIPE), 20),
+            "one_leaf_ms": per_call_ms(lambda: fu_ops.fused_update_many(one, STRIPE), 20),
+            "plain_ms": per_call_ms(lambda: fu_ref.fused_update_many(jobs, STRIPE), 2),
+            "bound_ms": k3_bound[0], "bound_by": k3_bound[1], "stripes": n_stripes,
+            "dirty_blocks": n_dirty, "jobs": len(jobs)}
+        del jobs, one, cks, par, old_c, old_p, lanes3, lanes2
+    torch.cuda.empty_cache()
+    return {"launches": launches, "init_launches": init_launches, "init_ms": init_ms,
+            "shards_checked": shards, "overlap": rec, "flush_ms": flush_ms,
+            "flush_ms_blocking": twin_flush_ms, "scrub_ms": scrub_ms, "repair_ms": repair_ms,
+            "corrupted_block": bad, "oracle": report.summary(), "oracle_shards_hit": hit,
+            "oracle_plan_ms": plan_ms, "oracle_inject_ms": inject_ms,
+            "oracle_scrub_ms": oracle_ms, "times": times, "peak_mem_gb": peak_gb,
+            "wall_s": time.perf_counter() - t_phase}
+
+
+def print_sharded_heap(r: dict) -> None:
+    print(f"sharded heap ({r['wall_s']:.1f} s): launches {r['launches']} (init "
+          f"{r['init_launches']}); peak {r['peak_mem_gb']:.2f} GiB; init {r['init_ms']:.2f} ms")
+    for kind in ("async", "blocking"):
+        o = r["overlap"][kind]
+        print(f"sharded heap {kind}: due ticks {o['due_steps']} host "
+              f"{[round(x, 3) for x in o['due_tick_host_ms']]} ms (no device sync); steps "
+              f"15-18, 31-34, 47-50 wall {[round(x, 3) for x in o['window_ms']]} ms; trace "
+              f"of steps 15-18: {o['trace_steps_15_18']}")
+    print(f"sharded heap: every field equals the blocking twin's after flush ("
+          f"{r['flush_ms']:.2f} ms, blocking {r['flush_ms_blocking']:.2f} ms); shards equal to "
+          f"machine-local stores: {r['shards_checked']}; block {r['corrupted_block']} "
+          f"(shard 5) flagged by scrub ({r['scrub_ms']:.2f} ms) and repaired "
+          f"({r['repair_ms']:.2f} ms); a meta flip on shard 5 trips the heap only; oracle "
+          f"{r['oracle']} over shards {r['oracle_shards_hit']} (plan {r['oracle_plan_ms']:.1f} "
+          f"ms, inject {r['oracle_inject_ms']:.1f} ms, scrub {r['oracle_scrub_ms']:.1f} ms)")
+    for name, t in r["times"].items():
+        print(f"sharded heap {name}: {t['ms']:.4f} ms over 8 shards in one launch, "
+              f"{t['one_leaf_ms']:.4f} ms as one leaf, bound {t['bound_ms']:.4f} ms "
+              f"({100 * t['bound_ms'] / t['ms']:.1f}%), plain {t['plain_ms']:.2f} ms")
+
+
+def sharded_due_bound(store, words: dict) -> dict:
+    """K3's bound for a sharded due tick from the snapshot it consumes
+    (``words``, each leaf's packed bits, shard after shard): every dirty
+    stripe's members read, its parity row and its blocks' checksums
+    written, the words read."""
+    n_bytes = ops = stripes = 0
+    for n, w in words.items():
+        meta = store.metas[n]
+        P_, L = meta.stripe_data_blocks, meta.lanes_per_block
+        live = bits.unpack_rows(w, store.shard_factor(n), meta.n_blocks)
+        padded = torch.zeros((live.shape[0], meta.padded_blocks), dtype=torch.bool,
+                             device=live.device)
+        padded[:, :meta.n_blocks] = live
+        ns = int(padded.view(live.shape[0], meta.n_stripes, P_).any(dim=2).sum())
+        n_bytes += ns * P_ * L * 4 + ns * L * 4 + ns * P_ * 4 + w.numel() * 4
+        ops += ns * P_ * L * 13
+        stripes += ns
+    bms, by = bound(n_bytes, ops)
+    return {"stripes": stripes, "gb": n_bytes / 1e9, "bound_ms": bms, "bound_by": by}
+
+
+def sharded_full_check(store, caches: dict, red: dict, names: list) -> dict:
+    """K1 and K2 over each leaf's staged ``(k, n_blocks, L)`` lanes (the
+    shapes phase 22 gives them) against a chunked plain recompute, shard
+    by shard, and against the store's flushed checksums and parity,
+    bitwise.  The launches here are not counted.  Returns each leaf's
+    shards, blocks and stripes checked."""
+    out = {}
+    with uncounted():
+        for n in names:
+            meta = store.metas[n]
+            nb, ns = meta.n_blocks, meta.n_stripes
+            lanes = store.engine_for(n).lanes_by_shard(caches[n], n)
+            k = lanes.shape[0]
+            cks = ck_ops.block_checksums(lanes)
+            par = par_ops.stripe_parity(lanes, STRIPE)
+            check(torch.equal(cks, red[n].checksums) and torch.equal(par, red[n].parity),
+                  f"{n}: K1/K2 over the staged shards != the store's checksums/parity")
+            chunk = max(1, CHUNK_BYTES // meta.bytes_per_block // STRIPE) * STRIPE
+            for s_ in range(k):
+                for a in range(0, nb, chunk):
+                    e = min(nb, a + chunk)
+                    check(torch.equal(ck_ref.block_checksums(lanes[s_, a:e], a),
+                                      cks[s_ * nb + a:s_ * nb + e]),
+                          f"{n} shard {s_}: K1 over blocks {a}..{e} != plain")
+                    check(torch.equal(par_ref.stripe_parity(lanes[s_, a:e], STRIPE),
+                                      par[s_ * ns + a // STRIPE:s_ * ns - (-e // STRIPE)]),
+                          f"{n} shard {s_}: K2 over blocks {a}..{e} != plain")
+            out[n] = {"shards": k, "blocks": k * nb, "stripes": k * ns,
+                      "partial_last_stripe": nb % STRIPE != 0}
+            del lanes, cks, par
+    return out
+
+
+def flip_shard_element(leaf, splits, s_: int, local_index: tuple, bit: int) -> None:
+    """XOR one bit of the 16-bit element at ``local_index`` of shard ``s_``
+    of a strided leaf, in place (the shard's chunk coordinates are the
+    row-major digits of ``s_`` over ``splits``)."""
+    coords, rest = [], s_
+    for n in reversed(splits):
+        rest, c = divmod(rest, n)
+        coords.append(c)
+    coords.reverse()
+    local = [d // n for d, n in zip(leaf.shape, splits)]
+    idx = tuple(c * l + i for c, l, i in zip(coords, local, local_index))
+    leaf.view(torch.int16)[idx] ^= 1 << bit
+
+
+def phase_serve_sharded(gen_state, tokens7, none_s7: list) -> dict:
+    """Phase 22: phase 7's llama3.2-3b, batch and traffic with the KV caches
+    under a store on a simulated (2, 2, 2) mesh with ``cache_specs``.
+    ``tokens7`` and ``none_s7`` are phase 7's tokens and its no-store
+    ``generate`` wall times."""
+    from torch.profiler import ProfilerActivity, profile
+    t_phase = time.perf_counter()
+    dev = torch.device(DEVICE)
+    cfg = get_arch(SERVE_ARCH)
+    model = build_model(cfg, dev)
+    g = torch.Generator(device=dev)
+    g.set_state(gen_state)              # phase 7's params and batch, drawn again
+    params = model.init(g)
+    max_len = PROMPT + GEN + 1
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (SERVE_BATCH, PROMPT),
+                                     generator=g, device=dev, dtype=torch.int32)}
+    mesh = make_mesh(MESH_SHAPE, MESH_AXES, device=dev)
+    shapes = model.cache_shapes(SERVE_BATCH, max_len)
+    specs, log = cache_specs(cfg, flatten_dict(shapes), ParallelCtx(mesh), SERVE_BATCH)
+    want_spec = (None, None, ("pod", "data"), "model", None)
+    check(not log and all(tuple(v) == want_spec for v in specs.values()),
+          f"cache_specs gave {specs} (log {log})")
+    policy = RedundancyPolicy.single("vilamb", period_steps=PERIOD,
+                                     max_vulnerable_steps=DEADLINE)
+    kinds = {"async": {}, "blocking": dict(async_tick=False)}
+
+    def new_store(kind="async"):
+        return ProtectedStore(dataclasses.replace(policy, **kinds[kind]), mesh=mesh).attach(
+            shapes, specs=specs)
+
+    store = new_store()
+    names = sorted(store.metas)
+    check(all(store.shard_factor(n) == 8 for n in names), "cache leaves not in 8 shards")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    tokens, stats, rec, wall = generate(model, params, batch, store)
+    launches = read_launches()
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    calls = list(K3_CALLS)
+    check(torch.equal(tokens, tokens7), "sharded serving's tokens differ from phase 7's")
+    check(stats["mismatches"] == 0, f"sharded scrubs found {stats['mismatches']} mismatches")
+    check(launches["flash_attn"] == cfg.n_layers and launches["checksum"] > 0
+          and launches["parity"] > 0, f"sharded serving launches {launches}")
+    due = [t for t in rec["ticks"] if t["updated"]]
+    check(len(due) == len(calls) and calls and all(n == 8 * len(names) for n in calls),
+          f"K3 calls {calls} over {len(due)} due ticks: want one launch a due tick over "
+          f"every shard of every cache leaf")
+    # After the counted run (overlapped), the blocking and the overlapped
+    # sharded store in turns, untimed steps (the stores' ticks on the host
+    # clock): tokens equal.  No store's wall time is phase 7's (the same
+    # model, batch and card, in this process).
+    walls = {"async": [wall], "blocking": []}
+    host_ticks = {"async": [], "blocking": []}
+    with uncounted():
+        for kind in ("blocking", "async"):
+            toks, _, trec, w = generate(model, params, batch, new_store(kind))
+            check(torch.equal(toks, tokens), f"sharded serving's tokens differ with {kind}")
+            walls[kind].append(w)
+            host_ticks[kind].extend(trec["ticks"])
+    mean = {k: sum(v) / len(v) for k, v in walls.items()}
+    none_s = statistics.mean(none_s7)
+    out = {"launches": launches, "k3_calls": calls, "peak_mem_gb": peak_gb,
+           "generate_s": walls, "generate_s_no_store_phase7": none_s7,
+           "store_overhead": {k: mean[k] / none_s - 1 for k in ("async", "blocking")},
+           "due_tick_host_ms": {k: [t["ms"] for t in v if t["updated"]]
+                                for k, v in host_ticks.items()},
+           "due_steps": [t["step"] for t in due],
+           "cache_gb": sum(m.data_bytes for m in store.metas.values()) * 8 / 1e9}
+    with torch.inference_mode(), uncounted():
+        caches = flatten_dict(stats["caches"])
+        red = stats["red"]
+        out["shards_checked_settled"] = {
+            n: shard_fields_equal_local(store, n, caches[n], red[n], live_only=True)
+            for n in names}
+        masks = store.scrub(caches, red)
+        check(sum(int(m.sum()) for m in masks.values()) == 0, "sharded scrub flagged blocks")
+        red = store.flush(caches, red, step=GEN)
+        for n in names:
+            shard_fields_equal_local(store, n, caches[n], red[n])
+        out["plain_check"] = sharded_full_check(store, caches, red, names)
+        # A corrupted K-cache lane on shard 5: found at its global block id;
+        # repair on this leaf (not dim0-sharded) raises the reference's error.
+        name = "slot_0/k"
+        meta = store.metas[name]
+        nb, L = meta.n_blocks, meta.lanes_per_block
+        b_loc = int(torch.randint(0, nb - 1, (1,), generator=g, device=dev))
+        local_idx = np.unravel_index((b_loc * L + 99) * 2, meta.shape)
+        splits = store.engine_for(name)._splits[name]
+        flip_shard_element(caches[name], splits, 5, tuple(int(i) for i in local_idx), 8)
+        masks = store.scrub(caches, red)
+        flagged_ = {k: torch.nonzero(m).flatten().tolist() for k, m in masks.items()}
+        check(flagged_[name] == [5 * nb + b_loc]
+              and all(not v for k, v in flagged_.items() if k != name),
+              f"sharded scrub flagged {flagged_}, want {name} block {5 * nb + b_loc}")
+        try:
+            store.repair(caches, red, masks)
+            raised = None
+        except ValueError as e:
+            raised = str(e)
+        check(raised is not None and "dim0-only sharding" in raised,
+              f"repair on a strided leaf: {raised!r}")
+        flip_shard_element(caches[name], splits, 5, tuple(int(i) for i in local_idx), 8)
+        check(sum(int(m.sum()) for m in store.scrub(caches, red).values()) == 0,
+              "sharded rescrub flagged blocks")
+        out.update(corrupted_block=5 * nb + b_loc, repair_error=raised)
+
+        # One due tick's update, alone: the decode's marks of PERIOD
+        # positions, then the group's blocking update, traced and timed.
+        eng = store.engine_for(names[0])
+        pos = int(stats["pos"]) - PERIOD
+        marked = dict(red)
+        for t in range(PERIOD):
+            ev = model.dirty_events_decode(stats["caches"], pos + t)
+            marked = eng.mark_dirty(marked, {n: ev[n] for n in names})
+        words = {n: marked[n].dirty | marked[n].shadow for n in names}
+        out["due_bound"] = sharded_due_bound(store, words)
+        sub = {n: caches[n] for n in names}
+        traced = {n: dataclasses.replace(marked[n], checksums=marked[n].checksums.clone(),
+                                         parity=marked[n].parity.clone()) for n in names}
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            eng.redundancy_step(sub, traced)
+            torch.cuda.synchronize()
+        del traced
+        kernels = kernel_events(prof) or [
+            (e.name, e.device_resource_id, e.time_range.start * 1000, e.time_range.end * 1000)
+            for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        by_kernel: dict = {}
+        for k_ in kernels:
+            by_kernel[k_[0][:90]] = by_kernel.get(k_[0][:90], 0.0) + (k_[3] - k_[2]) / 1e6
+        k3 = [k for k in kernels if "fused_update_kernel" in k[0]]
+        # The staging copy of each leaf into its (8, *local) layout, and the
+        # zero fill of the layout's padded tail.
+        staging = [k for k in kernels if "copy" in k[0].lower() or "fill" in k[0].lower()]
+        out["due_trace"] = {
+            "kernels": len(kernels), "fused_update_launches": len(k3),
+            "fused_update_ms": sum(k[3] - k[2] for k in k3) / 1e6 if k3 else "not measured",
+            "staging_ms": sum(k[3] - k[2] for k in staging) / 1e6 if kernels
+            else "not measured",
+            "device_busy_ms": busy_union((k[2], k[3]) for k in kernels) / 1e6 if kernels
+            else "not measured",
+            "staging_launches": len(staging),
+            "top_kernels_ms": dict(sorted(by_kernel.items(), key=lambda kv: -kv[1])[:6])}
+        # K3 over the same marks, alone: one launch of 16 jobs against its
+        # plain version, its device time between CUDA events behind a spin
+        # (the trace above does not always hold the kernel: PERF.md §7).
+        lanes = {n: eng.lanes_by_shard(caches[n], n) for n in names}
+        jobs, plain = [], []
+        for n in names:
+            m = store.metas[n]
+            nb_, ns_, nw_ = m.n_blocks, m.n_stripes, m.n_dirty_words
+            c, p_ = marked[n].checksums.clone(), marked[n].parity.clone()
+            for s_ in range(store.shard_factor(n)):
+                job = (lanes[n][s_], c[s_ * nb_:(s_ + 1) * nb_], p_[s_ * ns_:(s_ + 1) * ns_],
+                       words[n][s_ * nw_:(s_ + 1) * nw_])
+                jobs.append(job)
+                plain.append((job[0], job[1].clone(), job[2].clone(), job[3]))
+        want = fu_ref.fused_update_many(plain, STRIPE)
+        n_launch = fu_ops.LAUNCHES
+        got = fu_ops.fused_update_many(jobs, STRIPE)
+        check(fu_ops.LAUNCHES == n_launch + 1 and all(
+            torch.equal(gc, wc) and torch.equal(gp, wp) for (gc, gp), (wc, wp) in zip(got, want)),
+              "phase 22's K3 over 16 shard jobs != plain or not one launch")
+        del want, got
+        device = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            torch.cuda._sleep(SPIN_CYCLES)
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            fu_ops.fused_update_many(jobs, STRIPE)
+            b.record()
+            b.synchronize()
+            device.append(a.elapsed_time(b))
+        out["k3"] = {"jobs": len(jobs), "device_ms": statistics.median(device),
+                     "device_ms_runs": device,
+                     "wrapper_ms": per_call_ms(lambda: fu_ops.fused_update_many(jobs, STRIPE), 10),
+                     "plain_ms": per_call_ms(lambda: fu_ref.fused_update_many(plain, STRIPE), 1)}
+        del jobs, plain, lanes
+        out["staging_copy_ms"] = per_call_ms(
+            lambda: [eng.lanes_by_shard(caches[n], n) for n in names], 5)
+        stage_bytes = sum(2 * caches[n].numel() * caches[n].element_size() for n in names)
+        out["staging_bound_ms"] = stage_bytes / HBM_BYTES_PER_SEC * 1e3
+        jobs_marked = {n: dataclasses.replace(marked[n], checksums=marked[n].checksums.clone(),
+                                              parity=marked[n].parity.clone())
+                       for n in names}
+        out["due_update_ms"] = per_call_ms(lambda: eng.redundancy_step(sub, jobs_marked), 5)
+        del marked, jobs_marked, sub
+    out["wall_s"] = time.perf_counter() - t_phase
+    del store, params, model, stats
+    return out
+
+
+def print_serve_sharded(r: dict) -> None:
+    print(f"sharded serving ({r['wall_s']:.1f} s): launches {r['launches']}, K3 calls "
+          f"{r['k3_calls']} (jobs each) at due steps {r['due_steps']}; caches "
+          f"{r['cache_gb']:.2f} GB in 8 shards a leaf; peak {r['peak_mem_gb']:.2f} GiB")
+    print(f"sharded serving: generate s, in turns (async counted, blocking, async) "
+          f"{({k: [round(x, 4) for x in v] for k, v in r['generate_s'].items()})}; "
+          f"overhead against phase 7's no-store runs "
+          f"{[round(x, 4) for x in r['generate_s_no_store_phase7']]} s "
+          f"{({k: round(100 * v, 2) for k, v in r['store_overhead'].items()})}%; due ticks' host ms "
+          f"{ {k: [round(x, 3) for x in v] for k, v in r['due_tick_host_ms'].items()} }")
+    print(f"sharded serving: tokens identical to phase 7's (equal to no store's); shards equal to "
+          f"machine-local stores (settled: clean fields; flushed: all) "
+          f"{r['shards_checked_settled']}; K1/K2 over the staged shards == chunked plain "
+          f"== the store's, bitwise: {r['plain_check']}; block {r['corrupted_block']} "
+          f"flagged; repair "
+          f"raised {r['repair_error']!r}")
+    b, t, k = r["due_bound"], r["due_trace"], r["k3"]
+    print(f"sharded serving: K3 over a due tick's {k['jobs']} shard jobs, one launch: "
+          f"{k['device_ms']:.4f} ms of device time ({k['wrapper_ms']:.4f} ms with the "
+          f"wrapper) against its {b['bound_ms']:.4f} ms bound over {b['stripes']} stripes "
+          f"({100 * b['bound_ms'] / k['device_ms']:.1f}%); plain {k['plain_ms']:.2f} ms")
+    print(f"sharded serving: one due tick's update {r['due_update_ms']:.4f} ms; staging "
+          f"copies {r['staging_copy_ms']:.4f} ms timed (one read and one write of both "
+          f"leaves: bound {r['staging_bound_ms']:.4f} ms); trace: K3 {t['fused_update_ms']} ms "
+          f"({t['fused_update_launches']} launch), staging {t['staging_ms']} ms over "
+          f"{t['staging_launches']} launches, top kernels {t['top_kernels_ms']}")
+
+
 def smi_line() -> str:
     """The card's name and power limit, as nvidia-smi gives them."""
     smi = subprocess.run(
@@ -4551,6 +5202,8 @@ def main() -> int:
     print(json.dumps({"serve_launches": serve["launches"]}))
     serve_launches = serve["launches"]
     patrol_serve = serve["patrolled"]
+    serve_tokens, serve_gen_state = serve["tokens"], serve["gen_state"]
+    serve_none_s = tm["generate_s_no_store"]
     del serve
     torch.cuda.empty_cache()
 
@@ -4660,6 +5313,18 @@ def main() -> int:
     print_train_hybrid(th)
     print(smi_line())
     print(json.dumps({"train_hybrid": th}))
+    gc.collect()
+    torch.cuda.empty_cache()
+    sh = phase_sharded_heap(g)
+    print_sharded_heap(sh)
+    print(smi_line())
+    print(json.dumps({"sharded_heap": sh}))
+    gc.collect()
+    torch.cuda.empty_cache()
+    ss = phase_serve_sharded(serve_gen_state, serve_tokens, serve_none_s)
+    print_serve_sharded(ss)
+    print(smi_line())
+    print(json.dumps({"serve_sharded": ss}))
     for row in kernels:
         by_path = {"heap": heap_launches.get(row["name"], 0),
                    "serving": serve_launches[row["name"]],
@@ -4676,7 +5341,9 @@ def main() -> int:
                    "enc-dec serving": ed["launches"][row["name"]],
                    "enc-dec training": te["main"]["launches"][row["name"]],
                    "xlstm training": tx["main"]["launches"][row["name"]],
-                   "hybrid training": th["launches"][row["name"]]}
+                   "hybrid training": th["launches"][row["name"]],
+                   "sharded heap": sh["launches"][row["name"]],
+                   "sharded serving": ss["launches"][row["name"]]}
         row["launches"] = sum(by_path.values())
         row["launches_by_path"] = by_path
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s")

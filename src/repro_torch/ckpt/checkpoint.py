@@ -548,9 +548,9 @@ class CheckpointManager:
                      step: Optional[int] = None) -> Optional[Any]:
         """Rebuild a state like ``state_struct`` (a ``TrainState`` or a
         ``StoreState`` whose leaves carry the shapes, e.g. meta tensors from
-        ``Trainer.state_struct``) from the newest verified checkpoint.  The
-        port is machine-local, so the reference's ``shardings`` argument
-        has no counterpart."""
+        ``Trainer.state_struct``) from the newest verified checkpoint.
+        Every shard of a sharded store lives on one device, so the
+        reference's ``shardings`` argument has no counterpart."""
         host = self.restore_flat(step)
         if host is None:
             return None

@@ -29,13 +29,19 @@ def _shifts(device) -> torch.Tensor:
 
 def pack_mask(mask: torch.Tensor) -> torch.Tensor:
     """Pack a bool[n_bits] mask into int32[n_words] (little-endian bits)."""
-    n_bits = mask.shape[0]
+    return pack_rows(mask[None])
+
+
+def pack_rows(mask: torch.Tensor) -> torch.Tensor:
+    """Pack a bool[rows, n_bits] mask into int32[rows * n_words]: one
+    bitvector per row (a shard's), concatenated."""
+    rows, n_bits = mask.shape
     nw = n_words(n_bits)
-    m = torch.zeros((nw * WORD_BITS,), dtype=torch.int64, device=mask.device)
-    m[:n_bits] = mask
+    m = torch.zeros((rows, nw * WORD_BITS), dtype=torch.int64, device=mask.device)
+    m[:, :n_bits] = mask
     weights = torch.ones((), dtype=torch.int64, device=mask.device) << _shifts(
         mask.device).to(torch.int64)
-    return wrap_i32((m.view(nw, WORD_BITS) * weights).sum(dim=1))
+    return wrap_i32((m.view(rows, nw, WORD_BITS) * weights).sum(dim=2)).reshape(-1)
 
 
 def unpack(words: torch.Tensor, n_bits: int) -> torch.Tensor:

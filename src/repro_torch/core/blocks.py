@@ -167,17 +167,125 @@ def from_lanes(lanes: torch.Tensor, meta: BlockMeta) -> torch.Tensor:
 
 def stripe_dirty_mask(meta: BlockMeta, block_dirty: torch.Tensor) -> torch.Tensor:
     """bool[n_stripes] of stripes containing at least one dirty block."""
-    padded = torch.zeros((meta.padded_blocks,), dtype=torch.bool,
+    return stripe_dirty_rows(meta, block_dirty[None])[0]
+
+
+def stripe_dirty_rows(meta: BlockMeta, block_dirty: torch.Tensor) -> torch.Tensor:
+    """bool[k, n_stripes] of a (k, n_blocks) block mask, shard by shard
+    (a stripe never spans shards)."""
+    k = block_dirty.shape[0]
+    padded = torch.zeros((k, meta.padded_blocks), dtype=torch.bool,
                          device=block_dirty.device)
-    padded[: meta.n_blocks] = block_dirty
-    return padded.view(meta.n_stripes, meta.stripe_data_blocks).any(dim=1)
+    padded[:, : meta.n_blocks] = block_dirty
+    return padded.view(k, meta.n_stripes, meta.stripe_data_blocks).any(dim=2)
+
+
+def _split_view(x: torch.Tensor, splits):
+    """``(splits, local, view)``: the per-dim shard counts, the local shape,
+    and the leaf as a view ``(*splits, *local)`` (chunk axes first, so that
+    flattening them gives the reference's row-major shard index)."""
+    shape = tuple(x.shape)
+    splits = tuple(splits) + (1,) * (len(shape) - len(splits))
+    local = tuple(d // s for d, s in zip(shape, splits))
+    nd = len(shape)
+    split = x.reshape(tuple(v for d, s in zip(local, splits) for v in (s, d)))
+    order = [2 * i for i in range(nd)] + [2 * i + 1 for i in range(nd)]
+    return splits, local, split.permute(order)
+
+
+def shard_view(x: torch.Tensor, splits) -> torch.Tensor:
+    """``(k, *local)`` of a leaf split into ``splits[i]`` chunks along each
+    dim ``i`` (dims past ``splits`` whole), shard ``s`` being the row-major
+    index of its chunk indices, dim by dim: the reference's shard order.
+
+    A view of the leaf's memory when only dim 0 is split (each shard a
+    contiguous row range); a contiguous staged copy, shard after shard,
+    when another dim is split (a KV cache under ``cache_specs``).
+    """
+    splits, local, perm = _split_view(x, splits)
+    k = math.prod(splits)
+    if not is_strided(splits):
+        return x.contiguous().reshape((k,) + local)
+    return perm.reshape((k,) + local)
+
+
+def is_strided(splits) -> bool:
+    """Does a split make shards that are not contiguous row ranges?"""
+    return any(s > 1 for s in tuple(splits)[1:])
+
+
+def shard_lanes(x: torch.Tensor, meta: BlockMeta, splits) -> torch.Tensor:
+    """int32 ``(k, n_blocks, lanes_per_block)`` lane view of every shard of
+    a leaf (``meta`` is the shard-local geometry, ``splits`` as in
+    :func:`shard_view`).
+
+    A view of the leaf's memory when each shard is a contiguous row range
+    filling its blocks exactly; a zero-padded copy where a shard's last
+    block is partial, as :func:`to_lanes` pads one leaf.  Strided shards
+    are staged with one copy (one read and one write of the leaf) straight
+    into that layout, padded where it must be.
+    """
+    epw, n = meta.elems_per_word, meta.n_elems
+    exact = n == meta.padded_lanes * epw
+    if not is_strided(splits):
+        k = math.prod(splits)
+        flat = x.contiguous().reshape(k, -1)
+        if exact:
+            return flat.view(torch.int32).view(k, meta.n_blocks, meta.lanes_per_block)
+        out = torch.empty((k, meta.padded_lanes * epw), dtype=x.dtype, device=x.device)
+        out[:, :n] = flat
+    else:
+        splits, local, perm = _split_view(x, splits)
+        k = math.prod(splits)
+        out = torch.empty((k, meta.padded_lanes * epw), dtype=x.dtype, device=x.device)
+        out[:, :n].view(splits + local).copy_(perm)
+    if not exact:
+        out[:, n:] = 0                    # each shard's partial last block
+    return out.view(torch.int32).view(k, meta.n_blocks, meta.lanes_per_block)
+
+
+def shard_slice(leaf: torch.Tensor, meta: BlockMeta, shards: int, shard: int):
+    """One shard's rows of a dim0-sharded global leaf.
+
+    Sharded redundancy state is addressed in *global block space*: shard
+    ``s``'s local block ``b`` is global block ``s * meta.n_blocks + b``
+    (``meta`` is the shard-local geometry).  Host-side surgery on that
+    space (fault injection, parity reconstruction) needs the shard's local
+    lane view back.  Supported for leading-axis sharding only, as in the
+    reference; other specs raise its ``ValueError``.
+
+    Returns ``(sub_leaf, put)``: ``sub_leaf`` is a view of the shard's
+    rows, and ``put(new_sub)`` writes a modified shard back into ``leaf``
+    in place (the reference returns a new global leaf) and returns it.
+    """
+    if shards == 1:
+        return leaf, (lambda new: new)
+    rows = meta.shape[0] if meta.shape else 1
+    if (not meta.shape or leaf.shape[0] != rows * shards
+            or tuple(leaf.shape[1:]) != tuple(meta.shape[1:])):
+        raise ValueError(
+            f"global-block addressing needs dim0-only sharding: global "
+            f"{tuple(leaf.shape)} vs local {tuple(meta.shape)} x {shards}")
+    lo = shard * rows
+    sub = leaf[lo:lo + rows]
+
+    def put(new):
+        if new.data_ptr() != sub.data_ptr():
+            sub.copy_(new)
+        return leaf
+
+    return sub, put
 
 
 def global_stripe_id(meta: BlockMeta, block: int) -> int:
-    """Stripe id of a block id: the reference's name for the formula that
-    repair grouping and clean-stripe planning share.  The port is
-    machine-local (one shard), so it is ``block // P``."""
-    return int(block) // meta.stripe_data_blocks
+    """Global stripe id of a global block id (shard-local geometry ``meta``).
+
+    Parity groups never span shards, so shard ``s`` owns stripes
+    ``[s * n_stripes, (s+1) * n_stripes)``: the one formula repair
+    grouping, parity-fault placement and clean-stripe planning share.
+    """
+    s, b = divmod(int(block), meta.n_blocks)
+    return s * meta.n_stripes + b // meta.stripe_data_blocks
 
 
 def _row_geometry(meta: BlockMeta, row_dims: int):

@@ -19,7 +19,7 @@ from ..kernels.common import (C1, C2, GOLDEN, SALT2, fmix32, fmix32_, i32,
 
 __all__ = ["C1", "C2", "GOLDEN", "SALT2", "block_checksums", "checksum_diff",
            "fmix32", "fmix32_", "lane_salt", "meta_checksum",
-           "meta_checksum_delta"]
+           "meta_checksum_delta", "meta_checksum_rows"]
 
 
 def lane_salt(block_ids: torch.Tensor, lane_ids: torch.Tensor) -> torch.Tensor:
@@ -38,22 +38,29 @@ def block_checksums(lanes: torch.Tensor, block_offset: int = 0) -> torch.Tensor:
 
 def checksum_diff(old_lanes: torch.Tensor, new_lanes: torch.Tensor,
                   block_offset: int = 0) -> torch.Tensor:
-    """Per-block incremental checksum delta: cksum' = cksum ^ delta."""
-    nb, L = old_lanes.shape
+    """Per-block incremental checksum delta: cksum' = cksum ^ delta.  A
+    (k, n_blocks, L) pair of k shards' views gives int32[k * n_blocks],
+    each shard salted by its local block index."""
+    nb, L = old_lanes.shape[-2], old_lanes.shape[-1]
     dev = old_lanes.device
     bids = torch.arange(nb, dtype=torch.int32, device=dev)[:, None] + i32(block_offset)
     lids = torch.arange(L, dtype=torch.int32, device=dev)[None, :]
     salt = lane_salt(bids, lids)
     h = fmix32_(old_lanes ^ salt)
     h ^= fmix32_(new_lanes ^ salt)
-    return xor_fold(h, 1)
+    return xor_fold(h, -1).reshape(-1)
 
 
 def meta_checksum(checksums: torch.Tensor) -> torch.Tensor:
     """Checksum-of-checksums (paper Algorithm 1, line 22); int32 scalar."""
-    flat = checksums.reshape(-1)
-    ids = torch.arange(flat.shape[0], dtype=torch.int32, device=flat.device)
-    return xor_fold(fmix32_(flat ^ (ids * GOLDEN)), 0)
+    return meta_checksum_rows(checksums.reshape(1, -1))[0]
+
+
+def meta_checksum_rows(checksums: torch.Tensor) -> torch.Tensor:
+    """:func:`meta_checksum` of each row of a (k, n_blocks) view: one
+    checksum-of-checksums per shard, int32[k]."""
+    ids = torch.arange(checksums.shape[1], dtype=torch.int32, device=checksums.device)
+    return xor_fold(fmix32_(checksums ^ (ids * GOLDEN)), 1)
 
 
 def meta_checksum_delta(old_vals: torch.Tensor, new_vals: torch.Tensor,

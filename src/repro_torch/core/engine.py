@@ -7,20 +7,31 @@ Modes (Table 1 of the paper):
   * ``vilamb`` — the paper: dirty bits accumulate during steps; a periodic
                  ``redundancy_step`` (Algorithm 1) amortizes the update.
 
-Machine-local: one engine owns the redundancy of a named set of leaves on
-one device, the GPU unless the caller passes ``device="cpu"``; a leaf on
-another device is refused.  On a CUDA device the Algorithm-1 update of
-all the engine's leaves is one launch of the fused kernel
-(``kernels/redundancy``), which reads the packed dirty words itself, so
-there is no mask, no queue and no host-side fit check; on the CPU the
-plain work queue or full recompute of ``workqueue.py`` runs, leaf by leaf,
-exactly as in the reference.  The results are bitwise identical either
-way.
+One engine owns the redundancy of a named set of leaves on one device,
+the GPU unless the caller passes ``device="cpu"``; a leaf on another
+device is refused.  On a CUDA device the Algorithm-1 update of all the
+engine's leaves is one launch of the fused kernel (``kernels/redundancy``),
+which reads the packed dirty words itself, so there is no mask, no queue
+and no host-side fit check; on the CPU the plain work queue or full
+recompute of ``workqueue.py`` runs, leaf by leaf, exactly as in the
+reference.  The results are bitwise identical either way.
+
+Sharded (``mesh=`` and per-leaf ``specs=``): every redundancy array of a
+leaf concatenates one array per shard, in global block space (shard
+``s``'s local block ``b`` is global block ``s * n_blocks + b``, ``metas``
+being the shard-local geometry), and ``meta_ck`` is one value per shard,
+as the reference's ``shard_map`` programs lay them out.  Every shard lives
+on the mesh's one device: the checksum, parity and fused kernels take
+every shard of a leaf in one launch (a leading shard axis, or one
+descriptor per shard), on the CPU their plain versions run shard by shard.
+A mesh axis a leaf's spec does not use replicates its redundancy, which is
+computed once.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, Mapping, Tuple, Union
+import math
+from typing import Any, Callable, Dict, List, Mapping, Optional, Tuple, Union
 
 import torch
 
@@ -28,7 +39,8 @@ from ..common.device import DeviceLike, resolve_device
 from ..kernels.common import xor_fold
 from ..kernels.redundancy import ops as _fused
 from . import bits, blocks, checksum, parity, workqueue
-from .blocks import BlockMeta, DEFAULT_LANES_PER_BLOCK, DEFAULT_STRIPE_DATA_BLOCKS
+from .blocks import (BlockMeta, DEFAULT_LANES_PER_BLOCK, DEFAULT_STRIPE_DATA_BLOCKS,
+                     ShapeDtype)
 from .state import LeafRedundancy, RedundancyState
 
 # Dirty-event sentinel: "every block of this leaf was (potentially) written".
@@ -50,25 +62,166 @@ class RedundancyConfig:
             raise ValueError(f"unknown redundancy mode {self.mode!r}")
 
 
+def _unravel(i: int, sizes) -> Tuple[int, ...]:
+    """Row-major coordinates of flat index ``i`` over ``sizes``."""
+    out = []
+    for n in reversed(tuple(sizes)):
+        i, c = divmod(i, n)
+        out.append(c)
+    return tuple(reversed(out))
+
+
+def _entry_axes(entry) -> Tuple[str, ...]:
+    if entry is None:
+        return ()
+    return tuple(entry) if isinstance(entry, tuple) else (entry,)
+
+
+def local_shape(shape, spec, mesh) -> Tuple[int, ...]:
+    """Per-shard local shape of a leaf under ``spec`` on ``mesh``; raises
+    on a dim its axes do not divide and (KeyError) on an unknown axis."""
+    if mesh is None or spec is None:
+        return tuple(shape)
+    out = []
+    for i, dim in enumerate(shape):
+        k = math.prod(mesh.shape[a] for a in _entry_axes(spec[i] if i < len(spec) else None))
+        if dim % k:
+            raise ValueError(f"dim {dim} not divisible by mesh axes "
+                             f"{spec[i]} ({k})")
+        out.append(dim // k)
+    return tuple(out)
+
+
+def _cat(parts: List[torch.Tensor]) -> torch.Tensor:
+    """``torch.cat``, with no copy of a lone part (a machine-local leaf)."""
+    return parts[0] if len(parts) == 1 else torch.cat(parts)
+
+
+def _leaf_axes(spec) -> Tuple[str, ...]:
+    """All mesh axes a leaf is sharded over (flattened, order of appearance)."""
+    if spec is None:
+        return ()
+    return tuple(a for ax in spec for a in _entry_axes(ax))
+
+
+def _dim_splits(shape, spec, mesh) -> Tuple[int, ...]:
+    """Shards along each dim of a leaf (1 where the dim is whole)."""
+    if mesh is None or spec is None:
+        return (1,) * len(shape)
+    return tuple(math.prod(mesh.shape[a] for a in _entry_axes(
+        spec[i] if i < len(spec) else None)) for i in range(len(shape)))
+
+
 class RedundancyEngine:
     """Redundancy operations for a named dict of leaves on one device."""
 
     def __init__(self, leaf_structs: Mapping[str, Any],
                  config: RedundancyConfig = RedundancyConfig(),
-                 device: DeviceLike = None):
+                 device: DeviceLike = None, mesh: Any = None,
+                 specs: Optional[Mapping[str, Any]] = None):
         self.config = config
+        if device is None and mesh is not None:
+            device = mesh.device
         self.device = resolve_device(device, "RedundancyEngine")
+        if mesh is not None and torch.device(mesh.device) != self.device:
+            raise ValueError(f"the mesh lies on {mesh.device}, the engine on "
+                             f"{self.device}")
         self.use_kernels = self.device.type == "cuda"
+        self.mesh = mesh
+        self.specs = dict(specs or {})
+        # Global leaf shapes (as handed in); the metas are shard-local.
+        self.global_shapes = {name: tuple(leaf.shape)
+                              for name, leaf in leaf_structs.items()}
+        self._splits = {name: _dim_splits(leaf.shape, self.specs.get(name), mesh)
+                        for name, leaf in leaf_structs.items()}
         self.metas: Dict[str, BlockMeta] = {
-            name: blocks.make_meta(leaf, config.lanes_per_block,
-                                   config.stripe_data_blocks)
+            name: blocks.make_meta(
+                ShapeDtype(local_shape(leaf.shape, self.specs.get(name), mesh),
+                           leaf.dtype),
+                config.lanes_per_block, config.stripe_data_blocks)
             for name, leaf in leaf_structs.items()}
+        # The shard of each leaf that each device (row-major over the mesh's
+        # axes; one device machine-local) holds, and the first device
+        # holding each shard, whose fit flag decides the shard's overflow
+        # select (the reference reads a replicated shard from it).
+        self._device_shard: Dict[str, List[int]] = {
+            name: self._shards_by_device(name) for name in self.metas}
+        self._first_device: Dict[str, List[int]] = {
+            name: [shards.index(s) for s in range(self.shard_factor(name))]
+            for name, shards in self._device_shard.items()}
         # Static per-leaf work-queue capacities (0 = full recompute).  The
         # fused kernel reads only dirty stripes, so it needs no queue.
         self._queue_caps = {
             name: 0 if self.use_kernels else workqueue.queue_capacity(
                 meta.n_stripes, config.work_queue_frac)
             for name, meta in self.metas.items()}
+
+    # ------------------------------------------------------------------ utils
+    def shard_factor(self, name: str) -> int:
+        """Number of shards a leaf's redundancy arrays concatenate (1 = local)."""
+        return math.prod(self._splits[name])
+
+    def _shards_by_device(self, name: str) -> List[int]:
+        """The shard of ``name`` each device holds: the row-major index of
+        the device's coordinates over the leaf's axes (``[0]``
+        machine-local)."""
+        if self.mesh is None:
+            return [0]
+        axes = _leaf_axes(self.specs.get(name))
+        shards = []
+        for d in range(self.mesh.size):
+            coords = dict(zip(self.mesh.axis_names, _unravel(d, self.mesh.sizes)))
+            s = 0
+            for a in axes:
+                s = s * self.mesh.shape[a] + coords[a]
+            shards.append(s)
+        return shards
+
+    def _mck_store(self, per_shard: torch.Tensor) -> torch.Tensor:
+        """A leaf's int32[k] meta-checksums as stored: ``(k,)`` under a mesh
+        (one checksum-of-checksums per shard, as the reference stores it),
+        the scalar machine-local."""
+        return per_shard if self.mesh is not None else per_shard.reshape(())
+
+    def _mck_out(self, cks: torch.Tensor, name: str) -> torch.Tensor:
+        """The stored meta-checksum of a leaf's checksums."""
+        return self._mck_store(checksum.meta_checksum_rows(
+            cks.reshape(self.shard_factor(name), self.metas[name].n_blocks)))
+
+    def red_spec(self, name: str) -> LeafRedundancy:
+        """PartitionSpecs of a leaf's redundancy arrays: dim 0 over the
+        leaf's axes (``meta_ck`` too: one value per shard)."""
+        from ..dist.spec import PartitionSpec
+        axes = _leaf_axes(self.specs.get(name))
+        s = PartitionSpec(axes if axes else None)
+        return LeafRedundancy(checksums=s, parity=s, dirty=s, shadow=s, meta_ck=s)
+
+    def red_structs(self, global_: bool = True) -> Dict[str, LeafRedundancy]:
+        """Shapes of the redundancy state (``ShapeDtype`` per field): global
+        (every shard's concatenated) or one shard's."""
+        out = {}
+        for name, meta in self.metas.items():
+            k = self.shard_factor(name) if global_ else 1
+            mck = (k,) if self.mesh is not None else ()
+
+            def sd(*shape):
+                return ShapeDtype(tuple(shape), torch.int32)
+            out[name] = LeafRedundancy(
+                checksums=sd(meta.n_blocks * k),
+                parity=sd(meta.n_stripes * k, meta.lanes_per_block),
+                dirty=sd(meta.n_dirty_words * k), shadow=sd(meta.n_dirty_words * k),
+                meta_ck=sd(*mck))
+        return out
+
+    def _shard_red(self, name: str, r: LeafRedundancy, s: int) -> LeafRedundancy:
+        """Shard ``s``'s fields of a leaf's global redundancy: views."""
+        meta = self.metas[name]
+        nb, ns, nw = meta.n_blocks, meta.n_stripes, meta.n_dirty_words
+        return LeafRedundancy(
+            checksums=r.checksums[s * nb:(s + 1) * nb],
+            parity=r.parity[s * ns:(s + 1) * ns],
+            dirty=r.dirty[s * nw:(s + 1) * nw], shadow=r.shadow[s * nw:(s + 1) * nw],
+            meta_ck=r.meta_ck.reshape(-1)[s])
 
     # ------------------------------------------------------------- primitives
     def queue_capacity(self, name: str) -> int:
@@ -79,29 +232,48 @@ class RedundancyEngine:
     def has_queue(self) -> bool:
         return any(self._queue_caps.values())
 
-    def _lanes(self, leaves: Mapping[str, torch.Tensor], name: str) -> torch.Tensor:
-        """The leaf's lane view.  Raises if the leaf lies off the engine's
-        device, so a CUDA leaf never reaches the CPU work queue."""
+    def _leaf(self, leaves: Mapping[str, torch.Tensor], name: str) -> torch.Tensor:
+        """The leaf; raises if it lies off the engine's device (so a CUDA
+        leaf never reaches the CPU work queue) or has another shape than
+        the one declared."""
         leaf = leaves[name]
         if leaf.device != self.device:
             raise ValueError(f"leaf {name!r} lies on {leaf.device}, the engine "
                              f"on {self.device}")
-        return blocks.to_lanes(leaf, self.metas[name])
+        if self.mesh is not None and tuple(leaf.shape) != self.global_shapes[name]:
+            raise ValueError(f"leaf {name!r} has shape {tuple(leaf.shape)}, "
+                             f"declared {self.global_shapes[name]}")
+        return leaf
 
-    def _stripe_dirty(self, meta: BlockMeta, bdirty: torch.Tensor) -> torch.Tensor:
-        return blocks.stripe_dirty_mask(meta, bdirty)
+    def lanes_by_shard(self, leaf: torch.Tensor, name: str) -> torch.Tensor:
+        """int32 ``(k, n_blocks, L)``: every shard's lane view of a global
+        leaf (see :func:`~repro_torch.core.blocks.shard_lanes`: a view of
+        the leaf where it can be, a staged copy where the shards are
+        strided); ``(1, n_blocks, L)`` machine-local."""
+        return blocks.shard_lanes(leaf, self.metas[name], self._splits[name])
+
+    def _lanes(self, leaves: Mapping[str, torch.Tensor], name: str) -> torch.Tensor:
+        """What K1, K2 and K3 take: the leaf's ``(k, n_blocks, L)`` lanes,
+        ``k = 1`` machine-local."""
+        return self.lanes_by_shard(self._leaf(leaves, name), name)
+
+    def _live_rows(self, name: str, r: LeafRedundancy) -> torch.Tensor:
+        """bool[k, n_blocks]: ``dirty | shadow`` unpacked shard by shard."""
+        return bits.unpack_rows(r.dirty | r.shadow, self.shard_factor(name),
+                                self.metas[name].n_blocks)
 
     def queue_fits(self, red: RedundancyState) -> bool:
-        """Host-side overflow check: do all live dirty stripes fit the queues?"""
+        """Host-side overflow check: do all live dirty stripes fit the
+        queues?  Under a mesh each shard's count is held against the
+        shard-local capacity (the queues are per shard)."""
         if not self.has_queue:
             return False
         for name, meta in self.metas.items():
             cap = self._queue_caps[name]
             if not cap:
                 continue
-            r = red[name]
-            bd = bits.unpack(r.dirty | r.shadow, meta.n_blocks)
-            if not bool(workqueue.stripe_fits(self._stripe_dirty(meta, bd), cap)):
+            sd = blocks.stripe_dirty_rows(meta, self._live_rows(name, red[name]))
+            if not bool((sd.sum(dim=1, dtype=torch.int32) <= cap).all()):
                 return False
         return True
 
@@ -129,11 +301,11 @@ class RedundancyEngine:
             lanes = self._lanes(leaves, name)
             cks = checksum.block_checksums(lanes)
             par = parity.stripe_parity(lanes, meta.stripe_data_blocks)
-            words = bits.zeros(meta.n_blocks, lanes.device)
+            words = torch.zeros((meta.n_dirty_words * self.shard_factor(name),),
+                                dtype=torch.int32, device=lanes.device)
             out[name] = LeafRedundancy(
                 checksums=cks, parity=par, dirty=words,
-                shadow=torch.zeros_like(words),
-                meta_ck=checksum.meta_checksum(cks))
+                shadow=torch.zeros_like(words), meta_ck=self._mck_out(cks, name))
         return out
 
     # ----------------------------------------------------------------- marking
@@ -142,7 +314,10 @@ class RedundancyEngine:
         """OR dirty events into the bitvectors.
 
         Events are domain-space: ``ALL`` for dense leaves, or a bool
-        row-mask over the leaf's leading axes.
+        row-mask over the leaf's leading axes.  Under a mesh a row mask is
+        sharded like the leaf's leading dims (a dim the spec leaves whole
+        is replicated) and each shard marks its own local blocks from its
+        part, as the reference's ``shard_map`` does.
         """
         out = dict(red)
         for name, ev in events.items():
@@ -151,17 +326,27 @@ class RedundancyEngine:
             if isinstance(ev, str):
                 if ev != ALL:
                     raise ValueError(f"{name}: unknown dirty event {ev!r}")
-                mask = torch.ones((meta.n_blocks,), dtype=torch.bool,
-                                  device=r.dirty.device)
-            elif (ev.dim() == 1 and len(meta.shape) >= 1
-                  and ev.shape[0] == meta.shape[0]
-                  and meta.n_blocks == meta.shape[0]):
-                # Fast path: rows map 1:1 to blocks (4 KiB-page heaps).
-                mask = ev
+                mask = torch.ones((meta.n_blocks * self.shard_factor(name),),
+                                  dtype=torch.bool, device=r.dirty.device)
+                out[name] = dataclasses.replace(
+                    r, dirty=r.dirty | bits.pack_rows(mask.view(-1, meta.n_blocks)))
             else:
-                mask = blocks.row_mask_block_mask(meta, ev, row_dims=ev.dim())
-            out[name] = dataclasses.replace(r, dirty=bits.mark(r.dirty, mask))
+                k = self.shard_factor(name)
+                parts = blocks.shard_view(ev, self._splits[name][:ev.dim()])
+                masks = torch.stack([self._event_mask(meta, e) for e in parts])
+                if parts.shape[0] != k:
+                    masks = masks.repeat_interleave(k // parts.shape[0], dim=0)
+                out[name] = dataclasses.replace(r, dirty=r.dirty | bits.pack_rows(masks))
         return out
+
+    @staticmethod
+    def _event_mask(meta: BlockMeta, ev: torch.Tensor) -> torch.Tensor:
+        """bool[n_blocks] of one shard's blocks a local row mask touches."""
+        if (ev.dim() == 1 and len(meta.shape) >= 1 and ev.shape[0] == meta.shape[0]
+                and meta.n_blocks == meta.shape[0]):
+            # Fast path: rows map 1:1 to blocks (4 KiB-page heaps).
+            return ev
+        return blocks.row_mask_block_mask(meta, ev, row_dims=ev.dim())
 
     # ---------------------------------------------------- Algorithm 1 (vilamb)
     def _alg1_parts(self, leaves: Mapping[str, torch.Tensor], red: RedundancyState,
@@ -171,42 +356,72 @@ class RedundancyEngine:
         Lines 2-4: snapshot ``dirty | shadow`` (leftover shadow from a
         crash); lines 7-18 + 22: masked checksum + parity recompute and the
         meta-checksum.  Returns ``({name: (cks, par, meta_ck, snapshot)},
-        fits)``; ``fits`` (do all live dirty stripes fit the CPU work
-        queues?) is a bool tensor when requested and some leaf has a queue,
-        else the host value ``True``: the card has no queue, so it never
-        fetches a fit signal from the device.
+        fits)``.  On the CPU each shard of each leaf (the one shard of a
+        machine-local leaf) runs the update over its local lanes and fields
+        (its own queue, sized from the local stripes), and the results
+        concatenate in global block space.  ``fits`` (do the live dirty
+        stripes fit the work queues?) is the per-device flag vector
+        (``(mesh.size,)``, row-major over the mesh's axes, ``(1,)``
+        machine-local: a device's flag ANDs its shards of every queued
+        leaf) when requested and some leaf has a queue, else the host value
+        ``True``: the card has no queue, so it never fetches a fit signal
+        from the device.
         """
         if self.use_kernels:
             return self._alg1_card(leaves, red), True
         parts: Dict[str, Tuple] = {}
-        fits = []
+        dev_fits: List[List[torch.Tensor]] = [
+            [] for _ in range(self.mesh.size if self.mesh is not None else 1)]
         for name, meta in self.metas.items():
             r = red[name]
             snapshot = r.dirty | r.shadow
-            bdirty = bits.unpack(snapshot, meta.n_blocks)
-            sdirty = self._stripe_dirty(meta, bdirty)
-            cap = self._queue_caps[name]
-            if want_fits and cap:
-                fits.append(workqueue.stripe_fits(sdirty, cap))
             lanes = self._lanes(leaves, name)
-            cks, par, meta_ck = self._update_leaf(name, meta, lanes, r, bdirty,
-                                                  sdirty, queued)
-            parts[name] = (cks, par, meta_ck, snapshot)
-        return parts, (torch.stack(fits).all() if fits else True)
+            cap = self._queue_caps[name]
+            nw = meta.n_dirty_words
+            out_c, out_p, out_m, shard_fits = [], [], [], []
+            for s in range(self.shard_factor(name)):
+                bdirty = bits.unpack(snapshot[s * nw:(s + 1) * nw], meta.n_blocks)
+                sdirty = blocks.stripe_dirty_mask(meta, bdirty)
+                if want_fits and cap:
+                    shard_fits.append(workqueue.stripe_fits(sdirty, cap))
+                c, p, m = self._update_leaf(name, meta, lanes[s], self._shard_red(name, r, s),
+                                            bdirty, sdirty, queued)
+                out_c.append(c)
+                out_p.append(p)
+                out_m.append(m.reshape(()))
+            if shard_fits:
+                for d, s in enumerate(self._device_shard[name]):
+                    dev_fits[d].append(shard_fits[s])
+            parts[name] = (_cat(out_c), _cat(out_p), self._mck_store(torch.stack(out_m)),
+                           snapshot)
+        if not dev_fits[0]:
+            return parts, True
+        return parts, torch.stack([torch.stack(f).all() for f in dev_fits])
 
     def _alg1_card(self, leaves: Mapping[str, torch.Tensor],
                    red: RedundancyState) -> Dict[str, Tuple]:
         """The card's Algorithm-1 body: every leaf's snapshot, then one
         fused launch over all the leaves (it reads the snapshots' packed
         words), in place on their checksums and parity, then each leaf's
-        meta-checksum.  Returns ``_alg1_parts``'s parts."""
+        meta-checksum.  Each shard of each leaf (a machine-local leaf's one
+        shard) is one job of that launch: its lanes and the views of its
+        checksums, parity rows and dirty words at the shard's offsets.  A
+        leaf whose shards are strided is staged into one ``(k, *local)``
+        copy first, on the current stream (K3 only reads it).  Returns
+        ``_alg1_parts``'s parts."""
         snaps = {name: red[name].dirty | red[name].shadow for name in self.metas}
-        _fused.fused_update_many(
-            [(self._lanes(leaves, name), red[name].checksums, red[name].parity,
-              snaps[name]) for name in self.metas],
-            self.config.stripe_data_blocks)
+        jobs = []
+        for name, meta in self.metas.items():
+            r = red[name]
+            lanes = self._lanes(leaves, name)
+            nw = meta.n_dirty_words
+            for s in range(self.shard_factor(name)):
+                rs = self._shard_red(name, r, s)
+                jobs.append((lanes[s], rs.checksums, rs.parity,
+                             snaps[name][s * nw:(s + 1) * nw]))
+        _fused.fused_update_many(jobs, self.config.stripe_data_blocks)
         return {name: (red[name].checksums, red[name].parity,
-                       checksum.meta_checksum(red[name].checksums), snaps[name])
+                       self._mck_out(red[name].checksums, name), snaps[name])
                 for name in self.metas}
 
     def _alg1(self, leaves: Mapping[str, torch.Tensor], red: RedundancyState,
@@ -261,10 +476,15 @@ class RedundancyEngine:
         out: RedundancyState = {}
         for name, (cks, par, meta_ck, snapshot) in parts.items():
             zeros = torch.zeros_like(snapshot)
+            ovf = overflowed
+            if ovf is not None:
+                # Per shard: only shards whose device's queue overflowed
+                # keep their snapshot marked.
+                ovf = ovf[self._first_device[name]].repeat_interleave(
+                    self.metas[name].n_dirty_words)
             out[name] = LeafRedundancy(
                 checksums=cks, parity=par, dirty=torch.zeros_like(snapshot),
-                shadow=zeros if overflowed is None
-                else torch.where(overflowed, snapshot, zeros),
+                shadow=zeros if ovf is None else torch.where(ovf, snapshot, zeros),
                 meta_ck=meta_ck)
         return out, fits
 
@@ -283,7 +503,7 @@ class RedundancyEngine:
             par = r.parity ^ parity.parity_diff(o, n, meta.stripe_data_blocks)
             out[name] = LeafRedundancy(
                 checksums=cks, parity=par, dirty=r.dirty, shadow=r.shadow,
-                meta_ck=checksum.meta_checksum(cks))
+                meta_ck=self._mck_out(cks, name))
         return out
 
     def sync_update_rows(self, name: str, r: LeafRedundancy,
@@ -296,6 +516,8 @@ class RedundancyEngine:
         tensors of ``r`` are updated in place.
         """
         meta = self.metas[name]
+        if self.mesh is not None:
+            raise ValueError(f"{name}: the row fast path is machine-local only")
         if not (len(meta.shape) >= 1 and meta.n_blocks == meta.shape[0]):
             raise ValueError(f"{name}: rows do not map 1:1 to blocks")
         S = meta.stripe_data_blocks
@@ -318,11 +540,12 @@ class RedundancyEngine:
     def scrub(self, leaves: Mapping[str, torch.Tensor],
               red: RedundancyState) -> Dict[str, torch.Tensor]:
         """Per-leaf bool[n_blocks] masks of clean blocks whose fresh
-        checksum differs from the stored one (paper §3.4)."""
+        checksum differs from the stored one (paper §3.4); in global block
+        space under a mesh (one checksum launch over every shard)."""
         out: Dict[str, torch.Tensor] = {}
         for name, meta in self.metas.items():
             r = red[name]
-            clean = ~bits.unpack(r.dirty | r.shadow, meta.n_blocks)
+            clean = ~self._live_rows(name, r).reshape(-1)
             fresh = checksum.block_checksums(self._lanes(leaves, name))
             out[name] = clean & (fresh != r.checksums)
         return out
@@ -350,6 +573,10 @@ class RedundancyEngine:
         device.  ``want_slab`` (the raw lanes, for cross-shard parity) is
         not ported.
         """
+        if self.mesh is not None:
+            raise NotImplementedError(
+                "the patrol probe of a sharded store is not ported yet: "
+                "ROADMAP.md, Queue 1 item 11.4 (xpar and shard rebuild)")
         if want_slab:
             raise NotImplementedError(
                 "the probe's slab feeds cross-shard parity, which is not ported "
@@ -379,8 +606,11 @@ class RedundancyEngine:
         return fn
 
     def verify_meta(self, red: RedundancyState) -> Dict[str, torch.Tensor]:
-        """Check the checksum-of-checksums (detects corrupted checksum pages)."""
-        return {name: checksum.meta_checksum(r.checksums) == r.meta_ck
+        """Check the checksum-of-checksums (detects corrupted checksum
+        pages).  Under a mesh each shard's checksums are held against its
+        own ``meta_ck`` entry and the leaf's result is the AND over its
+        shards."""
+        return {name: (self._mck_out(r.checksums, name) == r.meta_ck).all()
                 for name, r in red.items() if name in self.metas}
 
     # --------------------------------------------------------------- recovery
@@ -391,45 +621,63 @@ class RedundancyEngine:
         Returns ``(leaf, ok)``: the repaired block is written into
         ``leaf``'s own memory (the reference returns a new array; a copy of
         a multi-GiB leaf is what this avoids), and ``leaf`` itself is
-        returned.  A leaf whose lane view is a padded copy is rebuilt into
-        a new tensor instead.  ``ok`` is False — and nothing is written —
-        when the stripe is vulnerable (any *other* member dirty or
-        shadow-set), the paper's §3.3 recoverability rule.
+        returned.  A machine-local leaf whose lane view is a padded copy is
+        rebuilt into a new tensor instead.  ``ok`` is False — and nothing
+        is written — when the stripe is vulnerable (any *other* member
+        dirty or shadow-set), the paper's §3.3 recoverability rule.
+
+        ``block_id`` is in global block space; under a mesh it addresses
+        shard ``block_id // n_blocks``, whose rows are rebuilt in place
+        (dim0 sharding only: :func:`~repro_torch.core.blocks.shard_slice`
+        raises the reference's ``ValueError`` for other specs).
         """
         meta = self.metas[name]
+        k = self.shard_factor(name)
         block_id = int(block_id)
         P = meta.stripe_data_blocks
+        par_row = r.parity[blocks.global_stripe_id(meta, block_id)]
+        shard, block_id = divmod(block_id, meta.n_blocks)
+        if not 0 <= shard < k:
+            raise ValueError(f"{name}: global block {shard * meta.n_blocks + block_id} "
+                             f"addresses shard {shard} of {k}")
+        sub, put = blocks.shard_slice(leaf, meta, k, shard)
+        nw = meta.n_dirty_words
+        live = bits.unpack((r.dirty | r.shadow)[shard * nw:(shard + 1) * nw],
+                           meta.n_blocks)
         sid = block_id // P
-        live = bits.unpack(r.dirty | r.shadow, meta.n_blocks)
         members = [b for b in range(sid * P, (sid + 1) * P)
                    if b < meta.n_blocks and b != block_id]
         others_clean = not bool(live[members].any()) if members else True
         if not others_clean:
             return leaf, False
-        lanes = self._lanes({name: leaf}, name)
-        lanes[block_id] = parity.reconstruct_block(lanes, r.parity[sid], P,
-                                                   block_id, sid)
-        if lanes.data_ptr() != leaf.data_ptr():
-            leaf = blocks.from_lanes(lanes, meta).clone()
-        return leaf, True
+        if sub.device != self.device:
+            raise ValueError(f"leaf {name!r} lies on {sub.device}, the engine "
+                             f"on {self.device}")
+        lanes = blocks.to_lanes(sub, meta)
+        lanes[block_id] = parity.reconstruct_block(lanes, par_row, P, block_id, sid)
+        if lanes.data_ptr() != sub.data_ptr():
+            sub = blocks.from_lanes(lanes, meta).clone()
+        return put(sub), True
 
     # ------------------------------------------------------------- accounting
     def vulnerable_masks(self, red: RedundancyState) -> Dict[str, torch.Tensor]:
         """Per-leaf bool[n_blocks] of blocks inside the vulnerability window
-        (``dirty | shadow`` unpacked)."""
-        return {name: bits.unpack(red[name].dirty | red[name].shadow, meta.n_blocks)
-                for name, meta in self.metas.items()}
+        (``dirty | shadow`` unpacked; in global block space under a mesh)."""
+        return {name: self._live_rows(name, red[name]).reshape(-1)
+                for name in self.metas}
 
     def dirty_stats(self, red: RedundancyState) -> Dict[str, Dict[str, Any]]:
-        """Dirty/vulnerable-stripe counts (feeds §4.7 battery + §4.8 MTTDL)."""
+        """Dirty/vulnerable-stripe counts (feeds §4.7 battery + §4.8 MTTDL).
+        Totals are global (local geometry x shard count)."""
         out = {}
         for name, meta in self.metas.items():
-            bdirty = bits.unpack(red[name].dirty | red[name].shadow, meta.n_blocks)
+            k = self.shard_factor(name)
+            bdirty = self._live_rows(name, red[name])
             out[name] = {
                 "dirty_blocks": bdirty.sum(dtype=torch.int32),
-                "vulnerable_stripes": self._stripe_dirty(meta, bdirty).sum(
+                "vulnerable_stripes": blocks.stripe_dirty_rows(meta, bdirty).sum(
                     dtype=torch.int32),
-                "total_blocks": meta.n_blocks,
-                "total_stripes": meta.n_stripes,
+                "total_blocks": meta.n_blocks * k,
+                "total_stripes": meta.n_stripes * k,
             }
         return out

@@ -10,9 +10,10 @@ single-corrupt stripe) live here, so the callers cannot drift on the
 recoverability rule, and both report the same structured
 :class:`UnrecoverableBlock` records instead of bare counts.
 
-The port is machine-local: block and stripe ids are a leaf's own
-(``global_stripe_id`` is ``block // P``), which is what the reference's
-global ids reduce to on one shard.
+Block and stripe ids are in global block space: shard ``s``'s local
+block ``b`` is global block ``s * n_blocks + b``, and parity groups never
+span shards (``global_stripe_id``); on a machine-local leaf (one shard)
+they are the leaf's own.
 """
 from __future__ import annotations
 

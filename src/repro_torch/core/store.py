@@ -30,6 +30,14 @@ the GPU unless the caller passes ``device="cpu"``, where dispatch runs
 to completion and the live view keeps the previous epoch's arrays, as
 the reference's does.
 
+Sharded stores (``ProtectedStore(policy, mesh=make_mesh(...))`` and
+``attach(tree, specs=)``): each leaf's redundancy is sharded like the
+leaf over the mesh axes its PartitionSpec uses, in global block space
+(shard ``s``'s local block ``b`` is global block ``s * n_blocks + b``;
+``shard_factor`` gives a leaf's shard count), with no collectives: the
+reference's ``shard_map`` semantics.  Every shard lives on the mesh's one
+device, and each kernel takes every shard of a leaf in one launch.
+
 Two background duties ride on the tick, each off unless the policy asks:
 the scrub patroller (``patrol_bytes_per_tick > 0``, :mod:`repro_torch.scrub`)
 and the freshness-SLO health governor (``health``,
@@ -53,7 +61,7 @@ from . import policy as policy_mod
 from . import workqueue
 from .blocks import (DEFAULT_LANES_PER_BLOCK, DEFAULT_STRIPE_DATA_BLOCKS,
                      BlockMeta, ShapeDtype, make_meta)
-from .engine import ALL, RedundancyConfig, RedundancyEngine
+from .engine import ALL, RedundancyConfig, RedundancyEngine, local_shape
 from .state import LeafRedundancy, RedundancyState
 
 MODES = ("none", "sync", "vilamb")
@@ -312,9 +320,16 @@ class ProtectedStore:
     """Facade owning the redundancy lifecycle of one tree of tensors."""
 
     def __init__(self, policy: Optional[RedundancyPolicy] = None,
-                 device: Union[str, torch.device, None] = None):
+                 device: Union[str, torch.device, None] = None,
+                 mesh: Any = None):
         self.policy = policy or RedundancyPolicy()
+        if device is None and mesh is not None:
+            device = mesh.device
         self.device = resolve_device(device, "ProtectedStore")
+        if mesh is not None and torch.device(mesh.device) != self.device:
+            raise ValueError(f"the mesh lies on {mesh.device}, the store on "
+                             f"{self.device}")
+        self.mesh = mesh
         self.groups: Dict[str, _Group] = {}
         self.corruption_alarms = 0
         self._none_metas: Dict[str, BlockMeta] = {}
@@ -362,14 +377,25 @@ class ProtectedStore:
             fn(name, info)
 
     # ------------------------------------------------------------ construction
-    def attach(self, tree: Any) -> "ProtectedStore":
+    def attach(self, tree: Any, specs: Optional[Mapping[str, Any]] = None
+               ) -> "ProtectedStore":
         """Declare the protected tree (tensors on the store's device, or
         :class:`~repro_torch.core.blocks.ShapeDtype` structs).
 
         Nested dicts are flattened to ``a/b/c`` paths — the namespace the
-        policy rules match against.  Returns ``self`` for chaining.
+        policy rules match against.  ``specs`` maps those paths to
+        PartitionSpecs (:mod:`repro_torch.dist`) for sharded redundancy on
+        the store's mesh.  Returns ``self`` for chaining.
         """
         flat = flatten_dict(tree)
+        specs = dict(specs or {})
+        if specs and self.mesh is None:
+            raise ValueError("specs= needs a store built with mesh=")
+        if self.mesh is not None and self.policy.patrol_bytes_per_tick > 0:
+            raise NotImplementedError(
+                "the scrub patroller of a sharded store (its probe, cross-shard "
+                "parity and shard rebuild) is not ported yet: ROADMAP.md, "
+                "Queue 1 item 11.4 (xpar and shard rebuild)")
         for name, leaf in flat.items():
             dev = getattr(leaf, "device", self.device)
             if torch.device(dev) != self.device:
@@ -386,7 +412,9 @@ class ProtectedStore:
             if lp.mode == "none":
                 for n in names:
                     self._none_metas[n] = make_meta(
-                        flat[n], lanes_per_block=self.policy.lanes_per_block,
+                        ShapeDtype(local_shape(flat[n].shape, specs.get(n), self.mesh),
+                                   flat[n].dtype),
+                        lanes_per_block=self.policy.lanes_per_block,
                         stripe_data_blocks=self.policy.stripe_data_blocks)
             else:
                 cfg = RedundancyConfig(
@@ -395,8 +423,9 @@ class ProtectedStore:
                     work_queue_frac=(
                         lp.work_queue_frac if lp.work_queue_frac is not None
                         else self.policy.work_queue_frac))
-                engine = RedundancyEngine({n: flat[n] for n in names}, cfg,
-                                          device=self.device)
+                engine = RedundancyEngine(
+                    {n: flat[n] for n in names}, cfg, device=self.device,
+                    mesh=self.mesh, specs={n: specs[n] for n in names if n in specs})
             self.groups[label] = _Group(label, lp, tuple(names), engine)
         if self.policy.precompile:
             self.warmup()
@@ -439,6 +468,24 @@ class ProtectedStore:
             if name in g.names:
                 return g.engine
         return None
+
+    def shard_factor(self, name: str) -> int:
+        """Shards a leaf's redundancy arrays concatenate (1 = machine-local).
+
+        Global block space for sharded leaves: shard ``s``'s local block
+        ``b`` is global block ``s * meta.n_blocks + b``, the indexing that
+        scrub masks, ``vulnerable_masks``, fault injection and
+        ``recover_block`` share.
+        """
+        eng = self.engine_for(name)
+        return 1 if eng is None else eng.shard_factor(name)
+
+    def red_structs(self, global_: bool = True) -> RedundancyState:
+        """The redundancy state's shapes (``ShapeDtype`` per field)."""
+        out: RedundancyState = {}
+        for g in self._protected():
+            out.update(g.engine.red_structs(global_))
+        return out
 
     def _protected(self) -> List[_Group]:
         return [g for g in self.groups.values() if g.engine is not None]
@@ -644,8 +691,11 @@ class ProtectedStore:
                 for r in out.values():
                     for t in (r.meta_ck, r.dirty, r.shadow):
                         t.record_stream(main)
-        fits = torch.stack([torch.as_tensor(f) for _, f in res])
-        return tuple(out for out, _ in res), fits, done
+        # One column a device (one machine-local): a group with no queue has
+        # the host value True, which holds for every device.
+        n_dev = self.mesh.size if self.mesh is not None else 1
+        fits = [torch.as_tensor(f).reshape(-1).expand(n_dev) for _, f in res]
+        return tuple(out for out, _ in res), torch.stack(fits), done
 
     def sync_inflight(self) -> "ProtectedStore":
         """Wait on the host until every in-flight update has finished on
@@ -692,6 +742,8 @@ class ProtectedStore:
         for i, (g, queued, prev_step, prev_time) in enumerate(items):
             g.pending = _Pending(
                 red=None if outs is None else outs[i],
+                # The AND-fold over a sharded group's per-device flags runs
+                # here, on the host, never in a device program.
                 fits=None if host is None else workqueue.fold_fits_host(host[i]),
                 queued=queued, step=step, error=error, done=done,
                 prev_step=prev_step, prev_time=prev_time)
@@ -1163,13 +1215,15 @@ class ProtectedStore:
                spec) -> Tuple[Dict[str, torch.Tensor], RedundancyState]:
         """Apply one ``repro_torch.faults.FaultSpec`` functionally (test and
         battery hook), placed in block-lane space against this store's
-        geometry.  Returns new ``(leaves, red)``; the written leaf or field
+        geometry (global block space under a mesh: the owning shard's rows
+        are corrupted).  Returns new ``(leaves, red)``; the written leaf or field
         is a copy and the inputs are untouched.  The copies are ordered
         after every in-flight update (``await_inflight``): on the card the
         update refreshes the live view's checksums and parity in place."""
         from ..faults.inject import apply_fault
         self.await_inflight()
-        return apply_fault(self.metas, leaves, red, spec)
+        return apply_fault(self.metas, leaves, red, spec,
+                           factors={n: self.shard_factor(n) for n in self.metas})
 
     def vulnerable_masks(self, red: RedundancyState) -> Dict[str, torch.Tensor]:
         """Per-leaf bool[n_blocks] masks of the vulnerability window."""

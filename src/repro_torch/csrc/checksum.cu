@@ -7,14 +7,22 @@
 //
 // Computes: out[b] = XOR_i fmix32(w[b,i] ^ ((b + block_offset) * GOLDEN
 //                                           ^ i * SALT2)), all uint32.
+// A sharded leaf's (k, n_blocks, L) lane view takes one launch: the grid's
+// y index is the shard, and each shard salts by its local block index, as
+// the reference's per-shard program does; out is the k shards' checksums,
+// shard after shard.
 //
 // Bound: bytes.  It reads every lane once and writes 4 bytes per block:
 // (n_blocks * L * 4 + n_blocks * 4) / 3.35 TB/s on an H100 SXM — about
 // 2.6 ms for the 8 GiB heap.  The ~12 integer operations per lane are far
 // below the ALU rate.
 //
-// Design: one CTA (256 threads) per block, the grid striding if there are
-// more than 2^30 blocks.  Each thread walks the block's lanes in 16-byte
+// Design: one CTA (256 threads) per block of a shard, the grid striding if
+// there are more than 2^30 blocks a shard.  The one-shard instance does no
+// shard arithmetic at all: at 4 KiB a block the shard offset's few
+// instructions a CTA cost the sharded launch ~5% of its time
+// (`chip_smoke.py` phase 21 on an H100 80GB HBM3 at 700 W), which the
+// machine-local launch does not pay.  Each thread walks the block's lanes in 16-byte
 // `uint4` loads (neighbouring threads on neighbouring addresses) and keeps
 // one running XOR, so the TPU's 128-lane partials never exist: a warp XOR-
 // shuffle and a shared-memory combine of the 8 warps finish the fold in the
@@ -25,10 +33,15 @@
 
 namespace vilamb {
 
+template <bool kSharded>
 __global__ void __launch_bounds__(kThreads)
 checksum_kernel(const uint4* __restrict__ lanes, uint32_t* __restrict__ out,
                 int64_t n_blocks, int64_t l4, uint32_t block_offset) {
   __shared__ uint32_t smem[kWarps];
+  if (kSharded) {                                   // this CTA's shard
+    lanes += int64_t(blockIdx.y) * n_blocks * l4;
+    out += int64_t(blockIdx.y) * n_blocks;
+  }
   for (int64_t b = blockIdx.x; b < n_blocks; b += gridDim.x) {
     const uint4* row = lanes + b * l4;
     const uint32_t bsalt = (uint32_t(b) + block_offset) * GOLDEN;
@@ -43,13 +56,16 @@ checksum_kernel(const uint4* __restrict__ lanes, uint32_t* __restrict__ out,
 
 }  // namespace vilamb
 
-// lanes: uint32[n_blocks, L] (16-byte aligned, L % 4 == 0); out: uint32[n_blocks].
+// lanes: uint32[shards, n_blocks, L] (16-byte aligned, L % 4 == 0);
+// out: uint32[shards * n_blocks].  At most 65,535 shards (the grid's y).
 extern "C" int vilamb_checksum(const void* lanes, void* out, int64_t n_blocks,
                                int64_t lanes_per_block, int64_t block_offset,
-                               void* stream) {
+                               int64_t shards, void* stream) {
+  if (shards < 1 || shards > 65535) return static_cast<int>(cudaErrorInvalidValue);
   if (n_blocks > 0) {
-    vilamb::checksum_kernel<<<vilamb::grid_for(n_blocks), vilamb::kThreads, 0,
-                              static_cast<cudaStream_t>(stream)>>>(
+    const dim3 grid(vilamb::grid_for(n_blocks), static_cast<unsigned>(shards));
+    auto kernel = shards > 1 ? vilamb::checksum_kernel<true> : vilamb::checksum_kernel<false>;
+    kernel<<<grid, vilamb::kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const uint4*>(lanes), static_cast<uint32_t*>(out), n_blocks,
         lanes_per_block / 4, static_cast<uint32_t>(block_offset));
   }

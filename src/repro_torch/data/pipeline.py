@@ -10,13 +10,14 @@ is that much shorter; an encoder-decoder's carries ``enc_input`` frames
 (B, S - S // 2, d) and S // 2 tokens: both fp32 standard normals drawn
 before the token stream, in the reference's order.  ``get`` puts the
 batch on the pipeline's device, the card unless ``device="cpu"``.  The
-reference's ``mesh`` argument and ``batch_spec`` (sharded batches) are
-ROADMAP.md, Queue 1 item 11.
+reference's ``mesh`` argument is taken (``make_mesh``; the pipeline then
+runs on the mesh's device) and so is ``batch_spec``: every shard of a
+batch lives on that one device, so the batch is the same tensors.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+from typing import Any, Dict
 
 import numpy as np
 import torch
@@ -61,9 +62,21 @@ class SyntheticPipeline:
     seed: int = 0
     zipf_a: float = 1.3
     device: DeviceLike = None
+    mesh: Any = None
 
     def __post_init__(self):
+        if self.device is None and self.mesh is not None:
+            self.device = self.mesh.device
         self.device = resolve_device(self.device, "SyntheticPipeline")
+
+    def batch_spec(self) -> Dict[str, Any]:
+        """The reference's batch specs: the batch dim over the mesh's
+        ``pod`` and ``data`` axes (replicated without a mesh)."""
+        from ..dist.spec import PartitionSpec
+        dp = tuple(a for a in ("pod", "data")
+                   if self.mesh is not None and a in self.mesh.axis_names)
+        spec = PartitionSpec(dp or None)
+        return {k: spec for k in batch_shapes(self.cfg, self.shape)}
 
     def _numpy_batch(self, step: int) -> Dict[str, np.ndarray]:
         rng = np.random.default_rng((self.seed, step))

@@ -17,12 +17,13 @@ the port's store:
   positives, and measured detection latencies for
   :mod:`repro_torch.core.mttdl`.
 
-The reference's chaos soak (``repro.faults.chaos``) needs sharded
-stores, shard rebuild and remesh: ROADMAP.md, Queue 1 items 11.3-11.5.
+Sharded stores are covered too: specs, windows and injections in global
+block space.  The reference's chaos soak (``repro.faults.chaos``) needs
+shard rebuild and remesh: ROADMAP.md, Queue 1 items 11.4 and 11.5.
 
 ``python -m repro_torch.faults --smoke`` runs the battery (crash sweep,
 crash plus corruption, oracle over several seeds, the scrub patroller's
-detection on a settled store).
+detection on a settled store, the sharded oracle and crash subset).
 """
 from .inject import FAULT_KINDS, FaultInjector, FaultSpec, apply_fault
 from .crashpoints import (CRASH_PHASES, CrashOutcome, CrashPlan,

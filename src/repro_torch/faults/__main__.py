@@ -16,9 +16,17 @@ cpu`` is given.  Seeded, deterministic passes:
    background patrol alone (no scheduled scrub), repaired bitwise, and
    leave the store clean.
 
-The reference's pass 5 (a sharded store) and its ``--chaos`` soak are not
-ported: pass 5 prints a line naming the ROADMAP.md item that owns it, and
-``--chaos`` raises.
+5. **Sharded battery** (the reference's ``sharded_child``): a store on a
+   simulated (2, 2, 2) mesh, every shard on the battery's one device; the
+   oracle over global block geometry (several shards hit), then the crash
+   subset (dispatch, coalesce, adopt, adopt_forced, the batched launch and
+   the wait for it, flush).  The reference's sharded process needs forced
+   host devices; the port runs the pass in this process (``--no-sharded``
+   skips it, ``--sharded-child`` runs it alone).  Its last case, a shard
+   rebuilt from cross-shard parity, prints a line naming the ROADMAP.md
+   item that owns it.
+
+The reference's ``--chaos`` soak is not ported and raises.
 
 Exit status 1 on any violation.
 """
@@ -35,6 +43,8 @@ import torch
 
 from ..common import resolve_device
 from ..core import ProtectedStore, RedundancyPolicy
+from ..dist import P
+from ..launch.mesh import make_mesh
 from .crashpoints import CrashPlan, CrashPointMachine
 from .inject import FaultInjector, FaultSpec
 from .oracle import check_detection, vulnerability_window
@@ -46,14 +56,11 @@ REQUIRED_PHASES = ("dispatch", "coalesce", "adopt", "adopt_forced",
                    "dispatcher_enqueue", "dispatcher_join",
                    "on_write", "tick", "flush")
 
-NOT_PORTED = (
-    ("sharded battery (2x2x2 mesh)", "ROADMAP.md, Queue 1 item 11.3 "
-     "(sharding)"),
-)
-CHAOS_REFUSAL = ("the chaos soak needs sharded stores, shard rebuild and "
-                 "remesh, which are not ported yet: ROADMAP.md, Queue 1 item "
-                 "11.3 (sharding), with items 11.4 (xpar and shard rebuild) "
-                 "and 11.5 (remesh)")
+REBUILD_NOT_PORTED = ("not ported, ROADMAP.md, Queue 1 item 11.4 (xpar and "
+                      "shard rebuild)")
+CHAOS_REFUSAL = ("the chaos soak needs shard rebuild and remesh, which are "
+                 "not ported yet: ROADMAP.md, Queue 1 items 11.4 (xpar and "
+                 "shard rebuild) and 11.5 (remesh)")
 
 
 def _make_leaves(device):
@@ -224,6 +231,72 @@ def patrol_pass(device, seed: int, steps: int) -> int:
     return 0 if ok else 1
 
 
+def sharded_child(device, seed: int, steps: int) -> int:
+    """The sharded battery: the oracle over global block geometry, then
+    the crash subset, on a store over a simulated (2, 2, 2) mesh."""
+    mesh = make_mesh((2, 2, 2), ("pod", "data", "model"), device=device)
+    specs = {"w": P(("pod", "data", "model"), None)}
+
+    def make_leaves():
+        w = np.random.default_rng(0).standard_normal((64, 2048)).astype(np.float32)
+        return {"w": torch.from_numpy(w).to(device)}
+
+    def make_store():
+        pol = RedundancyPolicy.single(
+            "vilamb", period_steps=2, max_vulnerable_steps=3,
+            lanes_per_block=128, work_queue_frac=0.5, async_tick=True,
+            precompile=False)
+        return ProtectedStore(pol, mesh=mesh).attach(make_leaves(), specs=specs)
+
+    fails = 0
+    # -- oracle over global block geometry (multiple shards must be hit) --
+    store = make_store()
+    leaves = make_leaves()
+    inj = FaultInjector(store, seed=seed)
+    rng = np.random.default_rng(seed)
+    red = store.init(leaves)
+    for step in range(1, steps + 1):
+        rows = rng.choice(64, size=int(rng.integers(1, 4)), replace=False)
+        idx = torch.as_tensor(np.sort(rows), device=device)
+        w = leaves["w"].clone()
+        w[idx] += 0.5
+        leaves = dict(leaves, w=w)
+        ev = torch.zeros((64,), dtype=torch.bool, device=device).index_fill_(0, idx, True)
+        red = store.on_write(red, events={"w": ev})
+        red, _ = store.tick(leaves, red, step)
+    spec_list = inj.plan_clean_blocks(red, n=6, kinds=("data_bitflip",
+                                                      "stale_redundancy"))
+    nb = store.protected_metas["w"].n_blocks
+    shards_hit = {s.block // nb for s in spec_list}
+    window = vulnerability_window(store, red)
+    leaves2, red2 = inj.inject_many(leaves, red, spec_list)
+    report = check_detection(store, leaves2, red2, spec_list, window=window)
+    ok = report.ok and len(shards_hit) > 1
+    print(f"  sharded oracle seed={seed}: {report.summary()} "
+          f"shards_hit={sorted(shards_hit)} {'OK' if ok else 'FAIL'}")
+    fails += 0 if ok else 1
+    # -- crash-point subset on the sharded overlap pipeline --
+    with tempfile.TemporaryDirectory() as tmp:
+        machine = CrashPointMachine(
+            make_store, make_leaves, tmp, seed=seed, steps=steps,
+            scrub_every=5, hold_inflight_steps=(3, 4))
+        fired = machine.enumerate_phases()
+        plans = []
+        for ph in ("dispatch", "coalesce", "adopt", "adopt_forced",
+                   "dispatcher_enqueue", "dispatcher_join", "flush"):
+            occ = [o for p, o in fired if p == ph]
+            if occ:
+                plans.append(CrashPlan(ph, occ[-1]))
+        for plan in plans:
+            out = machine.run_crash(plan)
+            print(f"  sharded crash @{plan.phase}#{plan.occurrence}: "
+                  f"{out.classification} {'OK' if out.ok else 'FAIL'}")
+            fails += 0 if out.ok else 1
+    # -- wholesale shard loss: the online rebuild from cross-shard parity --
+    print(f"  sharded shard-loss rebuild seed={seed}: {REBUILD_NOT_PORTED}")
+    return fails
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--smoke", action="store_true",
@@ -232,18 +305,20 @@ def main(argv=None) -> int:
     p.add_argument("--steps", type=int, default=6)
     p.add_argument("--device", default=None,
                    help="where the stores run (default: the card)")
+    p.add_argument("--no-sharded", action="store_true",
+                   help="skip the sharded battery")
     p.add_argument("--chaos", action="store_true",
                    help="the reference's chaos soak (not ported: raises)")
     p.add_argument("--sharded-child", action="store_true",
-                   help=argparse.SUPPRESS)
+                   help="run only the sharded battery (seed = --seeds)")
     p.add_argument("--chaos-child", action="store_true",
                    help=argparse.SUPPRESS)
     args = p.parse_args(argv)
     if args.chaos or args.chaos_child:
         raise NotImplementedError(CHAOS_REFUSAL)
-    if args.sharded_child:
-        raise NotImplementedError(f"the sharded battery: {NOT_PORTED[0][1]}")
     device = resolve_device(args.device, "python -m repro_torch.faults")
+    if args.sharded_child:
+        return 1 if sharded_child(device, args.seeds, args.steps) else 0
     name = (torch.cuda.get_device_name(device) if device.type == "cuda"
             else "cpu")
     print(f"== fault battery on {device} ({name}) ==")
@@ -263,8 +338,9 @@ def main(argv=None) -> int:
     print("== scrub patroller detection ==")
     for seed in range(1 if args.smoke else max(args.seeds, 2)):
         fails += patrol_pass(device, seed, args.steps)
-    for what, owner in NOT_PORTED:
-        print(f"== {what}: not ported, {owner} ==")
+    if not args.no_sharded:
+        print("== sharded battery (2x2x2 mesh, simulated on one device) ==")
+        fails += sharded_child(device, 0, args.steps)
     dt = time.time() - t0
     print(f"== fault battery {'OK' if not fails else f'FAILED ({fails})'} "
           f"in {dt:.1f}s ==")

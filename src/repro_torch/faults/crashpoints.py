@@ -54,8 +54,8 @@ from .oracle import vulnerability_window
 # view); "dispatch" = per due group, right after the launch (post-swap live
 # view); "dispatcher_join" = a settle/flush/deadline path is about to wait
 # for an update.  "rebuild_paste" and "remesh_migrate" are the reference's
-# shard-rebuild and remesh phases (ROADMAP.md, Queue 1 item 11): the port
-# never fires them.
+# shard-rebuild and remesh phases (ROADMAP.md, Queue 1 items 11.4 and
+# 11.5): the port never fires them.
 CRASH_PHASES = ("init", "on_write", "dispatcher_enqueue", "dispatch",
                 "coalesce", "dispatcher_join", "adopt", "adopt_forced",
                 "blocking_update", "scrub", "tick", "flush",
@@ -313,8 +313,10 @@ class CrashPointMachine:
         # is consulted only for static geometry.
         probe_store = self._probe()
         window = vulnerability_window(probe_store, red)
+        factors = {n: probe_store.shard_factor(n) for n in probe_store.metas}
         for spec in faults:
-            leaves, red = apply_fault(probe_store.metas, leaves, red, spec)
+            leaves, red = apply_fault(probe_store.metas, leaves, red, spec,
+                                      factors=factors)
         state = StoreState(leaves=dict(leaves), red=red, step=crash.step)
         # One directory per replay: the manager's keep-last-k GC must never
         # collect a checkpoint another replay of this sweep just wrote.
@@ -364,12 +366,15 @@ class CrashPointMachine:
     @staticmethod
     def _block_diff(store, got: Mapping[str, torch.Tensor],
                     want: Mapping[str, torch.Tensor]) -> Dict[str, Set[int]]:
-        """Blocks whose restored bits differ from the pristine crash view."""
+        """Blocks whose restored bits differ from the pristine crash view,
+        by global block id (sharded leaves shard by shard, through each
+        shard's local lane view)."""
         out: Dict[str, Set[int]] = {}
         for name, meta in store.protected_metas.items():
-            a = B.to_lanes(got[name], meta)
-            b = B.to_lanes(want[name].to(a.device), meta)
-            bad = torch.nonzero((a != b).any(dim=1)).flatten().tolist()
+            eng = store.engine_for(name)
+            a = eng.lanes_by_shard(got[name], name)
+            b = eng.lanes_by_shard(want[name].to(a.device), name)
+            bad = torch.nonzero((a != b).any(dim=2).reshape(-1)).flatten().tolist()
             if bad:
                 out[name] = set(bad)
         return out

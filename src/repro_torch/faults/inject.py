@@ -28,13 +28,16 @@ All randomness flows from one ``numpy`` generator seeded at construction,
 drawn call for call as the reference draws it: the same seed over the
 same geometry gives the same specs in both packages.
 
-The port is machine-local: a leaf is one shard, so ``shard_loss``,
-``mesh_shrink`` and ``mesh_grow`` address shard 0 (``block`` = 0), and a
-``factors`` entry above 1 is refused.  uint32 payloads are carried as
-int32 bits (``np.uint32(x).view(np.int32)``), as every field of the state
-is.  A written leaf or field is cloned first: a lane view of a leaf that
-fills its blocks exactly aliases the leaf (on an 8 GiB heap, one 8 GiB
-copy a data fault).
+Sharded leaves (``factors``, ``store.shard_factor``) are addressed in
+global block space: shard ``s``'s local block ``b`` is global block
+``s * n_blocks + b``, and the surgery lands on that shard's rows (dim0
+sharding only; other specs raise the reference's ``ValueError``);
+``shard_loss``, ``mesh_shrink`` and ``mesh_grow`` take the shard index in
+``block``.  uint32 payloads are carried as int32 bits
+(``np.uint32(x).view(np.int32)``), as every field of the state is.  A
+written leaf or field is cloned first: a lane view of a leaf that fills
+its blocks exactly aliases the leaf (on an 8 GiB heap, one 8 GiB copy a
+data fault).
 """
 from __future__ import annotations
 
@@ -62,10 +65,6 @@ SPECIAL_LANES = np.array([
     0x00000000,  # zeros (absorbing for XOR mistakes)
     0xFFFFFFFF,  # all ones
 ], dtype=np.uint32)
-
-MESH_REFUSAL = ("sharded leaves are not ported yet: ROADMAP.md, Queue 1 "
-                "item 11 (scrub/remesh/health)")
-
 
 @dataclasses.dataclass(frozen=True)
 class FaultSpec:
@@ -107,70 +106,100 @@ def apply_fault(metas, leaves: Mapping[str, torch.Tensor],
     """Apply one fault functionally; returns new ``(leaves, red)``.
 
     ``metas`` maps leaf name -> :class:`~repro_torch.core.blocks.BlockMeta`
-    (``store.metas``).  The written leaf or redundancy field is a clone;
-    the inputs are never mutated.  ``factors`` (the reference's shard
-    counts) may only hold 1: sharded leaves raise ``NotImplementedError``.
+    (``store.metas``).  ``factors`` maps leaf name -> shard count for
+    sharded leaves (``store.shard_factor``; absent/1 = machine-local):
+    block ids are then global and the surgery lands on the owning shard's
+    rows.  The written leaf or redundancy field is a clone; the inputs are
+    never mutated.
     """
     leaves = dict(leaves)
     red = dict(red)
     meta = metas[spec.leaf]
-    if int((factors or {}).get(spec.leaf, 1)) != 1:
-        raise NotImplementedError(f"{spec.leaf}: {MESH_REFUSAL}")
+    k = int((factors or {}).get(spec.leaf, 1))
 
     def owner(block):
-        """The block id, checked against the leaf's one shard."""
+        """(shard, local block) of a global id, checked against ``k``."""
         s, b = divmod(int(block), meta.n_blocks)
-        if s != 0:
+        if not 0 <= s < k:
             raise ValueError(
                 f"{spec.leaf}: global block {block} addresses shard {s} but "
-                "the leaf has 1 shard(s)")
-        return b
+                f"the leaf has {k} shard(s) — pass factors= "
+                "(store.shard_factor) when injecting into a sharded store")
+        return s, b
 
-    def shard(kind_block):
-        s = int(kind_block)
-        if s != 0:
+    def shard(s):
+        s = int(s)
+        if not 0 <= s < k:
             raise ValueError(f"{spec.leaf}: {spec.kind} addresses shard {s} "
-                             "but the leaf has 1 shard(s)")
+                             f"but the leaf has {k} shard(s)")
+        return s
 
-    def edit_lanes(fn):
-        """``fn(lanes)`` on the lanes of a clone of the leaf."""
-        lanes = B.to_lanes(leaves[spec.leaf].clone(), meta)
-        fn(lanes)
-        leaves[spec.leaf] = B.from_lanes(lanes, meta)
+    def edit_lanes(edits):
+        """``fn(lanes)`` on the lanes of shard ``s``, for each ``(s, fn)`` of
+        ``edits``, all on one clone of the leaf."""
+        leaf = leaves[spec.leaf].clone()
+        by_shard: Dict[int, list] = {}
+        for s, fn in edits:
+            by_shard.setdefault(s, []).append(fn)
+        for s, fns in by_shard.items():
+            sub, put = B.shard_slice(leaf, meta, k, s)
+            lanes = B.to_lanes(sub, meta)
+            for fn in fns:
+                fn(lanes)
+            leaf = put(B.from_lanes(lanes, meta))
+        leaves[spec.leaf] = leaf
 
     r = red.get(spec.leaf)
     if spec.kind == "data_bitflip":
-        b = owner(spec.block)
+        s, b = owner(spec.block)
         word = i32(spec.payload or (1 << spec.bit))
-        edit_lanes(lambda lanes: lanes[b, spec.lane].bitwise_xor_(word))
+        edit_lanes([(s, lambda lanes: lanes[b, spec.lane].bitwise_xor_(word))])
     elif spec.kind == "checksum_bitflip":
-        b = owner(spec.block)
+        # Global checksums concatenate the shards', so the global id
+        # indexes them directly (owner() validates it).
+        owner(spec.block)
         cks = r.checksums.clone()
-        cks[b] ^= i32(spec.payload or (1 << spec.bit))
+        cks[int(spec.block)] ^= i32(spec.payload or (1 << spec.bit))
         red[spec.leaf] = dataclasses.replace(r, checksums=cks)
     elif spec.kind == "parity_bitflip":
-        sid = B.global_stripe_id(meta, owner(spec.block))
+        owner(spec.block)
+        sid = B.global_stripe_id(meta, spec.block)
         par = r.parity.clone()
         par[sid, spec.lane] ^= i32(spec.payload or (1 << spec.bit))
         red[spec.leaf] = dataclasses.replace(r, parity=par)
     elif spec.kind == "meta_bitflip":
-        red[spec.leaf] = dataclasses.replace(
-            r, meta_ck=r.meta_ck ^ i32(spec.payload or (1 << spec.bit)))
-    elif spec.kind == "shard_loss":
-        # Wholesale corruption of the leaf's one shard, redundancy untouched.
-        shard(spec.block)
-        word = i32(spec.payload or 0xA5A5A5A5)
-        edit_lanes(lambda lanes: lanes.bitwise_xor_(word))
-    elif spec.kind in ("mesh_shrink", "mesh_grow"):
-        # mesh_shrink: the departing shard's data AND redundancy scribbled;
-        # mesh_grow: data intact, redundancy zeroed.
-        shard(spec.block)
-        word = i32(spec.payload or 0xA5A5A5A5)
-        if spec.kind == "mesh_shrink":
-            edit_lanes(lambda lanes: lanes.bitwise_xor_(word))
-            cks, mck = r.checksums ^ word, r.meta_ck ^ word
+        word = i32(spec.payload or (1 << spec.bit))
+        mck = r.meta_ck.clone()
+        if mck.dim():         # sharded: one meta checksum per shard
+            mck[owner(spec.block)[0] if spec.block >= 0 else 0] ^= word
         else:
-            cks, mck = torch.zeros_like(r.checksums), torch.zeros_like(r.meta_ck)
+            mck ^= word
+        red[spec.leaf] = dataclasses.replace(r, meta_ck=mck)
+    elif spec.kind == "shard_loss":
+        # Wholesale corruption of one shard's rows (``block`` = the shard),
+        # redundancy untouched.
+        s = shard(spec.block)
+        word = i32(spec.payload or 0xA5A5A5A5)
+        edit_lanes([(s, lambda lanes: lanes.bitwise_xor_(word))])
+    elif spec.kind in ("mesh_shrink", "mesh_grow"):
+        # mesh_shrink: the departing shard's data AND redundancy (its
+        # checksums and meta checksum) scribbled; mesh_grow: data intact,
+        # redundancy zeroed.
+        s = shard(spec.block)
+        lo, hi = s * meta.n_blocks, (s + 1) * meta.n_blocks
+        word = i32(spec.payload or 0xA5A5A5A5)
+        cks, mck = r.checksums.clone(), r.meta_ck.clone()
+        if spec.kind == "mesh_shrink":
+            edit_lanes([(s, lambda lanes: lanes.bitwise_xor_(word))])
+            cks[lo:hi] ^= word
+            mval = (mck[s] if mck.dim() else mck) ^ word
+        else:
+            cks[lo:hi] = 0
+            mval = torch.zeros_like(mck[s] if mck.dim() else mck)
+        if mck.dim():
+            mck[s] = mval
+        else:
+            mck = mval
         red[spec.leaf] = dataclasses.replace(r, checksums=cks, meta_ck=mck)
     elif spec.kind in ("torn_write", "stale_redundancy"):
         # Data changes land, the dirty marks do not: red is left untouched.
@@ -179,15 +208,18 @@ def apply_fault(metas, leaves: Mapping[str, torch.Tensor],
         seed = np.uint32(spec.payload or 0xD15EA5E)
         n = max(1, meta.lanes_per_block // 4)
 
-        def tear(lanes):
-            for gb in spec.touched_blocks:
-                b = owner(gb)
-                rng = np.random.default_rng(int(seed) + int(gb))
-                vals = rng.integers(0, 2**32, size=n, dtype=np.uint32)
-                kk = rng.integers(0, n + 1)
-                vals[:kk] = SPECIAL_LANES[rng.integers(0, len(SPECIAL_LANES), size=kk)]
-                lanes[b, :n] ^= torch.from_numpy(vals.view(np.int32)).to(lanes.device)
-        edit_lanes(tear)
+        def tear(b, flip):
+            return lambda lanes: lanes[b, :n].bitwise_xor_(flip.to(lanes.device))
+
+        edits = []
+        for gb in spec.touched_blocks:
+            s, b = owner(gb)
+            rng = np.random.default_rng(int(seed) + int(gb))
+            vals = rng.integers(0, 2**32, size=n, dtype=np.uint32)
+            kk = rng.integers(0, n + 1)
+            vals[:kk] = SPECIAL_LANES[rng.integers(0, len(SPECIAL_LANES), size=kk)]
+            edits.append((s, tear(b, torch.from_numpy(vals.view(np.int32)))))
+        edit_lanes(edits)
     else:  # pragma: no cover — guarded by FaultSpec.__post_init__
         raise AssertionError(spec.kind)
     return leaves, red
@@ -212,6 +244,10 @@ class FaultInjector:
     def _leaf_names(self) -> List[str]:
         return sorted(self.store.protected_metas)
 
+    def _factor(self, name: str) -> int:
+        fn = getattr(self.store, "shard_factor", None)
+        return int(fn(name)) if fn is not None else 1
+
     def plan(self, n: int, kinds: Sequence[str] = ("data_bitflip",),
              leaf: Optional[str] = None) -> List[FaultSpec]:
         """Draw ``n`` fault specs over the protected geometry.
@@ -219,6 +255,9 @@ class FaultInjector:
         Placement is uniform over blocks/lanes/bits of the chosen leaf (or
         all protected leaves); ``torn_write`` draws 2-4 consecutive blocks
         spanning at least one stripe boundary when the leaf allows it.
+        Sharded leaves are addressed in global block space: placement is
+        uniform over every shard's blocks, and a torn run never crosses a
+        shard boundary.
         """
         metas = self.store.protected_metas
         names = [leaf] if leaf is not None else self._leaf_names()
@@ -227,7 +266,7 @@ class FaultInjector:
             kind = str(self.rng.choice(list(kinds)))
             name = str(names[self.rng.integers(0, len(names))])
             meta = metas[name]
-            b = int(self.rng.integers(0, meta.n_blocks))
+            b = int(self.rng.integers(0, meta.n_blocks * self._factor(name)))
             lane = int(self.rng.integers(0, meta.lanes_per_block))
             bit = int(self.rng.integers(0, 32))
             payload = 0
@@ -237,6 +276,7 @@ class FaultInjector:
             if kind == "torn_write":
                 width = int(self.rng.integers(2, 5))
                 sw = meta.stripe_data_blocks
+                base = (b // meta.n_blocks) * meta.n_blocks   # owning shard
                 if meta.n_blocks > sw:
                     # Start 1..width-1 blocks before a random non-zero
                     # stripe start, so the run spans >= 2 stripes.
@@ -246,7 +286,8 @@ class FaultInjector:
                 else:   # single-stripe leaf: boundary impossible
                     start = int(self.rng.integers(
                         0, max(1, meta.n_blocks - width + 1)))
-                blocks = tuple(range(start, min(start + width, meta.n_blocks)))
+                blocks = tuple(base + lb for lb in
+                               range(start, min(start + width, meta.n_blocks)))
             elif kind == "stale_redundancy":
                 blocks = (b,)
             out.append(FaultSpec(kind=kind, leaf=name, block=b, lane=lane,
@@ -274,7 +315,8 @@ class FaultInjector:
             if name in metas:
                 live = (r.dirty | r.shadow).cpu().numpy().view(np.uint32)
                 names.append(name)
-                clean.append(np.flatnonzero(~bits_to_mask(live, metas[name].n_blocks)))
+                clean.append(np.flatnonzero(~bits_to_mask(
+                    live, metas[name].n_blocks, shards=self._factor(name))))
         starts = np.cumsum([0] + [len(c) for c in clean])
         for i in self.rng.permutation(int(starts[-1])):
             if len(out) >= n:

@@ -49,18 +49,21 @@ class VulnerabilityWindow:
 def vulnerability_window(store, red) -> VulnerabilityWindow:
     """The exact current window from the epoch double-buffer state:
     ``dirty | shadow`` per protected leaf, unpacked on the host, and its
-    stripe view (Algorithm 1's block-to-stripe reduction)."""
+    stripe view (Algorithm 1's block-to-stripe reduction).  Sharded leaves
+    unpack shard by shard into global block and stripe space."""
     blocks: Dict[str, np.ndarray] = {}
     stripes: Dict[str, np.ndarray] = {}
+    factor = getattr(store, "shard_factor", lambda n: 1)
     for name, meta in store.protected_metas.items():
         r = red[name]
+        k = int(factor(name))
         live = (r.dirty | r.shadow).cpu().numpy()
-        bmask = bits_to_mask(live, meta.n_blocks)
+        bmask = bits_to_mask(live, meta.n_blocks, shards=k)
         blocks[name] = bmask
-        padded = np.zeros((meta.padded_blocks,), bool)
-        padded[:meta.n_blocks] = bmask
+        padded = np.zeros((k, meta.padded_blocks), bool)
+        padded[:, :meta.n_blocks] = bmask.reshape(k, meta.n_blocks)
         stripes[name] = padded.reshape(
-            meta.n_stripes, meta.stripe_data_blocks).any(axis=1)
+            k * meta.n_stripes, meta.stripe_data_blocks).any(axis=1)
     return VulnerabilityWindow(blocks=blocks, stripes=stripes)
 
 

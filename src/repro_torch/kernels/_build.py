@@ -28,8 +28,10 @@ LIB_NAME = "libvilamb.so"
 
 _P, _I, _D = ctypes.c_void_p, ctypes.c_int64, ctypes.c_double
 _SIGNATURES = {
-    "vilamb_checksum": (_P, _P, _I, _I, _I, _P),
-    "vilamb_parity": (_P, _P, _I, _I, _I, _P),
+    # lanes, out, blocks a shard, L, block offset, shards, stream.
+    "vilamb_checksum": (_P, _P, _I, _I, _I, _I, _P),
+    # lanes, parity, blocks a shard, L, stripe, shards, stream.
+    "vilamb_parity": (_P, _P, _I, _I, _I, _I, _P),
     # descriptors, n_jobs, total items, items a grab, stripe, tile columns,
     # ticket, counters, partials, stream.
     "vilamb_fused_update_many": (_P, _I, _I, _I, _I, _I, _P, _P, _P, _P),
@@ -139,12 +141,13 @@ def require_lanes(lanes: torch.Tensor, kernel: str) -> None:
     """Validate a lane view for the kernels' 16-byte loads."""
     if lanes.device.type != "cuda":
         raise ValueError(f"{kernel}: lanes must be a CUDA tensor, got {lanes.device}")
-    if lanes.dtype != torch.int32 or lanes.dim() != 2:
-        raise ValueError(f"{kernel}: want an int32 (n_blocks, L) lane view, got "
+    if lanes.dtype != torch.int32 or lanes.dim() not in (2, 3):
+        raise ValueError(f"{kernel}: want an int32 (n_blocks, L) or (shards, "
+                         f"n_blocks, L) lane view, got "
                          f"{lanes.dtype} {tuple(lanes.shape)}")
     if not lanes.is_contiguous():
         raise ValueError(f"{kernel}: lane view must be contiguous")
-    if lanes.shape[1] % 4 or lanes.data_ptr() % 16:
+    if lanes.shape[-1] % 4 or lanes.data_ptr() % 16:
         raise ValueError(f"{kernel}: L must be a multiple of 4 and the view "
                          "16-byte aligned")
 

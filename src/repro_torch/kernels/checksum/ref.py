@@ -12,11 +12,13 @@ from ..common import GOLDEN, SALT2, fmix32_, i32, xor_fold
 
 
 def block_checksums(lanes: torch.Tensor, block_offset: int = 0) -> torch.Tensor:
-    """int32[n_blocks]: XOR_i fmix32(w_i ^ ((b+off)*GOLDEN ^ i*SALT2))."""
-    nb, L = lanes.shape
+    """int32[n_blocks]: XOR_i fmix32(w_i ^ ((b+off)*GOLDEN ^ i*SALT2)); a
+    (k, n_blocks, L) view of k shards gives int32[k * n_blocks], ``b``
+    being each shard's local block index."""
+    nb, L = lanes.shape[-2], lanes.shape[-1]
     dev = lanes.device
     lsalt = torch.arange(L, dtype=torch.int32, device=dev) * SALT2
     bsalt = (torch.arange(nb, dtype=torch.int32, device=dev) + i32(block_offset)) * GOLDEN
-    h = lanes ^ lsalt[None, :]
+    h = lanes ^ lsalt
     h ^= bsalt[:, None]
-    return xor_fold(fmix32_(h), 1)
+    return xor_fold(fmix32_(h), -1).reshape(-1)

@@ -13,21 +13,28 @@ from .. import _build
 from . import ref
 
 LAUNCHES = 0
+MAX_SHARDS = 65535   # the launch grid's y dimension
 
 
 def stripe_parity(lanes: torch.Tensor, stripe_width: int = 4) -> torch.Tensor:
-    """int32[n_stripes, L] XOR parity of a (n_blocks, L) int32 lane view."""
+    """int32[n_stripes, L] XOR parity of a (n_blocks, L) int32 lane view, or
+    int32[k * n_stripes, L] of a (k, n_blocks, L) view of k shards (stripe
+    ``t`` is stripe ``t mod n_stripes`` of shard ``t div n_stripes``; a
+    stripe never spans shards), all in one launch."""
     global LAUNCHES
     if lanes.device.type == "cpu":
         return ref.stripe_parity(lanes, stripe_width)
     _build.require_lanes(lanes, "parity")
+    if lanes.dim() == 3 and not 1 <= lanes.shape[0] <= MAX_SHARDS:
+        raise ValueError(f"parity: 1..{MAX_SHARDS} shards a launch, got {lanes.shape[0]}")
     if stripe_width < 1:
         raise ValueError(f"parity: stripe_width must be >= 1, got {stripe_width}")
-    nb, L = lanes.shape
-    out = torch.empty((-(-nb // stripe_width), L), dtype=torch.int32,
+    nb, L = lanes.shape[-2], lanes.shape[-1]
+    k = lanes.shape[0] if lanes.dim() == 3 else 1
+    out = torch.empty((k * -(-nb // stripe_width), L), dtype=torch.int32,
                       device=lanes.device)
     rc = _build.library().vilamb_parity(
-        lanes.data_ptr(), out.data_ptr(), nb, L, stripe_width,
+        lanes.data_ptr(), out.data_ptr(), nb, L, stripe_width, k,
         _build.stream_handle(lanes))
     _build.check(rc, "parity")
     LAUNCHES += 1

@@ -24,7 +24,10 @@ def striped(lanes: torch.Tensor, stripe_width: int) -> torch.Tensor:
 
 
 def stripe_parity(lanes: torch.Tensor, stripe_width: int) -> torch.Tensor:
-    """XOR parity for every stripe: int32[n_stripes, L]."""
+    """XOR parity for every stripe: int32[n_stripes, L]; of a (k, n_blocks,
+    L) view of k shards, int32[k * n_stripes, L], shard after shard."""
+    if lanes.dim() == 3:
+        return torch.cat([xor_fold(striped(s, stripe_width), 1) for s in lanes])
     return xor_fold(striped(lanes, stripe_width), 1)
 
 

@@ -21,7 +21,8 @@ which the reference's per-expert ``.at[tok].add`` reaches them.  Every
 gather is ``F.embedding`` or an integer index, whose backward is
 deterministic, and nothing is added with atomics, so a training step is
 bit for bit repeatable on the card.  The reference's ``shard_map`` expert
-parallelism (``moe.py:128-164``) is ROADMAP.md, Queue 1 item 11.
+parallelism (``moe.py:128-164``) is ROADMAP.md, Queue 1 item 11 (expert
+parallelism).
 """
 from __future__ import annotations
 

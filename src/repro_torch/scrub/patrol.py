@@ -164,8 +164,8 @@ class ScrubPatroller:
                            red: Optional[Mapping[str, Any]] = None) -> None:
         """Queue an online rebuild of ``name``'s ``shard`` from cross-shard
         parity.  A machine-local store has none, so this raises the
-        reference's ``ValueError``; sharded stores are ROADMAP.md, Queue 1
-        items 11.3 and 11.4."""
+        reference's ``ValueError``; the patroller of a sharded store, with
+        its cross-shard parity, is ROADMAP.md, Queue 1 item 11.4."""
         raise ValueError(
             f"{name}: no cross-shard parity (leaf must be dim0-sharded "
             "across >= 2 shards for online rebuild)")

@@ -223,11 +223,21 @@ def test_apply_fault_equals_reference(driven, kind, kw, leaf):
 
 
 def test_apply_fault_refuses_what_is_not_local():
+    """A shard count the leaf does not have is refused as the reference
+    refuses it (global-block addressing of a leaf that is not dim0-sharded
+    that many ways); ids past the leaf's shards are refused too."""
     store, leaves, red = _clean_state()
     metas = store.metas
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
+    jstore = _jstore()
+    jleaves = _jleaves()
+    jred = jstore.init(jleaves)
+    with pytest.raises(ValueError) as want:
+        jinject.apply_fault(jstore.metas, jleaves, jred,
+                            jfaults.FaultSpec("data_bitflip", "w", 1), factors={"w": 2})
+    with pytest.raises(ValueError) as got:
         faults.apply_fault(metas, leaves, red, FaultSpec("data_bitflip", "w", 1),
                            factors={"w": 2})
+    assert str(got.value) == str(want.value) and "dim0-only sharding" in str(got.value)
     for kind in ("shard_loss", "mesh_shrink"):
         with pytest.raises(ValueError, match="addresses shard 1"):
             faults.apply_fault(metas, leaves, red, FaultSpec(kind, "w", 1))
@@ -691,14 +701,16 @@ def test_phase_hooks_skip_under_compile():
 
 # ------------------------------------------------------------ the battery
 def test_battery_cli_passes(capsys):
-    """``python -m repro_torch.faults --smoke --device cpu``: passes 1-4
-    pass, and the sharded pass, not ported, prints the item owning it."""
+    """``python -m repro_torch.faults --smoke --device cpu``: passes 1-5
+    pass; the sharded pass's rebuild case, not ported, prints the item
+    owning it."""
     assert cli.main(["--smoke", "--device", "cpu"]) == 0
     out = capsys.readouterr().out
     assert "26 crash points, outcomes={'recovered_bitwise': 26}" in out
-    assert out.count("oracle seed=") == 3 and "FAIL" not in out
+    assert out.count("  oracle seed=") == 3 and "FAIL" not in out
     assert out.count("patrol seed=") == 1
-    assert "Queue 1 item 11.2" not in out and "Queue 1 item 11.3" in out
+    assert "Queue 1 item 11.3" not in out and "Queue 1 item 11.4" in out
+    assert out.count("sharded crash @") == 7 and "sharded oracle seed=0" in out
     assert "fault battery OK" in out
 
 
@@ -722,6 +734,226 @@ def test_battery_patrol_pass_equals_reference(capsys, monkeypatch, seed):
 
 
 @pytest.mark.parametrize("flag", ["--chaos", "--chaos-child", "--sharded-child"])
-def test_battery_cli_refuses_what_is_not_ported(flag):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
+def test_battery_cli_refuses_what_is_not_ported(flag, capsys):
+    """The chaos soak raises, naming the items that own it (11.4, 11.5);
+    ``--sharded-child``, ported, runs the sharded battery alone and passes."""
+    if flag == "--sharded-child":
+        assert cli.main([flag, "--seeds", "0", "--device", "cpu"]) == 0
+        out = capsys.readouterr().out
+        assert "sharded oracle seed=0" in out and "FAIL" not in out
+        assert "fault battery" not in out
+        return
+    with pytest.raises(NotImplementedError, match="Queue 1 items 11.4") as e:
         cli.main([flag, "--device", "cpu"])
+    assert "11.5" in str(e.value) and "11.3" not in str(e.value)
+
+
+# ------------------------------------------------- mesh-sharded coverage
+# The reference runs once, in one 8-device subprocess (tests/_torch_sharded.py);
+# the port's store runs on a simulated (2, 2, 2) mesh on the CPU.
+SHARDED_REFERENCE = """
+from repro.faults import (CrashPlan, CrashPointMachine, FaultInjector, FaultSpec,
+                          check_detection, vulnerability_window)
+import repro.faults.__main__ as jcli
+import contextlib, io, dataclasses, tempfile
+lv0 = make_leaves()
+OUT["leaf/w"] = np.asarray(lv0["w"])
+OUT["leaf/e"] = np.asarray(lv0["e"]).view(np.uint16)
+
+def specs_rows(specs):
+    return np.asarray([[s.block, s.lane, s.bit, s.payload,
+                        ["data_bitflip", "stale_redundancy"].index(s.kind),
+                        ["e", "w"].index(s.leaf)] for s in specs], np.int64)
+
+# tests/test_faults.py:346's workload.
+store = mesh_store(async_tick=True, precompile=False)
+lv, red = drive(store, steps=6, seed=1)
+rec("f/red", red)
+inj = FaultInjector(store, seed=1)
+specs = inj.plan_clean_blocks(red, n=6, kinds=("data_bitflip", "stale_redundancy"))
+OUT["f/specs"] = specs_rows(specs)
+window = vulnerability_window(store, red)
+for k, m in window.blocks.items():
+    OUT[f"f/window/{k}"] = m
+lv2, red2 = inj.inject_many(lv, red, specs)
+OUT["f/lv2/w"] = np.asarray(lv2["w"])
+OUT["f/lv2/e"] = np.asarray(lv2["e"]).view(np.uint16)
+rep = check_detection(store, lv2, red2, specs, window=window)
+for k, v in rep.detected.items():
+    OUT[f"f/detected/{k}"] = np.asarray(sorted(v), np.int64)
+OUT["f/summary"] = np.asarray(rep.summary())
+mm = store.scrub(lv2, red2)
+repaired, fixed, lost = store.repair(lv2, red2, mm)
+OUT["f/fixed_lost"] = np.asarray([fixed, lost])
+nb = store.protected_metas["w"].n_blocks
+_, red3 = store.inject(lv, red, FaultSpec(kind="meta_bitflip", leaf="w",
+                                          block=5 * nb + 2, bit=7))
+rec("f/red3", red3)
+ok = store.verify_meta(red3)
+OUT["f/meta_ok"] = np.asarray([bool(ok["w"]), bool(ok["e"])])
+
+# tests/test_faults.py:388's machine: its fired crash points.
+def make_store():
+    return mesh_store(async_tick=True, precompile=False, max_vulnerable_steps=3)
+with tempfile.TemporaryDirectory() as tmp:
+    machine = CrashPointMachine(make_store, lambda: put(make_leaves()), tmp,
+                                seed=0, steps=7, scrub_every=5,
+                                hold_inflight_steps=(3, 4))
+    OUT["c/fired"] = np.asarray([f"{p}#{o}" for p, o in machine.enumerate_phases()])
+
+# The CLI's sharded pass: the reference's sharded_child, its printed oracle
+# line and its crash workload's fired points (the replays and the rebuild
+# case are the reference's own tests' business).
+fired = []
+class Enumerate(jcli.CrashPointMachine):
+    def enumerate_phases(self):
+        fired.extend(super().enumerate_phases())
+        return []
+jcli.CrashPointMachine = Enumerate
+jcli.sharded_rebuild_case = lambda *a: 0
+buf = io.StringIO()
+with contextlib.redirect_stdout(buf):
+    assert jcli.sharded_child(0, 6) == 0
+OUT["cli/out"] = np.asarray(buf.getvalue())
+OUT["cli/fired"] = np.asarray([f"{p}#{o}" for p, o in fired])
+"""
+
+
+@pytest.fixture(scope="module")
+def sharded_ref(tmp_path_factory):
+    from _torch_sharded import run_reference
+    return run_reference(SHARDED_REFERENCE,
+                         tmp_path_factory.mktemp("sharded_faults") / "ref.npz")
+
+
+def _sharded_leaves(ref):
+    from _torch_sharded import leaf_from_ref
+    return {"w": leaf_from_ref(ref, "leaf/w", torch.float32),
+            "e": leaf_from_ref(ref, "leaf/e", torch.bfloat16)}
+
+
+def _sharded_store(ref, **kw):
+    from _torch_sharded import SPECS, mesh
+    pol = RedundancyPolicy.single("vilamb", period_steps=2, lanes_per_block=128,
+                                  work_queue_frac=0.5, precompile=False, **kw)
+    return ProtectedStore(pol, mesh=mesh()).attach(_sharded_leaves(ref), specs=SPECS)
+
+
+def _sharded_drive(ref, store, steps, seed):
+    """MESH_PRELUDE's ``drive`` on the port."""
+    rng = np.random.default_rng(seed)
+    lv = _sharded_leaves(ref)
+    red = store.init(lv)
+    for step in range(1, steps + 1):
+        rows = rng.choice(64, size=int(rng.integers(1, 4)), replace=False)
+        idx = torch.as_tensor(np.sort(rows))
+        w = lv["w"].clone()
+        w[idx] += 0.25 * step
+        lv = dict(lv, w=w)
+        red = store.on_write(red, events={
+            "w": torch.zeros((64,), dtype=torch.bool).index_fill_(0, idx, True)})
+        store.sync_inflight()
+        red, _ = store.tick(lv, red, step)
+    return lv, red
+
+
+def test_sharded_faults_inject_global_geometry_detect_per_shard(sharded_ref):
+    """tests/test_faults.py:346 on the port, held to the reference's run:
+    the same clean-block plan over global geometry (several shards hit),
+    the same corrupted leaves, detections, window and repair counts;
+    repair rebuilds bit for bit; a meta flip on shard 5 trips "w" only."""
+    from _torch_sharded import assert_fields_equal, u32
+    ref = sharded_ref
+    store = _sharded_store(ref, async_tick=True)
+    lv, red = _sharded_drive(ref, store, 6, 1)
+    assert_fields_equal(ref, "f/red", red)
+    assert store.shard_factor("w") == 8 and store.shard_factor("e") == 4
+    inj = FaultInjector(store, seed=1)
+    specs = inj.plan_clean_blocks(red, n=6, kinds=("data_bitflip", "stale_redundancy"))
+    rows = [[s.block, s.lane, s.bit, s.payload,
+             ["data_bitflip", "stale_redundancy"].index(s.kind), ["e", "w"].index(s.leaf)]
+            for s in specs]
+    assert rows == ref["f/specs"].tolist()
+    nb = store.protected_metas["w"].n_blocks
+    assert len({s.block // nb for s in specs if s.leaf == "w"}) > 1
+    window = vulnerability_window(store, red)
+    for k, m in window.blocks.items():
+        np.testing.assert_array_equal(m, ref[f"f/window/{k}"], err_msg=k)
+    lv2, red2 = inj.inject_many(lv, red, specs)
+    np.testing.assert_array_equal(u32(lv2["w"]), ref["f/lv2/w"].view(np.uint32))
+    np.testing.assert_array_equal(lv2["e"].view(torch.int16).numpy().view(np.uint16),
+                                  ref["f/lv2/e"])
+    rep = check_detection(store, lv2, red2, specs, window=window)
+    assert rep.ok and rep.summary() == str(ref["f/summary"]), rep.summary()
+    for k, v in rep.detected.items():
+        assert sorted(v) == ref[f"f/detected/{k}"].tolist(), k
+    for s in specs:
+        assert all(b in rep.detected[s.leaf] for b in s.touched_blocks), s
+    lv2 = {k: v.clone() for k, v in lv2.items()}
+    mm = store.scrub(lv2, red2)
+    repaired, fixed, lost = store.repair(lv2, red2, mm)
+    assert [fixed, lost] == ref["f/fixed_lost"].tolist() and lost == 0
+    for k in lv:
+        assert torch.equal(repaired[k].view(torch.uint8), lv[k].view(torch.uint8)), k
+    _, red3 = store.inject(lv, red, FaultSpec(kind="meta_bitflip", leaf="w",
+                                              block=5 * nb + 2, bit=7))
+    assert_fields_equal(ref, "f/red3", red3)
+    ok = store.verify_meta(red3)
+    assert [bool(ok["w"]), bool(ok["e"])] == ref["f/meta_ok"].tolist() == [False, True]
+
+
+def test_sharded_crash_points_recover_bitwise(sharded_ref, tmp_path):
+    """tests/test_faults.py:388 on the port: the reference's fired crash
+    points; dying at dispatch, mid-flight coalesce, adoption, forced
+    resolve and flush restores bit for bit on a fresh store; a persisted
+    corruption of a clean block on a non-zero shard is parity-repaired."""
+    ref = sharded_ref
+
+    def make_store():
+        return _sharded_store(ref, async_tick=True, max_vulnerable_steps=3)
+    machine = CrashPointMachine(make_store, lambda: _sharded_leaves(ref), str(tmp_path),
+                                seed=0, steps=7, scrub_every=5, hold_inflight_steps=(3, 4))
+    fired = machine.enumerate_phases()
+    assert [f"{p}#{o}" for p, o in fired] == ref["c/fired"].tolist()
+    plans = []
+    for ph in ("dispatch", "coalesce", "adopt", "adopt_forced", "flush"):
+        occ = [o for p, o in fired if p == ph]
+        assert occ, ph
+        plans.append(CrashPlan(ph, occ[-1]))
+    for plan in plans:
+        out = machine.run_crash(plan)
+        assert out.classification == "recovered_bitwise", (plan, out.classification)
+    probe = machine.run_crash(plans[0])
+    meta = machine._probe().protected_metas["w"]
+    k = machine._probe().shard_factor("w")
+    win = probe.window.get("w", set())
+
+    def stripe(b):
+        return b // meta.n_blocks, (b % meta.n_blocks) // meta.stripe_data_blocks
+    clean = [b for b in range(meta.n_blocks, meta.n_blocks * k)
+             if b not in win and not any(stripe(b) == stripe(v) for v in win)]
+    out = machine.run_crash(plans[0], faults=(
+        FaultSpec(kind="data_bitflip", leaf="w", block=clean[0], lane=3, bit=7),))
+    assert out.classification == "recovered_bitwise", out.classification
+
+
+def test_battery_sharded_pass_prints_reference_lines(sharded_ref, capsys):
+    """The CLI's sharded pass prints the reference's ``sharded_child``
+    lines: its oracle line, one crash line for each point the reference
+    would replay (all recovered bit for bit), and, for the rebuild case,
+    a not-ported line naming item 11.4."""
+    ref = sharded_ref
+    assert cli.sharded_child(torch.device("cpu"), 0, 6) == 0
+    got = capsys.readouterr().out.splitlines()
+    want = str(ref["cli/out"]).splitlines()
+    assert len(want) == 1 and got[0] == want[0], (got, want)
+    fired = [tuple(x.rsplit("#", 1)) for x in ref["cli/fired"].tolist()]
+    labels = []
+    for ph in ("dispatch", "coalesce", "adopt", "adopt_forced",
+               "dispatcher_enqueue", "dispatcher_join", "flush"):
+        occ = [o for p, o in fired if p == ph]
+        if occ:
+            labels.append(f"  sharded crash @{ph}#{occ[-1]}: recovered_bitwise OK")
+    assert got[1:-1] == labels
+    assert got[-1] == ("  sharded shard-loss rebuild seed=0: not ported, ROADMAP.md, "
+                       "Queue 1 item 11.4 (xpar and shard rebuild)")

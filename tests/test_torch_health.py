@@ -11,7 +11,7 @@ alike (``store._ready``; the reference's inline resolution, so no resolver
 thread decides it).  ``backoff_delay``/``backoff_schedule`` give the
 reference's floats exactly, jitter draws included.  Then the machine-local
 tests of tests/test_health.py, ported (``read_verified``, remesh and the
-chaos soak are ROADMAP.md, Queue 1 items 11.3 and 11.5).
+chaos soak are ROADMAP.md, Queue 1 items 11.4 and 11.5).
 """
 import random
 import time

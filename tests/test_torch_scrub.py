@@ -14,7 +14,7 @@ checksum flip, which the patroller flags, rebuilds to the same bytes and
 re-detects until ``MAX_REPAIR_ATTEMPTS``, then reports as a vulnerable
 stripe, in both packages alike.  Then the machine-local tests of
 tests/test_scrub.py and the patrol case of tests/test_dispatcher.py,
-ported (the sharded ones are ROADMAP.md, Queue 1 items 11.3 and 11.4).
+ported (the sharded ones are ROADMAP.md, Queue 1 item 11.4).
 """
 import dataclasses
 import math
