@@ -15,7 +15,10 @@ Phases, each of which must pass or the script exits non-zero:
    zero/one/all-dirty leaves, NaN/Inf/zero/saturated payloads), and K3's
    grouped launch over a due group's mix (64 KiB and 4 KiB blocks, none,
    sparse and all dirty, stripe widths 1, 4 and 16, junk word bits past
-   each leaf) against its plain version and one launch a leaf;
+   each leaf) against its plain version and one launch a leaf; K1 over a
+   window of every shard of a leaf read in place at the leaf's shard
+   stride (k in {1, 3, 8}, L in {128, 1024}, the first, a middle and the
+   clamped last window);
 4. main path: a ProtectedStore on the default, overlapped tick over an
    8 GiB vilamb heap of 4 KiB rows (2,097,152 blocks, 4+1 stripes, T=16,
    deadline 32) plus a 64 MiB sync params leaf, beside a blocking twin fed
@@ -164,7 +167,8 @@ Phases, each of which must pass or the script exits non-zero:
    a process of its own on the card must exit 0 (its five passes, the
    scrub patroller's detection the fourth, the sharded battery on a
    simulated (2, 2, 2) mesh the fifth: its oracle and its seven crash
-   points recovered bitwise, and the not-ported line of its rebuild case).  Timed: planning, injection,
+   points recovered bitwise, and its shard rebuilt bitwise from
+   cross-shard parity).  Timed: planning, injection,
    scrub, repair, the step, each replay's drive, save and restore; the
    peak and the phase's wall time;
 14. patrol and health, on phase 4's heap (8 GiB of 4 KiB rows beside the
@@ -314,7 +318,36 @@ Phases, each of which must pass or the script exits non-zero:
    overlapped in turns, beside phase 7's runs with no store), the due
    ticks' host ms, one due tick's update alone (traced), K3 over its 16
    shard jobs (device ms between CUDA events) against its bound, and the
-   staging copies of both leaves.
+   staging copies of both leaves.  23b. Then one more ``generate`` with the
+   caches under that sharded store with the scrub patroller at 64 MiB a
+   shard a probe and the scheduled scrub off (no cross-shard parity: the
+   caches are not dim0-sharded; each probe stages its window of every
+   shard alone): tokens identical to phase 7's, no patrol mismatch, every
+   staged window at most 8 x 1,024 blocks; its wall time and a window's
+   staging copy timed;
+23. the sharded heap under the patroller: phase 21's store (the heap in 8
+   row-range shards, the sync leaf in 4, T=16, deadline 32, the overlapped
+   tick) with the scrub patroller at 64 MiB a shard a probe (16,384
+   blocks, 16 probes a sweep) and so cross-shard parity (xpar) over the
+   heap.  16 steps of phase 21's writes and a flush; quiet ticks until
+   xpar covers the heap (two sweeps plus 16 ticks), xpar then equal to a
+   fresh fold of the shards, and one quiet tick behind a 0.25 s spin on
+   the foreground stream returning with the spin still running (no host
+   wait); 64 rows of shard 5 written and left pending, shard 5 lost
+   (``shard_loss``) and declared; ticks with 256 fresh rows of shard 5
+   written each until the rebuild is done: 4 ticks, rebuilt + fresh + lost
+   = 262,144, the lost blocks exactly the pending rows (``shard_loss``
+   records at their global ids), after a flush a clean scrub and
+   verify_meta, shard 5 outside the lost rows and the other 7 shards
+   bitwise equal to the heap before the loss with the fresh writes; xpar
+   covered again, shard 2 lost without a declaration and found by a
+   probe, rebuilt bitwise in 4 ticks, a declaration of shard 6 meanwhile
+   refused (``ShardLossConflictError``).  Timed: xpar's fold, a probe (K1
+   over 8 x 16,384 blocks at the shard stride and the slab's fold), K1 on
+   one shard's window, the quiet ticks' host ms and the write sample's
+   share, the reconstruction image, each rebuild tick's host ms and device
+   ms (CUDA events), the peak.  Its launches and 23b's are the kernel
+   line's "sharded patrol" path.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 the per-kernel JSON record.  All data comes from ``--seed``.
@@ -617,7 +650,8 @@ def phase_kernels(g) -> dict:
 def kernels_sharded(g, err: dict) -> None:
     """Phase 3, the sharded store's launches: K1 and K2 over a leading shard
     axis (k in 1, 3, 8; partial stripes; shards whose last block is partial,
-    through their padded copy) in one launch each, and K3 over a due group
+    through their padded copy) in one launch each, K1 over a window of
+    every shard at the leaf's shard stride, and K3 over a due group
     of sharded and unsharded leaves (one job a shard, the views of the
     global arrays at the shard's offsets) in one launch, in place: bitwise
     equal to the plain versions and to one launch a shard."""
@@ -638,6 +672,23 @@ def kernels_sharded(g, err: dict) -> None:
                   and torch.equal(got[-ns:], par_ops.stripe_parity(lanes[-1], P_)),
                   f"parity kernel != plain with {k} shards of {nb}x{L} P={P_}")
             err["parity"] = max(err["parity"], abs_err(got, want))
+    # K1 over a patrol window of every row-range shard, read in place at the
+    # leaf's shard stride (nb * L lanes from one shard's window to the
+    # next): the first, a middle and the clamped last window.
+    for k in (1, 3, 8):
+        for L in (128, 1024):
+            nb, w = 37, 11
+            leaf = rand_i32(g, k * nb, L)
+            meta = blocks.make_meta(blocks.ShapeDtype((nb, L), torch.int32), L, STRIPE)
+            for start in (0, 13, nb - w):
+                win = blocks.shard_window_lanes(leaf, meta, (k,), start, w)
+                n = ck_ops.LAUNCHES
+                got, want = ck_ops.block_checksums(win, start), ck_ref.block_checksums(win, start)
+                check(win.data_ptr() == leaf[start].data_ptr() and ck_ops.LAUNCHES == n + 1
+                      and torch.equal(got, want),
+                      f"checksum kernel != plain over a strided window: {k} shards of "
+                      f"{nb}x{L}, blocks {start}..{start + w}")
+                err["checksum"] = max(err["checksum"], abs_err(got, want))
     leaf = torch.randn((8 * 5, 300), generator=g, device=DEVICE)
     meta = blocks.make_meta(blocks.ShapeDtype((5, 300), torch.float32), 512, STRIPE)
     lanes = blocks.shard_lanes(leaf, meta, (8, 1))
@@ -2985,7 +3036,8 @@ def phase_faults(seed: int) -> dict:
     sharded = [ln for ln in rec["cli"]["lines"] if ln.startswith("  sharded ")]
     check(len(sharded) == 9 and "OK" in sharded[0]
           and all(ln.endswith("recovered_bitwise OK") for ln in sharded[1:8])
-          and "Queue 1 item 11.4" in sharded[8],
+          and sharded[8].startswith("  sharded shard-loss rebuild seed=0: status=")
+          and sharded[8].endswith("clean=True bitwise=True OK"),
           f"the battery's sharded pass printed {sharded}")
     rec["wall_s"] = time.perf_counter() - t_phase
     return rec
@@ -3200,7 +3252,7 @@ def held_probe(seed: int, state: dict, g) -> dict:
     in_flight = held()
     check(rep.patrolled == ("heap",), f"no probe at step {FAULT_DUE + 1}: {rep}")
     check(in_flight, "the probe tick returned after the held update had finished")
-    _, p_start, p_w, masks, done, _ = pat._probe
+    _, p_start, p_w, masks, done, _, _ = pat._probe
     if done is not None:
         done.synchronize()                # the probe's own event, on the tick's stream
     check(held(), "the probe's masks landed after the held update")
@@ -5046,10 +5098,96 @@ def phase_serve_sharded(gen_state, tokens7, none_s7: list) -> dict:
                                               parity=marked[n].parity.clone())
                        for n in names}
         out["due_update_ms"] = per_call_ms(lambda: eng.redundancy_step(sub, jobs_marked), 5)
-        del marked, jobs_marked, sub
+        del marked, jobs_marked, sub, caches, red
     out["wall_s"] = time.perf_counter() - t_phase
-    del store, params, model, stats
+    del store, stats
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["patrolled"] = serve_sharded_patrolled(model, params, batch, policy, mesh, shapes,
+                                               specs, tokens7)
+    del params, model
     return out
+
+
+def serve_sharded_patrolled(model, params, batch, policy, mesh, shapes, specs,
+                            tokens7) -> dict:
+    """Phase 23b, after phase 22 (its model, batch and sharded specs): one
+    more ``generate`` with the caches under the sharded store with the
+    scheduled scrub off and the scrub patroller at 64 MiB a shard a probe.
+    The caches are not dim0-sharded, so there is no cross-shard parity, and
+    each probe stages its window of every shard alone.  Tokens equal to
+    phase 7's, no patrol mismatch, every staged window at most ``k *
+    window`` blocks.  Its launch counts are read around it (with phase
+    23's, the kernel line's "sharded patrol" path)."""
+    t_phase = time.perf_counter()
+    store = ProtectedStore(dataclasses.replace(
+        policy, patrol_bytes_per_tick=PATROL_BUDGETS[0]), mesh=mesh).attach(shapes,
+                                                                            specs=specs)
+    pat = store.patroller
+    names = sorted(store.metas)
+    check(sorted(pat.targets) == names and not pat.xpar,
+          f"sharded serving's patroller: targets {pat.targets}, xpar {sorted(pat.xpar)}")
+    mism: list = []
+    tick = store.tick
+
+    def counted(*a, **kw):
+        red, report = tick(*a, **kw)
+        mism.append(report.patrol_mismatches)
+        return red, report
+    store.tick = counted
+    staged: list = []
+    window_lanes = blocks.shard_window_lanes
+
+    def recording(x, meta, splits, start, n):
+        out = window_lanes(x, meta, splits, start, n)
+        staged.append((out.shape[0] * out.shape[1],
+                       out.untyped_storage().data_ptr() == x.untyped_storage().data_ptr()))
+        return out
+    srv = Server(model=model, store=store, max_len=PROMPT + GEN + 1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    blocks.shard_window_lanes = recording
+    try:
+        t0 = time.perf_counter()
+        toks, stats = srv.generate(params, batch, GEN, scrub_every=0)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        blocks.shard_window_lanes = window_lanes
+    launches = read_launches()
+    check(torch.equal(toks, tokens7), "tokens differ with the patrolled sharded store")
+    check(sum(mism) == 0 and not pat.detections and not pat.unrecoverable,
+          f"the patrol flagged {sum(mism)} blocks while serving")
+    k, w = 8, pat.window[names[0]]
+    check(staged and all(n <= k * w and not view for n, view in staged)
+          and len(staged) == pat.blocks_scanned // w,
+          f"probe windows staged {staged[:4]}... for {pat.blocks_scanned} blocks patrolled")
+    check(launches["checksum"] >= len(staged) and launches["flash_attn"] == model.cfg.n_layers,
+          f"patrolled sharded serving launches {launches}")
+    caches = flatten_dict(stats["caches"])
+    meta = store.metas[names[0]]
+    splits = store.engine_for(names[0])._splits[names[0]]
+    with torch.inference_mode(), uncounted():
+        stage_ms = per_call_ms(lambda: window_lanes(caches[names[0]], meta, splits, 0, w), 10)
+    out = {"generate_s": wall, "blocks_patrolled": pat.blocks_scanned,
+           "probes": len(staged), "window_blocks": w,
+           "staged_blocks_max": max(n for n, _ in staged),
+           "window_stage_ms": stage_ms,
+           "window_stage_bound_ms": 2 * k * w * meta.bytes_per_block / HBM_BYTES_PER_SEC * 1e3,
+           "launches": launches, "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30}
+    out["wall_s"] = time.perf_counter() - t_phase
+    del store, srv, stats, caches
+    return out
+
+
+def print_serve_sharded_patrolled(r: dict) -> None:
+    print(f"sharded serving with patrol (phase 23b, {r['wall_s']:.1f} s): generate "
+          f"{r['generate_s']:.4f} s, tokens identical to phase 7's, no patrol mismatch; "
+          f"{r['probes']} probes over {r['blocks_patrolled']} blocks, each staging at most "
+          f"{r['staged_blocks_max']} blocks (8 x {r['window_blocks']}); a window's "
+          f"staging {r['window_stage_ms']:.4f} ms (bound {r['window_stage_bound_ms']:.4f}); "
+          f"launches {r['launches']}; peak {r['peak_mem_gb']:.2f} GiB")
 
 
 def print_serve_sharded(r: dict) -> None:
@@ -5078,6 +5216,299 @@ def print_serve_sharded(r: dict) -> None:
           f"leaves: bound {r['staging_bound_ms']:.4f} ms); trace: K3 {t['fused_update_ms']} ms "
           f"({t['fused_update_launches']} launch), staging {t['staging_ms']} ms over "
           f"{t['staging_launches']} launches, top kernels {t['top_kernels_ms']}")
+
+
+def quiet_ticks(store, state, red, step: int, until, limit: int, rec: list,
+                sample_ms: list):
+    """Ticks with no write until ``until()`` holds, at most ``limit``; each
+    tick's host ms (no device sync) goes to ``rec`` with whether it was
+    busy and probed, and ``sample_ms`` collects the write sample's host ms
+    of each.  Returns ``(red, step)``."""
+    for _ in range(limit):
+        if until():
+            return red, step
+        step += 1
+        n = len(sample_ms)
+        t = time.perf_counter()
+        red, rep = store.tick(state, red, step)
+        rec.append({"ms": (time.perf_counter() - t) * 1e3, "busy": bool(rep.updated),
+                    "probe": bool(rep.patrolled),
+                    "sample_ms": sum(sample_ms[n:])})
+        check(not rep.patrol_mismatches, f"a quiet tick's probe flagged "
+              f"{rep.patrol_mismatches} blocks")
+        state.update(rep.repaired)
+    check(until(), f"xpar did not cover the heap within {limit} quiet ticks")
+    return red, step
+
+
+def rebuild_ticks(store, state, red, step: int, g, shard_rows, old, rec: list,
+                  on_first=None):
+    """Ticks until the active (or queued) shard rebuild is done, each after
+    writing rows of ``shard_rows`` (global heap rows, the fresh set; none
+    when empty), which ``old`` (the heap's pre-loss tensor) also takes.
+    Records each tick's host ms and its device ms between CUDA events.
+    Returns ``(red, step, status, written rows)``."""
+    pat = store.patroller
+    written = []
+    for i in range(4 * 64):
+        step += 1
+        rows = shard_rows[i] if i < len(shard_rows) else None
+        if rows is not None:
+            red = heap_write(store, state, red, rows, g)
+            old.index_copy_(0, rows, state["heap"][rows])
+            written.append(rows)
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        t = time.perf_counter()
+        red, rep = store.tick(state, red, step)
+        host = (time.perf_counter() - t) * 1e3
+        b.record()
+        state.update(rep.repaired)
+        rec.append({"step": step, "host_ms": host, "events": (a, b),
+                    "status": None if rep.rebuild is None else dataclasses.asdict(rep.rebuild)})
+        if on_first is not None and pat.rebuild is not None:
+            on_first()
+            on_first = None
+        if rep.rebuild is not None and rep.rebuild.done:
+            torch.cuda.synchronize()
+            for r in rec:
+                if "events" in r:
+                    x, y = r.pop("events")
+                    r["device_ms"] = x.elapsed_time(y)
+            return red, step, rep.rebuild, written
+    raise SmokeError("the shard rebuild never finished")
+
+
+def phase_sharded_patrol(g) -> dict:
+    """Phase 23: phase 21's sharded heap under the scrub patroller at 64 MiB
+    a shard a probe: cross-shard parity over the heap's 8 shards, a shard
+    lost and declared (rebuilt while the foreground writes into it), a
+    shard lost and found by a probe, and a second loss refused."""
+    from repro_torch.faults import FaultSpec
+    from repro_torch.scrub import ShardLossConflictError
+    from repro_torch.scrub import rebuild as rebuild_mod
+    t_phase = time.perf_counter()
+    dev = torch.device(DEVICE)
+    mesh = make_mesh(MESH_SHAPE, MESH_AXES, device=dev)
+    state = {"heap": torch.randn((N_ROWS, ROW), generator=g, device=dev),
+             "params": torch.randn((16384, 1024), generator=g, device=dev)}
+    pol = dataclasses.replace(heap_policy(async_tick=True),
+                              patrol_bytes_per_tick=PATROL_BUDGETS[0])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    store = ProtectedStore(pol, mesh=mesh).attach(state, specs=HEAP_SPECS)
+    pat, meta = store.patroller, store.metas["heap"]
+    nb, w, R = meta.n_blocks, pat.window["heap"], N_ROWS // 8
+    check(pat.targets == ["heap"] and sorted(pat.xpar) == ["heap"] and nb == R
+          and w == PATROL_BUDGETS[0] // (ROW * 4) == 16384,
+          f"patroller: targets {pat.targets}, xpar {sorted(pat.xpar)}, window {w}")
+    sample_ms: list = []
+    dispatch_sample = pat._dispatch_sample
+
+    def timed_sample(out):
+        t = time.perf_counter()
+        dispatch_sample(out)
+        sample_ms.append((time.perf_counter() - t) * 1e3)
+    pat._dispatch_sample = timed_sample
+    red = store.init(state)
+    rec: dict = {"window_blocks": w, "rebuild_window_blocks": 4 * w}
+
+    # 1. Phase 21's write traffic for 16 steps (the first tick folds xpar),
+    #    then a flush.
+    step = 0
+    for step in range(1, 17):
+        red = heap_write(store, state, red, torch.randperm(
+            N_ROWS, generator=g, device=dev)[:ROWS_PER_STEP], g)
+        red, rep = store.tick(state, red, step)
+        state.update(rep.repaired)
+    red = store.flush(state, red, step)
+    xp = pat.xpar["heap"]
+    check(xp.xpar is not None and tuple(xp.xpar.shape) == (nb, ROW), "xpar not folded")
+
+    # 2. Quiet ticks until xpar covers the heap: two sweeps plus 16 ticks.
+    sweep_ticks = math.ceil(2 * -(-nb // w) * PERIOD / (PERIOD - 1))
+    quiet: list = []
+    covered = lambda: bool(xp.xvalid.all())
+    red, step = quiet_ticks(store, state, red, step, covered, 2 * sweep_ticks + 16,
+                            quiet, sample_ms)
+    rec["cover_ticks"] = len(quiet)
+    lanes3 = store.engine_for("heap").lanes_by_shard(state["heap"], "heap")
+    check(lanes3.data_ptr() == state["heap"].data_ptr(), "the heap's shard lanes are a copy")
+    with uncounted():
+        check(torch.equal(xp.xpar, rebuild_mod.xor_fold(lanes3)),
+              "xpar != the fold of the heap's shards after coverage")
+    # A quiet tick must not wait for the device: one behind a spin on this
+    # stream (~0.25 s) returns with the spin still running.
+    torch.cuda.synchronize()
+    torch.cuda._sleep(SIDE_SLEEP_CYCLES // 4)
+    spin = torch.cuda.Event()
+    spin.record()
+    step += 1
+    t = time.perf_counter()
+    red, rep = store.tick(state, red, step)
+    spin_tick_ms = (time.perf_counter() - t) * 1e3
+    check(not spin.query(), f"a quiet tick waited for the device ({spin_tick_ms:.3f} ms)")
+    torch.cuda.synchronize()
+    target = len(quiet) + 32                     # 32 more quiet ticks, timed
+    red, step = quiet_ticks(store, state, red, step, lambda: len(quiet) >= target, 33,
+                            quiet, sample_ms)
+    probe_ticks = [q for q in quiet if q["probe"] and not q["busy"]]
+    rec["quiet"] = {
+        "ticks": len(quiet), "probe_ticks": len(probe_ticks),
+        "host_ms_median": statistics.median(q["ms"] for q in probe_ticks),
+        "sample_ms_median": statistics.median(q["sample_ms"] for q in probe_ticks),
+        "host_ms_median_without_sample": statistics.median(
+            q["ms"] - q["sample_ms"] for q in probe_ticks),
+        "behind_spin_ms": spin_tick_ms}
+
+    # 3. Rows of shard 5 written and left pending (the pre-loss set), then
+    #    shard 5 lost and declared.
+    perm = torch.randperm(R, generator=g, device=dev) + 5 * R
+    pre_rows = perm[:64]
+    fresh = [perm[64 + 256 * i:64 + 256 * (i + 1)] for i in range(8)]
+    red = heap_write(store, state, red, pre_rows, g)
+    old = state["heap"]                          # pre-loss data; inject copies
+    lv, red = store.inject(state, red, FaultSpec("shard_loss", "heap", block=5))
+    state.update(lv)
+    del lv
+    store.declare_shard_lost("heap", 5, red)
+    check(not torch.equal(state["heap"][5 * R:5 * R + 8], old[5 * R:5 * R + 8]),
+          "the shard loss did not land")
+
+    # 4. Ticks with writes into shard 5 (the fresh set) until it is rebuilt.
+    ticks5: list = []
+    red, step, st, _ = rebuild_ticks(store, state, red, step, g, fresh, old, ticks5)
+    lost_ids = sorted(b for u in pat.unrecoverable if u.reason == "shard_loss"
+                      for b in u.blocks)
+    check(st.shard == 5 and st.ticks == -(-nb // (4 * w)) == 4
+          and st.rebuilt + st.fresh + st.lost == nb
+          and st.lost == 64 and lost_ids == sorted(pre_rows.tolist()),
+          f"shard 5's rebuild: {st}; lost ids {lost_ids[:8]}...")
+    red = store.flush(state, red, step)
+    check(store.scrub_check(state, red) == 0 and all(
+        bool(v) for v in store.verify_meta(red).values()),
+          "after shard 5's rebuild: scrub or verify_meta not clean")
+    keep = torch.ones(R, dtype=torch.bool, device=dev)
+    keep[pre_rows - 5 * R] = False
+    new, was = state["heap"].view(torch.int32), old.view(torch.int32)
+    check(torch.equal(new[5 * R:6 * R][keep], was[5 * R:6 * R][keep]),
+          "shard 5 outside the pre-loss set differs from its copy before the loss")
+    check(all(torch.equal(new[s_ * R:(s_ + 1) * R], was[s_ * R:(s_ + 1) * R])
+              for s_ in range(8) if s_ != 5), "a surviving shard changed")
+    del new, was
+    rec["declared"] = {"status": dataclasses.asdict(st), "ticks": ticks5,
+                       "fresh_blocks": st.fresh}
+    del old, keep
+
+    # 5. xpar covered again; shard 2 lost without a declaration: a probe
+    #    finds it.  6. Declaring shard 6 meanwhile is refused.
+    red, step = quiet_ticks(store, state, red, step, covered, 2 * sweep_ticks + 16,
+                            quiet, sample_ms)
+    old = state["heap"]
+    lv, red = store.inject(state, red, FaultSpec("shard_loss", "heap", block=2))
+    state.update(lv)
+    del lv
+    conflict = []
+
+    def second_loss():
+        try:
+            store.declare_shard_lost("heap", 6, red)
+        except ShardLossConflictError as e:
+            conflict.append((e.active_shard, e.new_shard))
+    ticks2: list = []
+    red, step, st2, _ = rebuild_ticks(store, state, red, step, g, [], old, ticks2,
+                                      on_first=second_loss)
+    check(st2.shard == 2 and st2.ticks == 4 and st2.rebuilt == nb and st2.lost == 0
+          and not pat._pending_loss and conflict == [(2, 6)],
+          f"the probe-found loss: {st2}; conflict {conflict}")
+    red = store.flush(state, red, step)
+    check(store.scrub_check(state, red) == 0, "after shard 2's rebuild: scrub not clean")
+    check(torch.equal(state["heap"].view(torch.int32), old.view(torch.int32)),
+          "the heap differs bitwise after shard 2's rebuild")
+    rec["found"] = {"status": dataclasses.asdict(st2), "ticks": ticks2}
+    del old
+    torch.cuda.synchronize()
+    rec["launches"] = read_launches()
+    rec["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 2**30
+    for name in ("checksum", "parity", "fused_update"):
+        check(rec["launches"][name] > 0, f"{name} kernel never launched in phase 23")
+
+    # Timed, uncounted: xpar's fold (the first tick's), a probe (K1 over 8 x
+    # 16,384 blocks at the shard stride, then the slab fold), the
+    # reconstruction image, the paste window's copy.
+    heap = state["heap"]
+    lanes3 = store.engine_for("heap").lanes_by_shard(heap, "heap")
+    fn = store.engine_for("heap").verify_window_fn("heap", w, want_slab=True)
+    start = nb - w
+    win = blocks.shard_window_lanes(heap, meta, (8,), start, w)
+    hb = HBM_BYTES_PER_SEC
+    with uncounted():
+        check(win.data_ptr() == lanes3[0, start].data_ptr() and win.stride(0) == nb * ROW,
+              "the probe window is not a view at the shard stride")
+        got = ck_ops.block_checksums(win, start)
+        check(torch.equal(got, ck_ref.block_checksums(win, start))
+              and torch.equal(got.view(8, w), red["heap"].checksums.view(8, nb)[:, start:]),
+              "K1 over the strided window != plain or the store's checksums")
+        xp = pat.xpar["heap"].xpar
+
+        def recon():
+            r = xp.clone()
+            for s_ in range(8):
+                if s_ != 2:
+                    r ^= lanes3[s_]
+            return r
+        check(torch.equal(recon(), lanes3[2]), "the reconstruction image != shard 2")
+        k1_b = bound(8 * w * ROW * 4 + 8 * w * 4, 8 * w * ROW * 12)
+        rec["times"] = {
+            "fold_ms": per_call_ms(lambda: rebuild_mod.xor_fold(lanes3), 5),
+            "fold_bound_ms": (N_ROWS + nb) * ROW * 4 / hb * 1e3,
+            "probe_ms": per_call_ms(lambda: rebuild_mod.xor_fold(
+                fn(heap, red["heap"], start)[2]), 10),
+            "probe_bound_ms": 8 * w * ROW * 4 / hb * 1e3,
+            "k1_window_ms": per_call_ms(lambda: ck_ops.block_checksums(win, start), 20),
+            "k1_window_plain_ms": per_call_ms(lambda: ck_ref.block_checksums(win, start), 2),
+            "k1_window_bound_ms": k1_b[0], "k1_window_bound_by": k1_b[1],
+            "slab_fold_ms": per_call_ms(lambda: rebuild_mod.xor_fold(win), 10),
+            "recon_ms": per_call_ms(recon, 5),
+            "recon_bound_ms": (N_ROWS + nb) * ROW * 4 / hb * 1e3,
+            "paste_bound_ms": 3 * 4 * w * ROW * 4 / hb * 1e3}
+        one = lanes3[0, start:]                         # the one-shard window
+        rec["times"]["k1_one_window_ms"] = per_call_ms(
+            lambda: ck_ops.block_checksums(one, start), 20)
+    del lanes3, win, fn, heap
+    pat._dispatch_sample = dispatch_sample
+    rec["wall_s"] = time.perf_counter() - t_phase
+    del store, red, state
+    return rec
+
+
+def print_sharded_patrol(r: dict) -> None:
+    q, t = r["quiet"], r["times"]
+    print(f"sharded patrol ({r['wall_s']:.1f} s): launches {r['launches']}; peak "
+          f"{r['peak_mem_gb']:.2f} GiB; xpar covered the heap in {r['cover_ticks']} quiet "
+          f"ticks (window {r['window_blocks']} blocks a shard, rebuild window "
+          f"{r['rebuild_window_blocks']})")
+    print(f"sharded patrol: quiet probe ticks' host ms median {q['host_ms_median']:.4f} "
+          f"(write sample {q['sample_ms_median']:.4f}; without it "
+          f"{q['host_ms_median_without_sample']:.4f}) over {q['probe_ticks']} ticks; a "
+          f"tick behind a 0.25 s spin returned in {q['behind_spin_ms']:.3f} ms, the spin "
+          f"still running")
+    for key, label in (("declared", "declared loss of shard 5"),
+                       ("found", "probe-found loss of shard 2")):
+        d = r[key]
+        ticks = [x for x in d["ticks"] if x["status"] is not None]
+        print(f"sharded patrol: {label}: {d['status']}; rebuild ticks host ms "
+              f"{[round(x['host_ms'], 3) for x in ticks]}, device ms "
+              f"{[round(x['device_ms'], 3) for x in ticks]}")
+    print(f"sharded patrol: xpar fold {t['fold_ms']:.4f} ms (bound {t['fold_bound_ms']:.4f}); "
+          f"probe {t['probe_ms']:.4f} ms (bound {t['probe_bound_ms']:.4f}): K1 over 8 x "
+          f"{r['window_blocks']} blocks at the shard stride {t['k1_window_ms']:.4f} ms "
+          f"(bound {t['k1_window_bound_ms']:.4f}, {100 * t['k1_window_bound_ms'] / t['k1_window_ms']:.1f}%; "
+          f"one shard's window {t['k1_one_window_ms']:.4f}; plain "
+          f"{t['k1_window_plain_ms']:.2f}), slab fold {t['slab_fold_ms']:.4f}; "
+          f"reconstruction image {t['recon_ms']:.4f} ms (bound {t['recon_bound_ms']:.4f}); "
+          f"a paste window's bound {t['paste_bound_ms']:.4f} ms")
 
 
 def smi_line() -> str:
@@ -5323,8 +5754,15 @@ def main() -> int:
     torch.cuda.empty_cache()
     ss = phase_serve_sharded(serve_gen_state, serve_tokens, serve_none_s)
     print_serve_sharded(ss)
+    print_serve_sharded_patrolled(ss["patrolled"])
     print(smi_line())
     print(json.dumps({"serve_sharded": ss}))
+    gc.collect()
+    torch.cuda.empty_cache()
+    sp = phase_sharded_patrol(g)
+    print_sharded_patrol(sp)
+    print(smi_line())
+    print(json.dumps({"sharded_patrol": sp}))
     for row in kernels:
         by_path = {"heap": heap_launches.get(row["name"], 0),
                    "serving": serve_launches[row["name"]],
@@ -5343,7 +5781,9 @@ def main() -> int:
                    "xlstm training": tx["main"]["launches"][row["name"]],
                    "hybrid training": th["launches"][row["name"]],
                    "sharded heap": sh["launches"][row["name"]],
-                   "sharded serving": ss["launches"][row["name"]]}
+                   "sharded serving": ss["launches"][row["name"]],
+                   "sharded patrol": sp["launches"][row["name"]]
+                   + ss["patrolled"]["launches"][row["name"]]}
         row["launches"] = sum(by_path.values())
         row["launches_by_path"] = by_path
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s")

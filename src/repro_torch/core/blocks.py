@@ -138,25 +138,88 @@ def to_lanes(x: torch.Tensor, meta: BlockMeta) -> torch.Tensor:
     return out.view(torch.int32).view(meta.n_blocks, meta.lanes_per_block)
 
 
-def window_lanes(x: torch.Tensor, meta: BlockMeta, start: int, n: int) -> torch.Tensor:
-    """int32 ``(n, lanes_per_block)`` lane view of blocks ``[start, start +
-    n)`` of a leaf (``start + n <= n_blocks``).
+def shard_window_lanes(x: torch.Tensor, meta: BlockMeta, splits, start: int,
+                       n: int) -> torch.Tensor:
+    """int32 ``(k, n, lanes_per_block)``: blocks ``[start, start + n)`` of
+    every shard of a leaf (``meta`` the shard-local geometry, ``splits`` as
+    in :func:`shard_view`; ``start + n <= n_blocks``), the patrol probe's
+    window.
 
-    A view of the leaf's own memory when those blocks lie wholly inside
-    it; otherwise (the window holds a partial last block) a copy of the
-    window alone, zero-padded past the leaf's end, as :func:`to_lanes`
-    pads.  So a bounded window never copies the rest of the leaf, where
-    :func:`to_lanes` copies a whole leaf that does not fill its blocks.
+    A view of the leaf's own memory when each shard is a contiguous row
+    range and the window lies wholly inside it: the shards then lie one
+    shard apart (``stride(0)``), which the checksum kernel steps over in
+    one launch.  Otherwise a copy of the window alone, ``k * n`` blocks,
+    zero-padded past each shard's end as :func:`to_lanes` pads: where the
+    window holds a shard's partial last block, or where the shards are
+    strided (a KV cache under ``cache_specs``), whose window is gathered
+    piece by piece (:func:`_range_pieces`) and never by staging the whole
+    leaf as :func:`shard_lanes` does.
     """
-    flat = x.contiguous().reshape(-1)
-    per_block = meta.lanes_per_block * meta.elems_per_word
-    lo, hi = start * per_block, (start + n) * per_block
-    if hi > meta.n_elems:
-        win = torch.zeros((hi - lo,), dtype=x.dtype, device=x.device)
-        win[: meta.n_elems - lo] = flat[lo:]
+    L, epw = meta.lanes_per_block, meta.elems_per_word
+    lo, hi = start * L * epw, (start + n) * L * epw
+    m = max(0, min(hi, meta.n_elems) - lo)      # the window's elements in a shard
+    if n == 0:
+        k = math.prod(splits)
+        return torch.empty((k, 0, L), dtype=torch.int32, device=x.device)
+    if not is_strided(splits):
+        k = math.prod(splits)
+        flat = x.contiguous().reshape(k, -1)
+        # A view where the shards lie a whole number of 16-byte loads apart.
+        if hi <= meta.n_elems and (k == 1 or meta.n_elems % (4 * epw) == 0):
+            win = flat[0, lo:hi][None] if k == 1 else flat[:, lo:hi]
+            return win.view(torch.int32).view(k, n, L)
+        out = torch.empty((k, hi - lo), dtype=x.dtype, device=x.device)
+        out[:, :m] = flat[:, lo:lo + m]
     else:
-        win = flat[lo:hi]
-    return win.view(torch.int32).view(n, meta.lanes_per_block)
+        splits, local, perm = _split_view(x, splits)
+        k = math.prod(splits)
+        out = torch.empty((k, hi - lo), dtype=x.dtype, device=x.device)
+        pos = 0
+        for prefix, a, b in _range_pieces(local, lo, lo + m):
+            rest = local[len(prefix) + 1:]
+            cnt = (b - a) * math.prod(rest)
+            src = perm[(slice(None),) * len(splits) + prefix + (slice(a, b),)]
+            out[:, pos:pos + cnt].view(splits + (b - a,) + rest).copy_(src)
+            pos += cnt
+    if m < hi - lo:
+        out[:, m:] = 0                  # past a shard's end, as to_lanes pads
+    return out.view(torch.int32).view(k, n, L)
+
+
+def _range_pieces(shape, lo: int, hi: int):
+    """Elements ``[lo, hi)`` of a row-major ``shape`` as rectangular pieces
+    ``(prefix, a, b)``: the coordinates ``prefix`` on the leading dims,
+    ``[a, b)`` on the next, every later dim whole (at most ``2 * ndim - 1``
+    pieces), in order."""
+    if lo >= hi:
+        return []
+    if len(shape) == 1:
+        return [((), lo, hi)]
+    inner = math.prod(shape[1:])
+    r0, o0 = divmod(lo, inner)
+    r1, o1 = divmod(hi, inner)
+    if r0 == r1:
+        return [((r0,) + p, a, b) for p, a, b in _range_pieces(shape[1:], o0, o1)]
+    out = []
+    if o0:
+        out += [((r0,) + p, a, b) for p, a, b in _range_pieces(shape[1:], o0, inner)]
+        r0 += 1
+    if r1 > r0:
+        out.append(((), r0, r1))
+    if o1:
+        out += [((r1,) + p, a, b) for p, a, b in _range_pieces(shape[1:], 0, o1)]
+    return out
+
+
+def put_window(x: torch.Tensor, meta: BlockMeta, start: int,
+               lanes: torch.Tensor) -> None:
+    """Write an int32 ``(n, lanes_per_block)`` window over blocks ``[start,
+    start + n)`` of a contiguous leaf ``x``, in place (the lanes past the
+    leaf's end, :func:`to_lanes`'s padding, are dropped)."""
+    per_block = meta.lanes_per_block * meta.elems_per_word
+    lo = start * per_block
+    m = max(0, min(lo + lanes.shape[0] * per_block, meta.n_elems) - lo)
+    x.view(-1)[lo:lo + m].copy_(lanes.reshape(-1).view(x.dtype)[:m])
 
 
 def from_lanes(lanes: torch.Tensor, meta: BlockMeta) -> torch.Tensor:

@@ -555,54 +555,76 @@ class RedundancyEngine:
         """Bounded patrol probe over one leaf (the scrub patroller's core).
 
         Returns ``fn(leaf, r, start)``, which checksums the ``window``
-        blocks at ``[start, start + window)`` and compares them against the
-        stored per-block checksums, exactly like :meth:`scrub` but over a
-        bounded slab: the per-tick byte budget is ``window *
-        meta.bytes_per_block``.  Outputs, machine-local (``k == 1``):
+        blocks at ``[start, start + window)`` of every shard and compares
+        them against the stored per-block checksums, exactly like
+        :meth:`scrub` but over a bounded slab: the per-tick byte budget is
+        ``window * meta.bytes_per_block`` a shard.  Outputs (dim 0 the
+        shard, ``k == 1`` machine-local):
 
-        * ``mism``  bool ``(1, window)``: clean and mismatching (corrupt),
-        * ``clean`` bool ``(1, window)``: outside the vulnerability window
-          and inside the block range (the comparison is meaningful).
+        * ``mism``  bool ``(k, window)``: clean and mismatching (corrupt),
+        * ``clean`` bool ``(k, window)``: outside the vulnerability window
+          and inside the block range (the comparison is meaningful),
+        * ``slab``  int32 ``(k, window, L)`` (only with ``want_slab``):
+          the raw lanes the checksums read, for the caller to fold
+          cross-shard parity from the same pass.
 
-        Window positions past ``n_blocks`` are reported not clean.  On the
-        card the window's fresh checksums are one launch of the checksum
-        kernel over the window's lanes with ``block_offset=start``; the
-        lanes are a row slice of the leaf's own memory
-        (:func:`~repro_torch.core.blocks.window_lanes`), padded only where
-        the window holds a partial last block.  Nothing here waits for the
-        device.  ``want_slab`` (the raw lanes, for cross-shard parity) is
-        not ported.
+        Window positions past ``n_blocks`` are reported not clean (and
+        their slab rows repeat the last block, as the reference clamps).
+        On the card the window's fresh checksums are one launch of the
+        checksum kernel over every shard with ``block_offset=start``; the
+        lanes (:func:`~repro_torch.core.blocks.shard_window_lanes`) are the
+        leaf's own memory for row-range shards (the kernel steps from one
+        shard's window to the next), a copy of the window alone, ``k *
+        window`` blocks, where the shards are strided or the window holds
+        a partial last block.  The slab is those lanes: a view of a leaf
+        the foreground rewrites in place, so a caller reads it on this
+        stream, before the next write.  Nothing here waits for the device.
         """
-        if self.mesh is not None:
-            raise NotImplementedError(
-                "the patrol probe of a sharded store is not ported yet: "
-                "ROADMAP.md, Queue 1 item 11.4 (xpar and shard rebuild)")
-        if want_slab:
-            raise NotImplementedError(
-                "the probe's slab feeds cross-shard parity, which is not ported "
-                "yet: ROADMAP.md, Queue 1 item 11.4 (xpar and shard rebuild)")
         meta = self.metas[name]
-        nb = meta.n_blocks
+        nb, L = meta.n_blocks, meta.lanes_per_block
+        k = self.shard_factor(name)
+        nw = meta.n_dirty_words
 
         def fn(leaf: torch.Tensor, r: LeafRedundancy, start: int):
-            if leaf.device != self.device:
-                raise ValueError(f"leaf {name!r} lies on {leaf.device}, the "
-                                 f"engine on {self.device}")
+            leaf = self._leaf({name: leaf}, name)
             start = int(start)
             n = max(0, min(window, nb - start))
-            fresh = checksum.block_checksums(
-                blocks.window_lanes(leaf, meta, start, n), block_offset=start)
+            lanes = blocks.shard_window_lanes(leaf, meta, self._splits[name], start, n)
+            fresh = checksum.block_checksums(lanes, block_offset=start).view(k, n)
             w0, w1 = start // bits.WORD_BITS, -(-(start + n) // bits.WORD_BITS)
-            live = bits.unpack(r.dirty[w0:w1] | r.shadow[w0:w1],
-                               (w1 - w0) * bits.WORD_BITS)
+            live_w = r.dirty.view(k, nw)[:, w0:w1] | r.shadow.view(k, nw)[:, w0:w1]
             off = start - w0 * bits.WORD_BITS
-            clean = ~live[off:off + n]
-            mism = clean & (fresh != r.checksums[start:start + n])
+            live = bits.unpack_rows(live_w, k, (w1 - w0) * bits.WORD_BITS)
+            clean = ~live[:, off:off + n]
+            mism = clean & (fresh != r.checksums.view(k, nb)[:, start:start + n])
             if n < window:
-                pad = torch.zeros((window - n,), dtype=torch.bool, device=leaf.device)
-                clean, mism = torch.cat([clean, pad]), torch.cat([mism, pad])
-            return mism.reshape(1, window), clean.reshape(1, window)
+                pad = torch.zeros((k, window - n), dtype=torch.bool, device=leaf.device)
+                clean, mism = torch.cat([clean, pad], 1), torch.cat([mism, pad], 1)
+            if not want_slab:
+                return mism, clean
+            if n < window:
+                last = blocks.shard_window_lanes(leaf, meta, self._splits[name], nb - 1, 1)
+                lanes = torch.cat([lanes, last.expand(k, window - n, L)], 1)
+            return mism, clean, lanes
 
+        return fn
+
+    def live_words_fn(self, name: str) -> Callable:
+        """``fn(r) -> dirty | shadow`` for one leaf: the patroller's
+        per-tick write sample (every shard's packed words, shard after
+        shard)."""
+        def fn(r: LeafRedundancy) -> torch.Tensor:
+            return r.dirty | r.shadow
+        return fn
+
+    def shard_lanes_fn(self, name: str) -> Callable:
+        """``fn(leaf) -> int32 (k, n_blocks, L)``: every shard's lane view
+        (:meth:`lanes_by_shard`, a view of the leaf for exact row-range
+        shards), the cross-shard parity primitive: XOR-folding it over dim
+        0 gives one parity row per local block covering the same-indexed
+        block of every shard.  ``(1, n_blocks, L)`` machine-local."""
+        def fn(leaf: torch.Tensor) -> torch.Tensor:
+            return self.lanes_by_shard(self._leaf({name: leaf}, name), name)
         return fn
 
     def verify_meta(self, red: RedundancyState) -> Dict[str, torch.Tensor]:

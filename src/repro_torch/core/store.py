@@ -51,6 +51,7 @@ import fnmatch
 import os
 import statistics
 import time
+import weakref
 from typing import Any, Callable, Dict, List, Mapping, Optional, Tuple, Union
 
 import numpy as np
@@ -131,11 +132,14 @@ class RedundancyPolicy:
     # is repaired from parity at ``patrol_repair_per_tick`` blocks a tick.
     # Probes run on quiet ticks, and after ``patrol_max_starved_ticks``
     # consecutive probe-less ticks on a busy one too (0 disables the floor;
-    # ``TickReport.patrol_starved_ticks`` shows the streak).  The reference's
-    # ``rebuild_bytes_per_tick``, ``shard_loss_threshold`` and
-    # ``shard_loss_min_blocks`` pace and trigger its online shard rebuild,
-    # which machine-local stores never start (ROADMAP.md, Queue 1 item
-    # 11.4); they are accepted with the reference's defaults.
+    # ``TickReport.patrol_starved_ticks`` shows the streak).  A sharded
+    # store's patroller also keeps cross-shard parity of each dim0-sharded
+    # leaf and rebuilds a lost shard from it, paced at
+    # ``rebuild_bytes_per_tick`` (0 = 4x the patrol budget); a probe window
+    # whose mismatches on one shard reach ``shard_loss_threshold`` of its
+    # clean blocks (and at least ``shard_loss_min_blocks``) declares that
+    # shard lost.  Priority: foreground writes > due redundancy ticks >
+    # rebuild > patrol.
     patrol_bytes_per_tick: int = 0
     patrol_repair_per_tick: int = 1
     patrol_max_starved_ticks: int = 32
@@ -252,8 +256,9 @@ class TickReport:
     patrol_starved_ticks: int = 0
     repaired: Dict[str, torch.Tensor] = dataclasses.field(default_factory=dict)
     unrecoverable: Tuple[Any, ...] = ()
-    # The reference's active shard rebuild and remesh migration: always
-    # None here (ROADMAP.md, Queue 1 items 11.4 and 11.5).
+    # The active shard rebuild's repro_torch.scrub.RebuildStatus (None = no
+    # rebuild running).  The reference's remesh migration: always None here
+    # (ROADMAP.md, Queue 1 item 11.5).
     rebuild: Optional[Any] = None
     remesh: Optional[Any] = None
     # Health governor (repro_torch.health.HealthReport; None when off).
@@ -347,6 +352,15 @@ class ProtectedStore:
         # Background duties, built by attach when the policy asks.
         self.patroller = None
         self._health = None
+        # Mesh-geometry epoch (cross-shard parity images carry the epoch
+        # they were folded under); a remesh would bump it (ROADMAP.md,
+        # Queue 1 item 11.5), so it stays 0 here.
+        self.geometry_version = 0
+        # Leaves pasted by a settle/flush-time rebuild drain: callers adopt
+        # them via ``take_repaired``.  The paste is in place, so these are
+        # the caller's own tensors: held weakly, they pin no memory the
+        # caller has let go of.
+        self._drained: Dict[str, "weakref.ref[torch.Tensor]"] = {}
 
     # -------------------------------------------------------------- phase hooks
     def add_phase_hook(self, fn: Callable[[str, Dict[str, Any]], None]) -> None:
@@ -391,11 +405,6 @@ class ProtectedStore:
         specs = dict(specs or {})
         if specs and self.mesh is None:
             raise ValueError("specs= needs a store built with mesh=")
-        if self.mesh is not None and self.policy.patrol_bytes_per_tick > 0:
-            raise NotImplementedError(
-                "the scrub patroller of a sharded store (its probe, cross-shard "
-                "parity and shard rebuild) is not ported yet: ROADMAP.md, "
-                "Queue 1 item 11.4 (xpar and shard rebuild)")
         for name, leaf in flat.items():
             dev = getattr(leaf, "device", self.device)
             if torch.device(dev) != self.device:
@@ -828,14 +837,19 @@ class ProtectedStore:
         """Adopt every in-flight update into ``red``.
 
         No new periodic pass is scheduled (that is ``flush``).  With
-        ``leaves``, a mispredicted speculative queued update is repaired at
-        once with the full recompute; without them its blocks stay marked
-        (shadow) for the next pass.  Ticks coalesced behind the in-flight
+        ``leaves``, an active shard rebuild is drained first (its remaining
+        paste windows complete, so a checkpoint taken now never sees a
+        half-pasted shard; adopt the pasted leaves via
+        :meth:`take_repaired`), and a mispredicted speculative queued
+        update is repaired at once with the full recompute; without them
+        its blocks stay marked (shadow) for the next pass.  Ticks coalesced behind the in-flight
         update fold into the next due tick.  ``step`` (``None`` = unknown,
         never step 0) stamps the ``dispatcher_join`` phase.  The returned
         arrays are ordered after the adopted updates on the calling stream.
         """
         out = dict(red)
+        if leaves is not None:
+            leaves = self._drain_background(dict(leaves), out, step=step)
         for g in self._protected():
             if g.pending is None:
                 continue
@@ -887,9 +901,11 @@ class ProtectedStore:
         in-flight blocks' entries, which it masks out.
 
         Then the background duties, when the policy asks for them: the scrub
-        patroller (a probe on quiet ticks, paced repairs; callers adopt
-        ``report.repaired``), and the health governor, which watches each
-        vilamb group's freshness and escalates (``report.health``): a
+        patroller (a probe on quiet ticks, paced repairs, and on a sharded
+        store cross-shard parity and one window a tick of an active shard
+        rebuild; callers adopt ``report.repaired``), and the health
+        governor, which watches each vilamb group's freshness and
+        escalates (``report.health``): a
         wedged in-flight update is abandoned and re-dispatched, a group
         within its deadline margin stops speculating, a CRITICAL breaker
         backpressures ``on_write``, and a group that exhausted its retries
@@ -1058,11 +1074,13 @@ class ProtectedStore:
               step: Optional[int] = None) -> RedundancyState:
         """Battery/preemption flush: force Algorithm 1 on every vilamb group
         now (paper §3.3).  Sync groups are current by construction.  An
-        in-flight update is adopted first, so the result equals the
-        blocking tick's flush bit for bit.  Pass
+        active shard rebuild is drained first (adopt the pasted leaves via
+        :meth:`take_repaired`), then an in-flight update is adopted, so the
+        result equals the blocking tick's flush bit for bit.  Pass
         ``step`` when known so the steps deadline does not fire a spurious
         pass right after the flush."""
         out = dict(red)
+        leaves = self._drain_background(dict(leaves), out, step=step)
         now = time.monotonic()
         info = {} if step is None else {"step": int(step)}
         for g in self._protected():
@@ -1086,12 +1104,35 @@ class ProtectedStore:
             self._phase("flush", red=dict(out), **info)
         return out
 
+    def _drain_background(self, leaves: Dict[str, torch.Tensor],
+                          out: Dict[str, Any], step: Optional[int] = None
+                          ) -> Dict[str, torch.Tensor]:
+        """Run an active shard rebuild to completion, synchronously —
+        settle and flush call this before adopting, so a checkpoint taken
+        mid-rebuild never persists a half-pasted shard.  Mutates ``out``
+        (dirty marks) and returns the leaves; the pasted leaves (the
+        caller's own tensors, written in place) are also held, weakly, for
+        :meth:`take_repaired`.  ``step`` stays None when the caller gave
+        none (the crash phases then fill in their own).  The reference's
+        remesh half of this drain is ROADMAP.md, Queue 1 item 11.5."""
+        pat = self.patroller
+        if pat is not None and pat.rebuild is not None:
+            rep = TickReport(step=0 if step is None else int(step))
+            pat.drain_rebuild(leaves, out, rep, step)
+            leaves.update(rep.repaired)
+            self._drained.update(
+                {n: weakref.ref(t) for n, t in rep.repaired.items()})
+        return leaves
+
     def take_repaired(self) -> Dict[str, torch.Tensor]:
-        """Leaves replaced by a background drain since the last call.  The
-        reference's drains are its shard rebuild and remesh (ROADMAP.md,
-        Queue 1 items 11.4 and 11.5); the port runs neither, so none (the
-        patroller's repairs come back on ``TickReport.repaired``)."""
-        return {}
+        """Leaves pasted by a settle/flush-time rebuild drain since the last
+        call.  Callers that settle or flush mid-rebuild adopt these (the
+        port pastes in place, so they are the caller's own tensors, and a
+        leaf the caller has since let go of is left out; the patroller's
+        repairs during ticks come back on ``TickReport.repaired``)."""
+        held, self._drained = self._drained, {}
+        out = {n: r() for n, r in held.items()}
+        return {n: t for n, t in out.items() if t is not None}
 
     def redundancy_step(self, leaves: Mapping[str, torch.Tensor],
                         red: RedundancyState) -> RedundancyState:
@@ -1202,9 +1243,19 @@ class ProtectedStore:
     def declare_shard_lost(self, name: str, shard: int,
                            red: Optional[RedundancyState] = None) -> None:
         """Tell the patroller a shard of ``name`` is lost (operator signal).
-        Needs the patroller (``patrol_bytes_per_tick > 0``).  A
-        machine-local store has no cross-shard parity to rebuild from, so
-        the patroller raises the reference's ``ValueError``."""
+
+        The patroller normally detects wholesale shard corruption from its
+        own probes (``shard_loss_threshold``); this is the explicit path
+        for known losses (a device dropped out).  Needs the patroller
+        (``patrol_bytes_per_tick > 0``); the rebuild starts on the next
+        ``tick``.  Pass the current ``red`` when it is in hand: its
+        ``dirty | shadow`` marks snapshot which blocks had writes in flight
+        at the declaration (their data died with the shard: reported
+        unrecoverable), so foreground writes landing after it still count
+        as fresh.  A leaf with no cross-shard parity (machine-local, or
+        not dim0-sharded) raises the reference's ``ValueError``; a second
+        shard of a leaf still rebuilding raises
+        :class:`~repro_torch.scrub.ShardLossConflictError`."""
         if self.patroller is None:
             raise RuntimeError(
                 "declare_shard_lost needs the scrub patroller "

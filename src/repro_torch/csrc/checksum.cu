@@ -10,7 +10,10 @@
 // A sharded leaf's (k, n_blocks, L) lane view takes one launch: the grid's
 // y index is the shard, and each shard salts by its local block index, as
 // the reference's per-shard program does; out is the k shards' checksums,
-// shard after shard.
+// shard after shard.  Shard s starts `shard_stride` lanes after shard s-1:
+// n_blocks * L for a whole leaf, more for a patrol window of row-range
+// shards (blocks [start, start + w) of every shard, read in place from the
+// leaf: the window's shards lie a whole shard apart).
 //
 // Bound: bytes.  It reads every lane once and writes 4 bytes per block:
 // (n_blocks * L * 4 + n_blocks * 4) / 3.35 TB/s on an H100 SXM — about
@@ -36,10 +39,11 @@ namespace vilamb {
 template <bool kSharded>
 __global__ void __launch_bounds__(kThreads)
 checksum_kernel(const uint4* __restrict__ lanes, uint32_t* __restrict__ out,
-                int64_t n_blocks, int64_t l4, uint32_t block_offset) {
+                int64_t n_blocks, int64_t l4, uint32_t block_offset,
+                int64_t stride4) {
   __shared__ uint32_t smem[kWarps];
   if (kSharded) {                                   // this CTA's shard
-    lanes += int64_t(blockIdx.y) * n_blocks * l4;
+    lanes += int64_t(blockIdx.y) * stride4;
     out += int64_t(blockIdx.y) * n_blocks;
   }
   for (int64_t b = blockIdx.x; b < n_blocks; b += gridDim.x) {
@@ -56,18 +60,21 @@ checksum_kernel(const uint4* __restrict__ lanes, uint32_t* __restrict__ out,
 
 }  // namespace vilamb
 
-// lanes: uint32[shards, n_blocks, L] (16-byte aligned, L % 4 == 0);
-// out: uint32[shards * n_blocks].  At most 65,535 shards (the grid's y).
+// lanes: uint32[shards, n_blocks, L], each shard's (n_blocks, L) rows
+// contiguous and `shard_stride` lanes after the previous shard's (16-byte
+// aligned, L % 4 == 0, shard_stride % 4 == 0); out: uint32[shards *
+// n_blocks].  At most 65,535 shards (the grid's y).
 extern "C" int vilamb_checksum(const void* lanes, void* out, int64_t n_blocks,
                                int64_t lanes_per_block, int64_t block_offset,
-                               int64_t shards, void* stream) {
-  if (shards < 1 || shards > 65535) return static_cast<int>(cudaErrorInvalidValue);
+                               int64_t shards, int64_t shard_stride, void* stream) {
+  if (shards < 1 || shards > 65535 || shard_stride % 4)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (n_blocks > 0) {
     const dim3 grid(vilamb::grid_for(n_blocks), static_cast<unsigned>(shards));
     auto kernel = shards > 1 ? vilamb::checksum_kernel<true> : vilamb::checksum_kernel<false>;
     kernel<<<grid, vilamb::kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const uint4*>(lanes), static_cast<uint32_t*>(out), n_blocks,
-        lanes_per_block / 4, static_cast<uint32_t>(block_offset));
+        lanes_per_block / 4, static_cast<uint32_t>(block_offset), shard_stride / 4);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -18,12 +18,14 @@ the port's store:
   :mod:`repro_torch.core.mttdl`.
 
 Sharded stores are covered too: specs, windows and injections in global
-block space.  The reference's chaos soak (``repro.faults.chaos``) needs
-shard rebuild and remesh: ROADMAP.md, Queue 1 items 11.4 and 11.5.
+block space, and ``shard_loss`` of a whole shard, which the patroller
+rebuilds from cross-shard parity.  The reference's chaos soak
+(``repro.faults.chaos``) needs remesh: ROADMAP.md, Queue 1 item 11.5.
 
 ``python -m repro_torch.faults --smoke`` runs the battery (crash sweep,
 crash plus corruption, oracle over several seeds, the scrub patroller's
-detection on a settled store, the sharded oracle and crash subset).
+detection on a settled store, the sharded oracle, crash subset and shard
+rebuild).
 """
 from .inject import FAULT_KINDS, FaultInjector, FaultSpec, apply_fault
 from .crashpoints import (CRASH_PHASES, CrashOutcome, CrashPlan,

@@ -20,13 +20,14 @@ cpu`` is given.  Seeded, deterministic passes:
    simulated (2, 2, 2) mesh, every shard on the battery's one device; the
    oracle over global block geometry (several shards hit), then the crash
    subset (dispatch, coalesce, adopt, adopt_forced, the batched launch and
-   the wait for it, flush).  The reference's sharded process needs forced
-   host devices; the port runs the pass in this process (``--no-sharded``
-   skips it, ``--sharded-child`` runs it alone).  Its last case, a shard
-   rebuilt from cross-shard parity, prints a line naming the ROADMAP.md
-   item that owns it.
+   the wait for it, flush), then a shard wiped wholesale and rebuilt
+   bitwise from the patroller's cross-shard parity while the store keeps
+   ticking.  The reference's sharded process needs forced host devices;
+   the port runs the pass in this process (``--no-sharded`` skips it,
+   ``--sharded-child`` runs it alone).
 
-The reference's ``--chaos`` soak is not ported and raises.
+The reference's ``--chaos`` soak needs remesh (ROADMAP.md, Queue 1 item
+11.5) and raises.
 
 Exit status 1 on any violation.
 """
@@ -56,11 +57,8 @@ REQUIRED_PHASES = ("dispatch", "coalesce", "adopt", "adopt_forced",
                    "dispatcher_enqueue", "dispatcher_join",
                    "on_write", "tick", "flush")
 
-REBUILD_NOT_PORTED = ("not ported, ROADMAP.md, Queue 1 item 11.4 (xpar and "
-                      "shard rebuild)")
-CHAOS_REFUSAL = ("the chaos soak needs shard rebuild and remesh, which are "
-                 "not ported yet: ROADMAP.md, Queue 1 items 11.4 (xpar and "
-                 "shard rebuild) and 11.5 (remesh)")
+CHAOS_REFUSAL = ("the chaos soak needs remesh, which is not ported yet: "
+                 "ROADMAP.md, Queue 1 item 11.5 (remesh)")
 
 
 def _make_leaves(device):
@@ -232,8 +230,9 @@ def patrol_pass(device, seed: int, steps: int) -> int:
 
 
 def sharded_child(device, seed: int, steps: int) -> int:
-    """The sharded battery: the oracle over global block geometry, then
-    the crash subset, on a store over a simulated (2, 2, 2) mesh."""
+    """The sharded battery: the oracle over global block geometry, the
+    crash subset and the shard rebuild, on a store over a simulated (2, 2,
+    2) mesh."""
     mesh = make_mesh((2, 2, 2), ("pod", "data", "model"), device=device)
     specs = {"w": P(("pod", "data", "model"), None)}
 
@@ -293,8 +292,68 @@ def sharded_child(device, seed: int, steps: int) -> int:
                   f"{out.classification} {'OK' if out.ok else 'FAIL'}")
             fails += 0 if out.ok else 1
     # -- wholesale shard loss: the online rebuild from cross-shard parity --
-    print(f"  sharded shard-loss rebuild seed={seed}: {REBUILD_NOT_PORTED}")
+    fails += sharded_rebuild_case(device, seed, mesh, specs)
     return fails
+
+
+def sharded_rebuild_case(device, seed: int, mesh, specs) -> int:
+    """One shard wiped wholesale must rebuild bitwise from the patroller's
+    cross-shard parity while the store keeps ticking (no restore)."""
+    pol = RedundancyPolicy.single(
+        "vilamb", period_steps=2, lanes_per_block=128, async_tick=True,
+        patrol_bytes_per_tick=32 * 128 * 4, precompile=False)
+    w = np.random.default_rng(seed).standard_normal((64, 2048)).astype(np.float32)
+    leaves = {"w": torch.from_numpy(w).to(device)}
+    store = ProtectedStore(pol, mesh=mesh).attach(leaves, specs={"w": specs["w"]})
+    red = store.init(leaves)
+    rng = np.random.default_rng(seed)
+    step = 0
+    for _ in range(3):
+        rows = rng.choice(64, size=4, replace=False)
+        idx = torch.as_tensor(np.sort(rows), device=device)
+        w = leaves["w"].clone()
+        w[idx] += 0.5
+        leaves = dict(leaves, w=w)
+        ev = torch.zeros((64,), dtype=torch.bool, device=device).index_fill_(0, idx, True)
+        red = store.on_write(red, events={"w": ev})
+        red, _ = store.tick(leaves, red, step)
+        step += 1
+    red = store.flush(leaves, red, step)
+    pat = store.patroller
+    for _ in range(48):          # quiet sweeps until xpar covers the leaf
+        red, _ = store.tick(leaves, red, step, scrub_period=0)
+        step += 1
+        xp = pat.xpar.get("w")
+        # Probes racing the warm writes fail adoption (their slabs saw
+        # live rows), so sweep counts under-promise: wait for coverage.
+        if xp is not None and bool(xp.xvalid.all()):
+            break
+    else:
+        print(f"  sharded shard-loss rebuild seed={seed}: xpar never "
+              "covered the leaf FAIL")
+        return 1
+    expected = leaves["w"].clone()
+    lost = 3
+    leaves, red = store.inject(leaves, red, FaultSpec(
+        kind="shard_loss", leaf="w", block=lost))
+    store.declare_shard_lost("w", lost, red)
+    status = None
+    for _ in range(32):
+        red, rep = store.tick(leaves, red, step, scrub_period=0)
+        step += 1
+        if rep.repaired:
+            leaves = dict(leaves, **rep.repaired)
+        if rep.rebuild is not None and rep.rebuild.done:
+            status = rep.rebuild
+            break
+    red = store.flush(leaves, red, step)
+    clean = store.scrub_check(leaves, red) == 0
+    bitwise = torch.equal(leaves["w"].view(torch.int32), expected.view(torch.int32))
+    ok = (status is not None and status.lost == 0 and clean and bitwise)
+    print(f"  sharded shard-loss rebuild seed={seed}: "
+          f"status={status} clean={clean} bitwise={bitwise} "
+          f"{'OK' if ok else 'FAIL'}")
+    return 0 if ok else 1
 
 
 def main(argv=None) -> int:
@@ -308,7 +367,7 @@ def main(argv=None) -> int:
     p.add_argument("--no-sharded", action="store_true",
                    help="skip the sharded battery")
     p.add_argument("--chaos", action="store_true",
-                   help="the reference's chaos soak (not ported: raises)")
+                   help="the reference's chaos soak (needs remesh: raises)")
     p.add_argument("--sharded-child", action="store_true",
                    help="run only the sharded battery (seed = --seeds)")
     p.add_argument("--chaos-child", action="store_true",

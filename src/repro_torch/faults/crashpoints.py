@@ -53,9 +53,9 @@ from .oracle import vulnerability_window
 # batched update of every due group is about to be launched (pre-swap live
 # view); "dispatch" = per due group, right after the launch (post-swap live
 # view); "dispatcher_join" = a settle/flush/deadline path is about to wait
-# for an update.  "rebuild_paste" and "remesh_migrate" are the reference's
-# shard-rebuild and remesh phases (ROADMAP.md, Queue 1 items 11.4 and
-# 11.5): the port never fires them.
+# for an update; "rebuild_paste" = one shard-rebuild paste window landed.
+# "remesh_migrate" is the reference's remesh phase (ROADMAP.md, Queue 1
+# item 11.5): the port never fires it.
 CRASH_PHASES = ("init", "on_write", "dispatcher_enqueue", "dispatch",
                 "coalesce", "dispatcher_join", "adopt", "adopt_forced",
                 "blocking_update", "scrub", "tick", "flush",

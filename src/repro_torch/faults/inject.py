@@ -356,7 +356,6 @@ def bits_to_mask(words: np.ndarray, n_bits: int, shards: int = 1) -> np.ndarray:
     ``shards > 1``: ``words`` concatenates one bitvector per shard; the
     result is the global block-space mask of length ``shards * n_bits``.
     """
-    shifts = np.arange(32, dtype=np.uint32)
-    w = np.asarray(words).view(np.uint32).reshape(shards, -1)
-    m = ((w[:, :, None] >> shifts[None, None, :]) & 1).astype(bool)
-    return m.reshape(shards, -1)[:, :n_bits].reshape(-1)
+    w = np.ascontiguousarray(np.asarray(words).view(np.uint32), dtype="<u4")
+    m = np.unpackbits(w.reshape(shards, -1).view(np.uint8), axis=1, bitorder="little")
+    return m.view(bool)[:, :n_bits].reshape(-1)

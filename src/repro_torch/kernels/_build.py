@@ -28,8 +28,9 @@ LIB_NAME = "libvilamb.so"
 
 _P, _I, _D = ctypes.c_void_p, ctypes.c_int64, ctypes.c_double
 _SIGNATURES = {
-    # lanes, out, blocks a shard, L, block offset, shards, stream.
-    "vilamb_checksum": (_P, _P, _I, _I, _I, _I, _P),
+    # lanes, out, blocks a shard, L, block offset, shards, lanes from one
+    # shard to the next, stream.
+    "vilamb_checksum": (_P, _P, _I, _I, _I, _I, _I, _P),
     # lanes, parity, blocks a shard, L, stripe, shards, stream.
     "vilamb_parity": (_P, _P, _I, _I, _I, _I, _P),
     # descriptors, n_jobs, total items, items a grab, stripe, tile columns,
@@ -137,16 +138,26 @@ def stream_handle(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def require_lanes(lanes: torch.Tensor, kernel: str) -> None:
-    """Validate a lane view for the kernels' 16-byte loads."""
+def require_lanes(lanes: torch.Tensor, kernel: str,
+                  strided_shards: bool = False) -> None:
+    """Validate a lane view for the kernels' 16-byte loads.  With
+    ``strided_shards`` a (shards, n_blocks, L) view need only hold each
+    shard's rows contiguous, the shards a multiple of 4 lanes apart (a
+    window of every shard of a leaf, in place)."""
     if lanes.device.type != "cuda":
         raise ValueError(f"{kernel}: lanes must be a CUDA tensor, got {lanes.device}")
     if lanes.dtype != torch.int32 or lanes.dim() not in (2, 3):
         raise ValueError(f"{kernel}: want an int32 (n_blocks, L) or (shards, "
                          f"n_blocks, L) lane view, got "
                          f"{lanes.dtype} {tuple(lanes.shape)}")
-    if not lanes.is_contiguous():
-        raise ValueError(f"{kernel}: lane view must be contiguous")
+    if strided_shards and lanes.dim() == 3:
+        ok = (lanes[0].is_contiguous() and lanes.stride(0) % 4 == 0
+              and (lanes.shape[0] == 1 or lanes.stride(0) >= lanes[0].numel()))
+    else:
+        ok = lanes.is_contiguous()
+    if not ok:
+        raise ValueError(f"{kernel}: lane view must be contiguous"
+                         + (" within each shard" if strided_shards else ""))
     if lanes.shape[-1] % 4 or lanes.data_ptr() % 16:
         raise ValueError(f"{kernel}: L must be a multiple of 4 and the view "
                          "16-byte aligned")

@@ -702,14 +702,15 @@ def test_phase_hooks_skip_under_compile():
 # ------------------------------------------------------------ the battery
 def test_battery_cli_passes(capsys):
     """``python -m repro_torch.faults --smoke --device cpu``: passes 1-5
-    pass; the sharded pass's rebuild case, not ported, prints the item
-    owning it."""
+    pass, the sharded pass's shard rebuild included (held against the
+    reference's line in ``test_battery_sharded_pass_prints_reference_lines``)."""
     assert cli.main(["--smoke", "--device", "cpu"]) == 0
     out = capsys.readouterr().out
     assert "26 crash points, outcomes={'recovered_bitwise': 26}" in out
     assert out.count("  oracle seed=") == 3 and "FAIL" not in out
     assert out.count("patrol seed=") == 1
-    assert "Queue 1 item 11.3" not in out and "Queue 1 item 11.4" in out
+    assert "Queue 1 item" not in out and "not ported" not in out
+    assert out.count("sharded shard-loss rebuild seed=0: status=RebuildStatus(") == 1
     assert out.count("sharded crash @") == 7 and "sharded oracle seed=0" in out
     assert "fault battery OK" in out
 
@@ -735,17 +736,18 @@ def test_battery_patrol_pass_equals_reference(capsys, monkeypatch, seed):
 
 @pytest.mark.parametrize("flag", ["--chaos", "--chaos-child", "--sharded-child"])
 def test_battery_cli_refuses_what_is_not_ported(flag, capsys):
-    """The chaos soak raises, naming the items that own it (11.4, 11.5);
-    ``--sharded-child``, ported, runs the sharded battery alone and passes."""
+    """The chaos soak raises, naming the item that owns it (11.5, remesh;
+    shard rebuild, 11.4, is ported); ``--sharded-child``, ported, runs the
+    sharded battery alone and passes."""
     if flag == "--sharded-child":
         assert cli.main([flag, "--seeds", "0", "--device", "cpu"]) == 0
         out = capsys.readouterr().out
         assert "sharded oracle seed=0" in out and "FAIL" not in out
         assert "fault battery" not in out
         return
-    with pytest.raises(NotImplementedError, match="Queue 1 items 11.4") as e:
+    with pytest.raises(NotImplementedError, match="Queue 1 item 11.5") as e:
         cli.main([flag, "--device", "cpu"])
-    assert "11.5" in str(e.value) and "11.3" not in str(e.value)
+    assert "11.4" not in str(e.value) and "11.3" not in str(e.value)
 
 
 # ------------------------------------------------- mesh-sharded coverage
@@ -802,15 +804,14 @@ with tempfile.TemporaryDirectory() as tmp:
     OUT["c/fired"] = np.asarray([f"{p}#{o}" for p, o in machine.enumerate_phases()])
 
 # The CLI's sharded pass: the reference's sharded_child, its printed oracle
-# line and its crash workload's fired points (the replays and the rebuild
-# case are the reference's own tests' business).
+# and shard-rebuild lines and its crash workload's fired points (the
+# replays are the reference's own tests' business).
 fired = []
 class Enumerate(jcli.CrashPointMachine):
     def enumerate_phases(self):
         fired.extend(super().enumerate_phases())
         return []
 jcli.CrashPointMachine = Enumerate
-jcli.sharded_rebuild_case = lambda *a: 0
 buf = io.StringIO()
 with contextlib.redirect_stdout(buf):
     assert jcli.sharded_child(0, 6) == 0
@@ -940,13 +941,13 @@ def test_sharded_crash_points_recover_bitwise(sharded_ref, tmp_path):
 def test_battery_sharded_pass_prints_reference_lines(sharded_ref, capsys):
     """The CLI's sharded pass prints the reference's ``sharded_child``
     lines: its oracle line, one crash line for each point the reference
-    would replay (all recovered bit for bit), and, for the rebuild case,
-    a not-ported line naming item 11.4."""
+    would replay (all recovered bit for bit), and the shard-rebuild case's
+    line (its ``RebuildStatus``, clean, bitwise, OK)."""
     ref = sharded_ref
     assert cli.sharded_child(torch.device("cpu"), 0, 6) == 0
     got = capsys.readouterr().out.splitlines()
     want = str(ref["cli/out"]).splitlines()
-    assert len(want) == 1 and got[0] == want[0], (got, want)
+    assert len(want) == 2 and got[0] == want[0], (got, want)
     fired = [tuple(x.rsplit("#", 1)) for x in ref["cli/fired"].tolist()]
     labels = []
     for ph in ("dispatch", "coalesce", "adopt", "adopt_forced",
@@ -955,5 +956,4 @@ def test_battery_sharded_pass_prints_reference_lines(sharded_ref, capsys):
         if occ:
             labels.append(f"  sharded crash @{ph}#{occ[-1]}: recovered_bitwise OK")
     assert got[1:-1] == labels
-    assert got[-1] == ("  sharded shard-loss rebuild seed=0: not ported, ROADMAP.md, "
-                       "Queue 1 item 11.4 (xpar and shard rebuild)")
+    assert got[-1] == want[-1] and want[-1].endswith(" OK"), (got[-1], want[-1])

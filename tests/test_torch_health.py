@@ -11,7 +11,9 @@ alike (``store._ready``; the reference's inline resolution, so no resolver
 thread decides it).  ``backoff_delay``/``backoff_schedule`` give the
 reference's floats exactly, jitter draws included.  Then the machine-local
 tests of tests/test_health.py, ported (``read_verified``, remesh and the
-chaos soak are ROADMAP.md, Queue 1 items 11.4 and 11.5).
+chaos soak are ROADMAP.md, Queue 1 item 11.5; a live rebuild's
+``rebuild_active`` is held against the reference in
+tests/test_torch_rebuild.py).
 """
 import random
 import time

@@ -14,7 +14,8 @@ checksum flip, which the patroller flags, rebuilds to the same bytes and
 re-detects until ``MAX_REPAIR_ATTEMPTS``, then reports as a vulnerable
 stripe, in both packages alike.  Then the machine-local tests of
 tests/test_scrub.py and the patrol case of tests/test_dispatcher.py,
-ported (the sharded ones are ROADMAP.md, Queue 1 item 11.4).
+ported (the sharded ones, cross-shard parity and the shard rebuild, are
+held against the reference in tests/test_torch_rebuild.py).
 """
 import dataclasses
 import math
@@ -122,8 +123,19 @@ def test_verify_window_equals_reference():
                                               err_msg=f"w={w} start={start}")
     got = fn(lv["w"], red["w"], nb - 8)[0].numpy()
     assert got[0, 37 - (nb - 8)], "the corrupted block in the padded window"
-    with pytest.raises(NotImplementedError, match="11.4"):
-        store.engine_for("w").verify_window_fn("w", 8, want_slab=True)
+    # With the slab (the lanes cross-shard parity folds), past the leaf's
+    # end too: the reference repeats the last block there.
+    for w in (8, nb + 3):
+        fn = store.engine_for("w").verify_window_fn("w", w, want_slab=True)
+        jfn = jstore.engine_for("w").verify_window_fn("w", w, want_slab=True)
+        for start in sorted({0, 5, max(0, nb - 8)}):
+            got = fn(lv["w"], red["w"], start)
+            want = jfn(jlv["w"], jred["w"], jnp.int32(start))
+            assert len(got) == len(want) == 3
+            for g, x in zip(got, want):
+                np.testing.assert_array_equal(g.numpy().view(np.asarray(x).dtype),
+                                              np.asarray(x),
+                                              err_msg=f"slab w={w} start={start}")
 
 
 def _drive_patrol(make, write, inject, spec_cls, steps, faults, rng_seed=3):

@@ -169,7 +169,7 @@ def test_probe_never_waits_for_a_held_update_on_card(cuda_device):
     assert rep.patrolled == ("heap",), rep
     assert not pending.done.query(), "the probe tick waited for the update"
     assert host_ms < 100, host_ms
-    name, start, w, masks, done, _ = pat._probe
+    name, start, w, masks, done, _, _ = pat._probe
     torch.cuda.synchronize()
     got = masks.clone()
     mism, clean = store.engine_for("heap").verify_window_fn("heap", w)(

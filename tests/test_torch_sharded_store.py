@@ -328,19 +328,21 @@ def test_each_shard_equals_a_machine_local_store(ref):
 
 
 def test_sharded_store_refuses_what_is_not_ported(ref):
-    """The patroller of a sharded store (item 11.4) is refused at attach;
-    specs without a mesh and a mesh on another device are refused."""
+    """The patroller of a sharded store (item 11.4, ported) attaches, with
+    cross-shard parity for both dim0-sharded leaves, and the probe runs
+    under the mesh; specs without a mesh and the row fast path under a mesh
+    are refused."""
     pol = RedundancyPolicy.single("vilamb", lanes_per_block=128, precompile=False,
                                   patrol_bytes_per_tick=4096)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11.4"):
-        ProtectedStore(pol, mesh=mesh()).attach(_leaves(ref), specs=SPECS)
+    pstore = ProtectedStore(pol, mesh=mesh()).attach(_leaves(ref), specs=SPECS)
+    assert pstore.patroller is not None and sorted(pstore.patroller.xpar) == ["e", "w"]
     with pytest.raises(ValueError, match="mesh="):
         ProtectedStore(RedundancyPolicy(), device="cpu").attach(_leaves(ref), specs=SPECS)
     store = _store(ref, False)
     red = store.init(_leaves(ref))
     eng = store.engine_for("w")
-    with pytest.raises(NotImplementedError, match="11.4"):
-        eng.verify_window_fn("w", 8)
+    mism, clean = eng.verify_window_fn("w", 8)(_leaves(ref)["w"], red["w"], 0)
+    assert mism.shape == clean.shape == (8, 8) and bool(clean.all()) and not bool(mism.any())
     with pytest.raises(ValueError, match="machine-local"):
         eng.sync_update_rows("w", red["w"], torch.tensor([0]), torch.zeros(1, 2048),
                              torch.ones(1, 2048))
