@@ -224,8 +224,8 @@ Phases, each of which must pass or the script exits non-zero:
    caches alone (1.41 GB, every block dirty every token).  Checked as
    phase 15, the flipped lanes in an mLSTM ``C`` and in sLSTM's ``n`` (a
    padded copy).  Timed as phase 15 (prefill split between mLSTM and
-   sLSTM), plus ``generate`` in turns with each store and without and the
-   due ticks' host ms;
+   sLSTM), plus ``generate`` once with each store and without (blocking,
+   none, overlapped) and the due ticks' host ms;
 17. vlm serving: internvl2-1b at full width and depth (24 layers, d 896,
    14 / 2 heads of 64, d_ff 4,864, vocab 151,655 padded to 153,600;
    633,121,664 random bf16 params) with phase 7's traffic and store, its
@@ -347,7 +347,36 @@ Phases, each of which must pass or the script exits non-zero:
    one shard's window, the quiet ticks' host ms and the write sample's
    share, the reconstruction image, each rebuild tick's host ms and device
    ms (CUDA events), the peak.  Its launches and 23b's are the kernel
-   line's "sharded patrol" path.
+   line's "sharded patrol" path.  23c. Degraded reads, right after the
+   first tick of shard 5's rebuild: ``read_verified`` of 64 blocks of
+   shard 5 no write touched since the loss (half pasted, half still
+   scribbled and rebuilt from the rebuild's image), of 16 rows in flight
+   at the loss (``UnrecoverableReadError``, ``read_timeout`` records at
+   their global ids, 2 attempts, no sleep), of 64 rows written since the
+   loss, and of a block of shard 2 with a flipped lane (rebuilt from its
+   stripe): every row bitwise the heap's; the 64-block read timed on the
+   host clock.  After 23b's ``generate``, ``Server.read_verified`` of 8
+   K-cache blocks, one a shard, equal to the cache.  At the end, phase
+   23's store (it has the sync leaf) refuses a remesh
+   (``RemeshGeometryError``);
+24. elastic remesh: phase 21's heap (8 row-range shards of 262,144
+   blocks) in a store of its own with no sync leaf (vilamb, T=16, deadline
+   32, the overlapped tick, the patroller at 64 MiB a shard, phase 14c's
+   health governor); xpar covers the heap, then a second remesh while one
+   is queued is refused (``RemeshInProgressError``).  Grown (2, 2, 2) ->
+   (2, 2, 4) at 64 MiB a shard a window (16 shards of 131,072 blocks: 8
+   window ticks) with 4,096 random rows written each step: at adoption
+   ``geometry_version`` 1 and a fresh patroller; after a flush every field
+   bitwise a store's attached fresh on (2, 2, 4), a clean scrub and
+   verify_meta.  Shrunk -> (1, 2, 2) (4 shards of 524,288 blocks, 32
+   windows): the deadline's margin expires mid-migration, the governor
+   drains the remaining windows (``remesh_drain``, rung 2) and the
+   adoption happens on that tick; after a flush every field bitwise a
+   fresh (1, 2, 2) store's.  A flush during a third, short migration
+   (back to (2, 2, 2)) drains it.  Timed: each window's K3 (CUDA events)
+   against its bound, each window tick's host ms, the adoption ticks' host
+   ms with the marks' translation's share, the peak and the wall time.
+   Its launches are the kernel line's "remesh" path.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 the per-kernel JSON record.  All data comes from ``--seed``.
@@ -516,6 +545,15 @@ K3_BEFORE = {"heap": 0.5523, "xlstm all-dirty": 0.8963, "jamba all-dirty": 0.491
 MESH_SHAPE, MESH_AXES = (2, 2, 2), ("pod", "data", "model")
 HEAP_SPECS = {"heap": P(("pod", "data", "model"), None), "params": P(("pod", "data"), None)}
 SHARD_ORACLE_FAULTS, SHARD_WINDOW_STEPS = 64, 4
+
+# Phase 23c, degraded reads on phase 23's heap after the first tick of
+# shard 5's rebuild: READ_BLOCKS clean blocks of shard 5 (half pasted, half
+# not yet), READ_PENDING rows in flight at the loss, READ_FRESH rows
+# written since, at READ_RETRY_ATTEMPTS attempts with no sleep.  Phase 24:
+# phase 21's heap remeshed online, grown to GROW_SHAPE and shrunk to
+# SHRINK_SHAPE, at REMESH_BUDGET a shard a window.
+READ_RETRY_ATTEMPTS, READ_BLOCKS, READ_PENDING, READ_FRESH = 2, 64, 16, 64
+GROW_SHAPE, SHRINK_SHAPE, REMESH_BUDGET = (2, 2, 4), (1, 2, 2), 64 << 20
 
 SPIN_CYCLES = 20_000_000               # about 10 ms of one SM's clock
 
@@ -3714,8 +3752,11 @@ def phase_serve_recurrent(g, cfg, n_params_want: int, corrupt: list,
     # final settle every field of the twin's state equals the overlapped one.
     walls = {"async": [], "none": [], "blocking": []}
     host_ticks = {"async": [], "blocking": []}
-    kinds = (("blocking", "none", "async", "async", "none", "blocking") if turns
-             else ("blocking", "none"))
+    # One generate a store (xlstm's turns were two a store, cut so that a
+    # run on a slow host stays well inside the script's time limit): the
+    # store overheads below are single samples in this fixed order, so the
+    # blocking store always runs first after the main path.
+    kinds = ("blocking", "none", "async") if turns else ("blocking", "none")
     leaves = flatten_dict(stats["caches"])
     with torch.inference_mode():
         for i, kind in enumerate(kinds):
@@ -3813,7 +3854,8 @@ def print_serve_recurrent(label: str, r: dict) -> None:
           f"due ticks {r['due_tick_steps']} {[round(x, 2) for x in r['due_tick_ms']]} ms")
     print(f"{label}: generate s {r['generate_s']}; due ticks' host ms (no device sync) "
           f"{r['due_tick_host_ms']}"
-          + (f"; store overhead async {100 * r['store_overhead']:.2f}%, blocking "
+          + (f"; store overhead (one generate each, blocking first) async "
+             f"{100 * r['store_overhead']:.2f}%, blocking "
              f"{100 * r['store_overhead_blocking']:.2f}%" if "store_overhead" in r else ""))
     print(f"{label}: trace of the due tick's decode steps {r['decode_profile_due']}")
     due = r["decode_profile_due"]
@@ -5155,7 +5197,6 @@ def serve_sharded_patrolled(model, params, batch, policy, mesh, shapes, specs,
         wall = time.perf_counter() - t0
     finally:
         blocks.shard_window_lanes = window_lanes
-    launches = read_launches()
     check(torch.equal(toks, tokens7), "tokens differ with the patrolled sharded store")
     check(sum(mism) == 0 and not pat.detections and not pat.unrecoverable,
           f"the patrol flagged {sum(mism)} blocks while serving")
@@ -5163,7 +5204,33 @@ def serve_sharded_patrolled(model, params, batch, policy, mesh, shapes, specs,
     check(staged and all(n <= k * w and not view for n, view in staged)
           and len(staged) == pat.blocks_scanned // w,
           f"probe windows staged {staged[:4]}... for {pat.blocks_scanned} blocks patrolled")
-    check(launches["checksum"] >= len(staged) and launches["flash_attn"] == model.cfg.n_layers,
+    # Phase 23c's cache read: 8 blocks of the K cache, one a shard, through
+    # Server.read_verified, against the cache's own lane rows (one staging
+    # copy of the leaf, no kernel).
+    name = names[0]
+    nb0 = store.metas[name].n_blocks
+    ids = [s_ * nb0 + (s_ * 97 + 13) % nb0 for s_ in range(8)]
+    with torch.inference_mode():
+        store.await_inflight()
+        live = pat.fetch_live_rows(name, stats["red"][name]).reshape(-1)
+        n_clean = int((~live[ids]).sum())          # K1 checks these alone
+        n0 = ck_ops.LAUNCHES
+        t0 = time.perf_counter()
+        got = srv.read_verified(stats["caches"], stats["red"], name, ids)
+        kv_read_ms = (time.perf_counter() - t0) * 1e3
+        kv_read_k1 = ck_ops.LAUNCHES - n0
+        lanes = store.engine_for(name).lanes_by_shard(flatten_dict(stats["caches"])[name], name)
+        want = lanes.reshape(-1, lanes.shape[-1])[torch.as_tensor(ids, device=lanes.device)]
+        want = want.cpu().numpy().view(np.uint32)
+        del lanes
+    check(sorted(got) == sorted(ids) and all((got[b] == want[i]).all()
+                                             for i, b in enumerate(ids)),
+          "Server.read_verified's cache rows differ from the cache")
+    check(kv_read_k1 == n_clean, f"Server.read_verified launched K1 {kv_read_k1} times "
+          f"for {n_clean} blocks outside the window")
+    launches = read_launches()
+    check(launches["checksum"] >= len(staged) + n_clean
+          and launches["flash_attn"] == model.cfg.n_layers,
           f"patrolled sharded serving launches {launches}")
     caches = flatten_dict(stats["caches"])
     meta = store.metas[names[0]]
@@ -5175,7 +5242,9 @@ def serve_sharded_patrolled(model, params, batch, policy, mesh, shapes, specs,
            "staged_blocks_max": max(n for n, _ in staged),
            "window_stage_ms": stage_ms,
            "window_stage_bound_ms": 2 * k * w * meta.bytes_per_block / HBM_BYTES_PER_SEC * 1e3,
-           "launches": launches, "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30}
+           "kv_read_ms": kv_read_ms, "kv_read_blocks": len(ids), "kv_read_k1": kv_read_k1,
+           "launches": launches,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30}
     out["wall_s"] = time.perf_counter() - t_phase
     del store, srv, stats, caches
     return out
@@ -5187,6 +5256,8 @@ def print_serve_sharded_patrolled(r: dict) -> None:
           f"{r['probes']} probes over {r['blocks_patrolled']} blocks, each staging at most "
           f"{r['staged_blocks_max']} blocks (8 x {r['window_blocks']}); a window's "
           f"staging {r['window_stage_ms']:.4f} ms (bound {r['window_stage_bound_ms']:.4f}); "
+          f"Server.read_verified of {r['kv_read_blocks']} K-cache blocks (phase 23c) equal "
+          f"to the cache, {r['kv_read_ms']:.3f} ms of host, {r['kv_read_k1']} K1 launches; "
           f"launches {r['launches']}; peak {r['peak_mem_gb']:.2f} GiB")
 
 
@@ -5246,8 +5317,9 @@ def rebuild_ticks(store, state, red, step: int, g, shard_rows, old, rec: list,
     """Ticks until the active (or queued) shard rebuild is done, each after
     writing rows of ``shard_rows`` (global heap rows, the fresh set; none
     when empty), which ``old`` (the heap's pre-loss tensor) also takes.
-    Records each tick's host ms and its device ms between CUDA events.
-    Returns ``(red, step, status, written rows)``."""
+    Records each tick's host ms and its device ms between CUDA events;
+    ``on_first(red)`` runs after the first tick of the rebuild.  Returns
+    ``(red, step, status, written rows)``."""
     pat = store.patroller
     written = []
     for i in range(4 * 64):
@@ -5267,7 +5339,7 @@ def rebuild_ticks(store, state, red, step: int, g, shard_rows, old, rec: list,
         rec.append({"step": step, "host_ms": host, "events": (a, b),
                     "status": None if rep.rebuild is None else dataclasses.asdict(rep.rebuild)})
         if on_first is not None and pat.rebuild is not None:
-            on_first()
+            on_first(red)
             on_first = None
         if rep.rebuild is not None and rep.rebuild.done:
             torch.cuda.synchronize()
@@ -5277,6 +5349,144 @@ def rebuild_ticks(store, state, red, step: int, g, shard_rows, old, rec: list,
                     r["device_ms"] = x.elapsed_time(y)
             return red, step, rep.rebuild, written
     raise SmokeError("the shard rebuild never finished")
+
+
+def lane_rows(t: torch.Tensor, rows) -> np.ndarray:
+    """uint32 lane rows of the heap's global ``rows`` (one 4 KiB block a
+    row), on the host."""
+    idx = torch.as_tensor(list(rows), device=t.device)
+    return t[idx].view(torch.int32).cpu().numpy().view(np.uint32)
+
+
+def read_breakdown(store, state, red, ids) -> dict:
+    """One ``read_verified`` of ``ids`` with each of its stages (the window
+    bits, the rows with their checksums, the reconstructions) and each K1
+    launch behind a device sync on both sides: host ms a stage (K1 is inside
+    the other two), the rest (``other``: the host's own loop) and the
+    synced read's total."""
+    from repro_torch.core import checksum as ck_mod
+    spent = {"live": 0.0, "rows": 0.0, "candidates": 0.0, "k1": 0.0}
+
+    def timed_call(key, fn):
+        def wrapper(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            spent[key] += (time.perf_counter() - t0) * 1e3
+            return out
+        return wrapper
+
+    k1 = ck_mod.block_checksums
+    for key in ("live", "rows", "candidates"):
+        setattr(store, f"_read_{key}", timed_call(key, getattr(store, f"_read_{key}")))
+    ck_mod.block_checksums = timed_call("k1", k1)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        store.read_verified(state, red, "heap", ids)
+        total = (time.perf_counter() - t0) * 1e3
+    finally:
+        ck_mod.block_checksums = k1
+        for key in ("live", "rows", "candidates"):
+            delattr(store, f"_read_{key}")
+    spent["other"] = total - spent["live"] - spent["rows"] - spent["candidates"]
+    spent["total"] = total
+    return spent
+
+
+def degraded_reads(store, state, red, old, pre_rows, fresh_rows) -> dict:
+    """Phase 23c, right after the first tick of shard 5's rebuild:
+    ``read_verified`` of READ_BLOCKS blocks of shard 5 no write touched
+    since the loss (half already pasted, half still scribbled and so
+    rebuilt from the rebuild's image),
+    READ_PENDING rows in flight at the loss (``UnrecoverableReadError``
+    with ``read_timeout`` records at their global ids), READ_FRESH rows
+    written since the loss (in the window: the current data), and one
+    block of shard 2 with a flipped lane (rebuilt from its stripe; the flip
+    is put back after).  Every row returned equals the heap's known bytes
+    (``old``, the pre-loss heap with the fresh writes) bit for bit.  The
+    first read is timed on the host clock.  Returns the record."""
+    from repro_torch.core import UnrecoverableReadError
+    pat, meta = store.patroller, store.metas["heap"]
+    reb, nb = pat.rebuild, meta.n_blocks
+    check(reb is not None and reb.shard == 5 and 0 < reb.cur < nb,
+          f"phase 23c: the rebuild is not under way ({None if reb is None else reb.status})")
+    heap = state["heap"]
+    taken = set(pre_rows.tolist()) | set(fresh_rows.tolist())
+    rng = np.random.default_rng(2323)
+    live = pat.fetch_live_rows("heap", red["heap"])              # (8, nb), a host wait
+
+    def pick(shard, lo, hi, n, clean=True, stripe_clean=False):
+        out = []
+        for b in rng.permutation(np.arange(lo, hi)):
+            gid = shard * nb + int(b)
+            sid = int(b) // STRIPE
+            if gid in taken or (clean and live[shard, b]) or (
+                    stripe_clean and live[shard, sid * STRIPE:(sid + 1) * STRIPE].any()):
+                continue
+            out.append(gid)
+            if len(out) == n:
+                return out
+        raise SmokeError(f"phase 23c: fewer than {n} clean blocks in [{lo}, {hi})")
+
+    rec: dict = {"pasted_to": int(reb.cur)}
+    # 1. Blocks of shard 5 no write touched since the loss: half pasted (so
+    #    marked dirty by the paste: the current data comes back), half not
+    #    yet (still scribbled: rebuilt from the rebuild's image).
+    ids = (pick(5, 0, reb.cur, READ_BLOCKS // 2, clean=False)
+           + pick(5, reb.cur, nb, READ_BLOCKS // 2))
+    unpasted = ids[READ_BLOCKS // 2:]
+    check(bool((lane_rows(heap, unpasted) != lane_rows(old, unpasted)).any(axis=1).all()),
+          "phase 23c: an unpasted block of shard 5 is not scribbled")
+    n0 = ck_ops.LAUNCHES
+    t0 = time.perf_counter()
+    got = store.read_verified(state, red, "heap", ids)
+    rec["read_ms"] = (time.perf_counter() - t0) * 1e3
+    rec["read_k1_launches"] = ck_ops.LAUNCHES - n0
+    want = lane_rows(old, ids)
+    check(all((got[b] == want[i]).all() for i, b in enumerate(ids)),
+          "phase 23c: shard 5's clean blocks read back other bytes than the heap's")
+    # K1 runs on the blocks outside the window (the unpasted half) and on
+    # their reconstructions from the image: none on the pasted half.
+    check(rec["read_k1_launches"] == READ_BLOCKS,
+          f"phase 23c: {rec['read_k1_launches']} K1 launches for {READ_BLOCKS} blocks, "
+          f"{READ_BLOCKS // 2} of them in the window and {READ_BLOCKS // 2} rebuilt "
+          f"from the image")
+    # The same read again (it writes nothing), then once more with each
+    # stage behind a device sync on both sides: the breakdown.
+    t0 = time.perf_counter()
+    store.read_verified(state, red, "heap", ids)
+    rec["read_again_ms"] = (time.perf_counter() - t0) * 1e3
+    rec["read_breakdown_ms"] = read_breakdown(store, state, red, ids)
+    # 2. Rows in flight at the loss: unrecoverable, never the scribble.
+    pend = [int(r) for r in pre_rows[:READ_PENDING].tolist()]
+    try:
+        store.read_verified(state, red, "heap", pend)
+        raise SmokeError("phase 23c: a read of rows in flight at the loss returned data")
+    except UnrecoverableReadError as e:
+        recs = sorted((r.blocks, r.stripe, r.reason) for r in e.records)
+    check(recs == sorted(((b,), blocks.global_stripe_id(meta, b), "read_timeout")
+                         for b in pend),
+          f"phase 23c: the pending rows' records {recs[:3]}...")
+    # 3. Rows written since the loss: in the window, the current data.
+    ids3 = [int(r) for r in fresh_rows[:READ_FRESH].tolist()]
+    got3 = store.read_verified(state, red, "heap", ids3)
+    want3 = lane_rows(old, ids3)
+    check(all((got3[b] == want3[i]).all() for i, b in enumerate(ids3)),
+          "phase 23c: rows written since the loss read back other bytes")
+    # 4. A flipped lane on shard 2: rebuilt from its stripe.
+    gid = pick(2, 0, nb, 1, stripe_clean=True)[0]
+    flip = torch.tensor(1 << 9, dtype=torch.int32, device=heap.device)
+    heap.view(torch.int32)[gid, 7] ^= flip
+    check(bool((lane_rows(heap, [gid]) != lane_rows(old, [gid])).any()), "the flip did not land")
+    got4 = store.read_verified(state, red, "heap", [gid])
+    heap.view(torch.int32)[gid, 7] ^= flip
+    check(bool((got4[gid] == lane_rows(old, [gid])[0]).all()),
+          "phase 23c: the flipped block of shard 2 was not rebuilt bitwise")
+    rec.update({"blocks": len(ids), "pending": len(pend), "fresh": len(ids3),
+                "flipped_block": gid})
+    return rec
 
 
 def phase_sharded_patrol(g) -> dict:
@@ -5293,7 +5503,8 @@ def phase_sharded_patrol(g) -> dict:
     state = {"heap": torch.randn((N_ROWS, ROW), generator=g, device=dev),
              "params": torch.randn((16384, 1024), generator=g, device=dev)}
     pol = dataclasses.replace(heap_policy(async_tick=True),
-                              patrol_bytes_per_tick=PATROL_BUDGETS[0])
+                              patrol_bytes_per_tick=PATROL_BUDGETS[0],
+                              read_retry_attempts=READ_RETRY_ATTEMPTS)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
@@ -5376,9 +5587,14 @@ def phase_sharded_patrol(g) -> dict:
     check(not torch.equal(state["heap"][5 * R:5 * R + 8], old[5 * R:5 * R + 8]),
           "the shard loss did not land")
 
-    # 4. Ticks with writes into shard 5 (the fresh set) until it is rebuilt.
+    # 4. Ticks with writes into shard 5 (the fresh set) until it is rebuilt;
+    #    after the first, phase 23c's degraded reads.
     ticks5: list = []
-    red, step, st, _ = rebuild_ticks(store, state, red, step, g, fresh, old, ticks5)
+
+    def reads(red_now):
+        rec["reads"] = degraded_reads(store, state, red_now, old, pre_rows, fresh[0])
+    red, step, st, _ = rebuild_ticks(store, state, red, step, g, fresh, old, ticks5,
+                                     on_first=reads)
     lost_ids = sorted(b for u in pat.unrecoverable if u.reason == "shard_loss"
                       for b in u.blocks)
     check(st.shard == 5 and st.ticks == -(-nb // (4 * w)) == 4
@@ -5411,7 +5627,7 @@ def phase_sharded_patrol(g) -> dict:
     del lv
     conflict = []
 
-    def second_loss():
+    def second_loss(red):
         try:
             store.declare_shard_lost("heap", 6, red)
         except ShardLossConflictError as e:
@@ -5428,6 +5644,13 @@ def phase_sharded_patrol(g) -> dict:
           "the heap differs bitwise after shard 2's rebuild")
     rec["found"] = {"status": dataclasses.asdict(st2), "ticks": ticks2}
     del old
+    # Phase 24's first refusal: this store's sync leaf cannot remesh online.
+    from repro_torch.remesh import RemeshGeometryError
+    try:
+        store.remesh(make_mesh(GROW_SHAPE, MESH_AXES, device=dev))
+        check(False, "a store with a sync leaf accepted a remesh")
+    except RemeshGeometryError as e:
+        check("sync" in str(e) and not store.remeshing, f"the sync refusal: {e}")
     torch.cuda.synchronize()
     rec["launches"] = read_launches()
     rec["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 2**30
@@ -5501,6 +5724,16 @@ def print_sharded_patrol(r: dict) -> None:
         print(f"sharded patrol: {label}: {d['status']}; rebuild ticks host ms "
               f"{[round(x['host_ms'], 3) for x in ticks]}, device ms "
               f"{[round(x['device_ms'], 3) for x in ticks]}")
+    rd = r["reads"]
+    print(f"degraded reads (phase 23c, after the first rebuild tick, {rd['pasted_to']} blocks "
+          f"pasted): {rd['blocks']} blocks of shard 5 (half rebuilt from the image) in "
+          f"{rd['read_ms']:.3f} ms of host with {rd['read_k1_launches']} K1 launches "
+          f"(again {rd['read_again_ms']:.3f} ms; stages behind syncs, host ms "
+          f"{({k: round(v, 3) for k, v in rd['read_breakdown_ms'].items()})}); "
+          f"{rd['pending']} rows in flight at the loss raised UnrecoverableReadError "
+          f"(read_timeout); {rd['fresh']} rows written since the loss; shard 2's flipped block "
+          f"{rd['flipped_block']} rebuilt from its stripe; every row bitwise the heap's; a "
+          f"store with a sync leaf refused a remesh (RemeshGeometryError)")
     print(f"sharded patrol: xpar fold {t['fold_ms']:.4f} ms (bound {t['fold_bound_ms']:.4f}); "
           f"probe {t['probe_ms']:.4f} ms (bound {t['probe_bound_ms']:.4f}): K1 over 8 x "
           f"{r['window_blocks']} blocks at the shard stride {t['k1_window_ms']:.4f} ms "
@@ -5509,6 +5742,235 @@ def print_sharded_patrol(r: dict) -> None:
           f"{t['k1_window_plain_ms']:.2f}), slab fold {t['slab_fold_ms']:.4f}; "
           f"reconstruction image {t['recon_ms']:.4f} ms (bound {t['recon_bound_ms']:.4f}); "
           f"a paste window's bound {t['paste_bound_ms']:.4f} ms")
+
+
+def remesh_write(store, state, red, g):
+    """One step of phase 21's heap writes: ROWS_PER_STEP random rows
+    rewritten in place, recorded.  Returns ``red``."""
+    heap = state["heap"]
+    rows = torch.randperm(N_ROWS, generator=g, device=heap.device)[:ROWS_PER_STEP]
+    heap.index_copy_(0, rows, torch.randn((ROWS_PER_STEP, ROW), generator=g,
+                                          device=heap.device))
+    ev = torch.zeros(N_ROWS, dtype=torch.bool, device=heap.device).index_fill_(0, rows, True)
+    return store.on_write(red, events={"heap": ev})
+
+
+def remesh_ticks(store, state, red, step: int, g, k3: list) -> tuple:
+    """Ticks of heap writes until the queued or active migration is
+    adopted.  Each tick's host ms (no device sync), its status and health
+    actions are recorded, and each K3 call between CUDA events, marked
+    ``window`` when a migration window made it (the group loop and the
+    patroller are skipped while a migration runs, so the others are the
+    blocking update after a drain).  A spin queued before the first event
+    keeps the otherwise idle device busy while the host prepares the
+    launch, so the events time the kernel, not the host's enqueue; the
+    device is synchronised after each tick's host time is taken, so the
+    spin never reaches the next tick's.  Returns ``(red, step, ticks)``."""
+    ticks = []
+    launch = fu_ops.fused_update_many
+
+    def timed_k3(jobs, *a, **kw):
+        jobs = list(jobs)
+        a_, b_ = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SPIN_CYCLES)
+        a_.record()
+        out = launch(jobs, *a, **kw)
+        b_.record()
+        k3.append({"events": (a_, b_), "jobs": len(jobs), "tick": len(ticks),
+                   "window": store._remesh is not None})
+        return out
+    while store.remeshing:
+        check(len(ticks) < 64, "the migration was not adopted within 64 ticks")
+        step += 1
+        red = remesh_write(store, state, red, g)
+        fu_ops.fused_update_many = timed_k3
+        try:
+            t0 = time.perf_counter()
+            red, rep = store.tick(state, red, step)
+            host = (time.perf_counter() - t0) * 1e3
+        finally:
+            fu_ops.fused_update_many = launch
+        torch.cuda.synchronize()
+        state.update(rep.repaired)
+        ticks.append({"step": step, "host_ms": host,
+                      "status": None if rep.remesh is None else dataclasses.asdict(rep.remesh),
+                      "actions": [] if rep.health is None else
+                      [(a.group, a.rung, a.kind) for a in rep.health.actions],
+                      "updated": list(rep.updated), "patrolled": list(rep.patrolled)})
+    torch.cuda.synchronize()
+    for r in k3:
+        if "events" in r:
+            x, y = r.pop("events")
+            r["ms"] = x.elapsed_time(y)
+    return red, step, ticks
+
+
+def remesh_fresh_equal(store, state, red, what: str) -> None:
+    """After a flush: every field of the heap's redundancy equals a store
+    attached fresh on the store's (new) mesh over the same heap; the scrub
+    is clean and verify_meta holds."""
+    twin = ProtectedStore(dataclasses.replace(store.policy, patrol_bytes_per_tick=0,
+                                              health=None, precompile=False),
+                          mesh=store.mesh).attach(state, specs=store._specs)
+    with uncounted():
+        tred = twin.init(state)
+        fields_equal(red, tred, what)
+    del twin, tred
+    check(store.scrub_check(state, red) == 0 and all(
+        bool(v) for v in store.verify_meta(red).values()),
+          f"{what}: scrub or verify_meta not clean")
+
+
+def phase_remesh(g) -> dict:
+    """Phase 24: phase 21's heap (8 row-range shards of 262,144 blocks) in a
+    store of its own with no sync leaf (vilamb, T=16, deadline 32, the
+    overlapped tick, the patroller at 64 MiB a shard, phase 14c's health
+    governor): xpar covers the heap; grown (2, 2, 2) -> (2, 2, 4) and shrunk
+    -> (1, 2, 2) online at REMESH_BUDGET a shard a window under writes of
+    ROWS_PER_STEP rows a step, the shrink drained by the governor when the
+    deadline's margin expires; a flush mid-way through a third, short
+    migration drains it.  Returns the phase's record."""
+    from repro_torch.health import HealthPolicy
+    from repro_torch.remesh import RemeshInProgressError
+    from repro_torch.remesh import migrate as migrate_mod
+    t_phase = time.perf_counter()
+    dev = torch.device(DEVICE)
+    hp = HealthPolicy(dispatch_timeout_s=GOV_TIMEOUT_S, backpressure="error",
+                      violation_mode="report")
+    pol = RedundancyPolicy.single(
+        "vilamb", period_steps=PERIOD, max_vulnerable_steps=DEADLINE, lanes_per_block=ROW,
+        stripe_data_blocks=STRIPE, patrol_bytes_per_tick=PATROL_BUDGETS[0],
+        remesh_bytes_per_tick=REMESH_BUDGET, health=hp)
+    state = {"heap": torch.randn((N_ROWS, ROW), generator=g, device=dev)}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    store = ProtectedStore(pol, mesh=make_mesh(MESH_SHAPE, MESH_AXES, device=dev)).attach(
+        state, specs={"heap": HEAP_SPECS["heap"]})
+    red = store.init(state)
+    rec: dict = {}
+    # 1. xpar covers the heap: a few steps of writes, a flush, quiet ticks.
+    step = 0
+    for step in range(1, 5):
+        red, rep = store.tick(state, remesh_write(store, state, red, g), step)
+        state.update(rep.repaired)
+    red = store.flush(state, red, step)
+    pat = store.patroller
+    xp = pat.xpar["heap"]
+    nb8, w = store.metas["heap"].n_blocks, pat.window["heap"]
+    sweep_ticks = math.ceil(2 * -(-nb8 // w) * PERIOD / (PERIOD - 1))
+    red, step = quiet_ticks(store, state, red, step, lambda: bool(xp.xvalid.all()),
+                            2 * sweep_ticks + 16, [], [])
+    red = store.flush(state, red, step)
+
+    # 2. The grow, with its refusal of a second request.
+    adopt_ms: list = []
+    translate = migrate_mod.translate_words
+
+    def timed_translate(*a, **kw):
+        t0 = time.perf_counter()
+        out = translate(*a, **kw)
+        adopt_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+    migrate_mod.translate_words = timed_translate
+    try:
+        store.remesh(make_mesh(GROW_SHAPE, MESH_AXES, device=dev))
+        try:
+            store.remesh(make_mesh(SHRINK_SHAPE, MESH_AXES, device=dev))
+            raise SmokeError("a second remesh was accepted while one was queued")
+        except RemeshInProgressError:
+            pass
+        k3_grow: list = []
+        red, step, grow = remesh_ticks(store, state, red, step, g, k3_grow)
+        st = grow[-1]["status"]
+        nb16 = store.metas["heap"].n_blocks
+        check(st["done"] and st["ticks"] == len(grow) == -(-nb16 // (REMESH_BUDGET // (4 * ROW)))
+              == 8 and st["overflowed"] == 0 and st["migrated"] == nb16
+              and store.shard_factor("heap") == 16 and store.geometry_version == 1
+              and store.patroller is not pat and store.patroller.geometry_version == 1,
+              f"the grow: {st}, {len(grow)} ticks, gv {store.geometry_version}")
+        check(len(k3_grow) == len(grow) and all(r["jobs"] == 16 and r["tick"] == i
+                                                 and r["window"]
+                                                 for i, r in enumerate(k3_grow)),
+              f"the grow's windows: {[(r['tick'], r['jobs']) for r in k3_grow]}")
+        check(not any(t["actions"] for t in grow), f"the grow drew health actions {grow}")
+        rec["grow_adopt_translate_ms"] = adopt_ms[-1]
+        red = store.flush(state, red, step)
+        remesh_fresh_equal(store, state, red, "after the grow")
+
+        # 3. The shrink, with the governor's drain.
+        store.remesh(make_mesh(SHRINK_SHAPE, MESH_AXES, device=dev))
+        k3_shrink: list = []
+        red, step, shrink = remesh_ticks(store, state, red, step, g, k3_shrink)
+        st2 = shrink[-1]["status"]
+        nb4 = store.metas["heap"].n_blocks
+        drains = [i for i, t in enumerate(shrink) if any(a[2] == "remesh_drain"
+                                                         for a in t["actions"])]
+        check(st2["done"] and drains == [len(shrink) - 1] and len(shrink) < 32
+              and st2["ticks"] == -(-nb4 // (REMESH_BUDGET // (4 * ROW))) == 32
+              and st2["overflowed"] == 0 and store.shard_factor("heap") == 4
+              and store.geometry_version == 2
+              and sum(r["window"] for r in k3_shrink) == 32
+              and all(r["jobs"] == 4 for r in k3_shrink),
+              f"the shrink: {st2}, {len(shrink)} ticks, drains at {drains}, K3 calls "
+              f"{[(r['tick'], r['jobs'], r['window']) for r in k3_shrink]}")
+        rec["shrink_adopt_translate_ms"] = adopt_ms[-1]
+        red = store.flush(state, red, step)
+        remesh_fresh_equal(store, state, red, "after the shrink")
+
+        # 4. A flush during a short third migration (back to (2, 2, 2))
+        #    drains it.
+        store.remesh(make_mesh(MESH_SHAPE, MESH_AXES, device=dev))
+        step += 1
+        red, rep = store.tick(state, remesh_write(store, state, red, g), step)
+        check(rep.remesh is not None and not rep.remesh.done and store.remeshing,
+              f"the third migration: {rep.remesh}")
+        state.update(rep.repaired)
+        red = store.flush(state, red, step)
+        drained = store.take_repaired()
+        check(not store.remeshing and store.geometry_version == 3
+              and store.shard_factor("heap") == 8 and all(
+                  t is state[n] for n, t in drained.items()),
+              f"the flush did not drain the third migration ({sorted(drained)})")
+        remesh_fresh_equal(store, state, red, "after the drained migration")
+    finally:
+        migrate_mod.translate_words = translate
+    torch.cuda.synchronize()
+    rec["launches"] = read_launches()
+    rec["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 2**30
+    for name in ("checksum", "parity", "fused_update"):
+        check(rec["launches"][name] > 0, f"{name} kernel never launched in phase 24")
+    wb = REMESH_BUDGET // (4 * ROW)
+    for name, ticks, k3, k in (("grow", grow, k3_grow, 16), ("shrink", shrink, k3_shrink, 4)):
+        # A window's K3 reads the window's data and every shard's dirty words
+        # once, and writes the window's checksums and its stripes' parity.
+        b = bound(k * wb * ROW * 4 + N_ROWS // 8 + k * wb * 4 + k * wb // STRIPE * ROW * 4,
+                  k * wb * ROW * 12)
+        rec[name] = {"ticks": ticks, "k3_ms": [r["ms"] for r in k3 if r["window"]],
+                     "other_k3_ms": [r["ms"] for r in k3 if not r["window"]],
+                     "k3_bound_ms": b[0], "k3_bound_by": b[1], "window_blocks": wb,
+                     "shards": k, "window_tick_host_ms": [t["host_ms"] for t in ticks[:-1]],
+                     "adopt_tick_host_ms": ticks[-1]["host_ms"]}
+    rec["wall_s"] = time.perf_counter() - t_phase
+    del store, red, state
+    return rec
+
+
+def print_remesh(r: dict) -> None:
+    print(f"remesh (phase 24, {r['wall_s']:.1f} s): launches {r['launches']}; peak "
+          f"{r['peak_mem_gb']:.2f} GiB")
+    for name in ("grow", "shrink"):
+        x = r[name]
+        k3 = x["k3_ms"]
+        print(f"remesh {name}: {len(x['ticks'])} ticks to adoption ({x['shards']} shards, "
+              f"windows of {x['window_blocks']} blocks a shard); a window's K3 median "
+              f"{statistics.median(k3):.4f} ms over {len(k3)} windows "
+              f"{[round(v, 4) for v in k3]} (bound {x['k3_bound_ms']:.4f} ms, "
+              f"{x['k3_bound_by']}, {100 * x['k3_bound_ms'] / statistics.median(k3):.1f}%); "
+              f"window ticks' host ms {[round(v, 3) for v in x['window_tick_host_ms']]}; "
+              f"adoption tick {x['adopt_tick_host_ms']:.3f} ms, of it translating marks "
+              f"{r[name + '_adopt_translate_ms']:.3f} ms; health actions "
+              f"{[t['actions'] for t in x['ticks'] if t['actions']]}")
 
 
 def smi_line() -> str:
@@ -5763,6 +6225,12 @@ def main() -> int:
     print_sharded_patrol(sp)
     print(smi_line())
     print(json.dumps({"sharded_patrol": sp}))
+    gc.collect()
+    torch.cuda.empty_cache()
+    rm = phase_remesh(g)
+    print_remesh(rm)
+    print(smi_line())
+    print(json.dumps({"remesh": rm}))
     for row in kernels:
         by_path = {"heap": heap_launches.get(row["name"], 0),
                    "serving": serve_launches[row["name"]],
@@ -5783,7 +6251,8 @@ def main() -> int:
                    "sharded heap": sh["launches"][row["name"]],
                    "sharded serving": ss["launches"][row["name"]],
                    "sharded patrol": sp["launches"][row["name"]]
-                   + ss["patrolled"]["launches"][row["name"]]}
+                   + ss["patrolled"]["launches"][row["name"]],
+                   "remesh": rm["launches"][row["name"]]}
         row["launches"] = sum(by_path.values())
         row["launches_by_path"] = by_path
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s")

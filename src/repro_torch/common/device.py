@@ -3,6 +3,7 @@ from __future__ import annotations
 
 from typing import Union
 
+import numpy as np
 import torch
 
 DeviceLike = Union[str, torch.device, None]
@@ -23,3 +24,13 @@ def resolve_device(device: DeviceLike, who: str) -> torch.device:
         if dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
     return dev
+
+
+def to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A small host array on ``device`` without a host wait: on the card it
+    goes through pinned memory with a non-blocking copy, ordered on the
+    current stream."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    if device.type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)

@@ -10,6 +10,8 @@ from .blocks import BlockMeta, ShapeDtype, from_lanes, make_meta, to_lanes
 from .checksum import (block_checksums, checksum_diff, fmix32, meta_checksum,
                        meta_checksum_delta)
 from .engine import ALL, RedundancyConfig, RedundancyEngine
+from .repairs import (UNRECOVERABLE_REASONS, UnrecoverableBlock,
+                      UnrecoverableReadError)
 from .parity import (parity_diff, reconstruct_block, scatter_xor_stripes,
                      stripe_parity, stripe_parity_masked)
 from .state import LeafRedundancy, RedundancyState, empty_leaf_red
@@ -26,5 +28,6 @@ __all__ = [
     "from_lanes", "full_update", "make_meta", "meta_checksum",
     "meta_checksum_delta", "parity_diff", "queue_capacity", "queued_update",
     "reconstruct_block", "scatter_xor_stripes", "stripe_parity",
-    "stripe_parity_masked", "to_lanes",
+    "stripe_parity_masked", "to_lanes", "UNRECOVERABLE_REASONS",
+    "UnrecoverableBlock", "UnrecoverableReadError",
 ]

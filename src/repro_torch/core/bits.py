@@ -2,11 +2,13 @@
 
 The writer produces dirty masks directly; this module holds the packed
 bitvector representation (uint32 words carried as int32, little-endian
-bits) and the snapshot/clear operations of Algorithm 1.  Every function is
-shape-static and never synchronises with the device.
+bits) and the snapshot/clear operations of Algorithm 1.  Every torch
+function is shape-static and never synchronises with the device; the
+``*_np`` helpers and :func:`bits_to_mask` are their host (numpy) mirrors.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..kernels.common import wrap_i32
@@ -57,6 +59,15 @@ def unpack_rows(words: torch.Tensor, rows: int, n_bits: int) -> torch.Tensor:
     return bits.reshape(rows, -1)[:, :n_bits].bool()
 
 
+def gather(words: torch.Tensor, word_idx: torch.Tensor,
+           shift: torch.Tensor) -> torch.Tensor:
+    """bool of bit ``shift`` (int32) of word ``word_idx`` (int64) of a
+    packed bitvector, elementwise: only the words that hold the bits are
+    read.  Concatenated per-shard bitvectors of ``nw`` words each put shard
+    ``s``'s bit ``b`` in word ``s * nw + b // WORD_BITS``."""
+    return ((words[word_idx] >> shift) & 1).bool()
+
+
 def mark(words: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """OR a bool[n_bits] dirty mask into the packed bitvector."""
     return words | pack_mask(mask)
@@ -66,3 +77,24 @@ def popcount(words: torch.Tensor) -> torch.Tensor:
     """Total number of set bits (int32 scalar tensor)."""
     bits = (words[:, None] >> _shifts(words.device)[None, :]) & 1
     return bits.sum(dtype=torch.int32)
+
+
+def bits_to_mask(words: np.ndarray, n_bits: int, shards: int = 1) -> np.ndarray:
+    """Host-side unpack of a packed bitvector of uint32 words (numpy mirror
+    of :func:`unpack`).  View int32-carried words as ``np.uint32`` first:
+    an arithmetic shift would get bit 31 wrong.
+
+    ``shards > 1``: ``words`` concatenates one bitvector per shard; the
+    result is the global block-space mask of length ``shards * n_bits``.
+    """
+    w = np.ascontiguousarray(np.asarray(words).view(np.uint32), dtype="<u4")
+    m = np.unpackbits(w.reshape(shards, -1).view(np.uint8), axis=1, bitorder="little")
+    return m.view(bool)[:, :n_bits].reshape(-1)
+
+
+def pack_mask_np(mask: np.ndarray, n_words: int) -> np.ndarray:
+    """Host-side pack of a bool block mask into uint32 words (bit ``i`` of
+    word ``j`` = block ``j*32+i``, the layout of :func:`pack_mask`)."""
+    padded = np.zeros((n_words * 32,), bool)
+    padded[:mask.size] = mask
+    return np.packbits(padded, bitorder="little").view("<u4").astype(np.uint32)

@@ -161,6 +161,10 @@ class RedundancyEngine:
         """Number of shards a leaf's redundancy arrays concatenate (1 = local)."""
         return math.prod(self._splits[name])
 
+    def splits(self, name: str) -> Tuple[int, ...]:
+        """Shards along each dim of a leaf (1 where the dim is whole)."""
+        return self._splits[name]
+
     def _shards_by_device(self, name: str) -> List[int]:
         """The shard of ``name`` each device holds: the row-major index of
         the device's coordinates over the leaf's axes (``[0]``

@@ -58,6 +58,8 @@ import numpy as np
 import torch
 
 from ..common import flatten_dict, resolve_device
+from ..common.device import to_device
+from . import bits, blocks, checksum
 from . import policy as policy_mod
 from . import workqueue
 from .blocks import (DEFAULT_LANES_PER_BLOCK, DEFAULT_STRIPE_DATA_BLOCKS,
@@ -146,6 +148,24 @@ class RedundancyPolicy:
     rebuild_bytes_per_tick: int = 0
     shard_loss_threshold: float = 0.5
     shard_loss_min_blocks: int = 4
+    # Elastic remesh (repro_torch.remesh): ``store.remesh(new_mesh)``
+    # re-stripes every protected leaf onto a grown or shrunk mesh over
+    # bounded per-tick migration windows of ``remesh_bytes_per_tick`` bytes
+    # a shard a leaf (0 = 4x the patrol budget; if that is also 0 the whole
+    # leaf migrates in one window).  Priority: foreground > due ticks >
+    # rebuild > remesh > patrol.
+    remesh_bytes_per_tick: int = 0
+    # Degraded reads (``store.read_verified``): bounded retries when a block
+    # can be neither verified nor reconstructed (a transiently vulnerable
+    # stripe may settle meanwhile), with the delays of
+    # repro_torch.health.backoff.backoff_schedule: exponential from
+    # ``read_retry_backoff_s``, capped per delay (0 = uncapped), within a
+    # total budget (0 = unbudgeted), jitter only ever shrinking a delay.
+    read_retry_attempts: int = 3
+    read_retry_backoff_s: float = 0.0
+    read_retry_backoff_cap_s: float = 0.0
+    read_retry_total_s: float = 0.0
+    read_retry_jitter_frac: float = 0.0
     # Freshness-SLO health governor (repro_torch.health): a HealthPolicy (or
     # True for defaults) arms per-group breakers and the escalation ladder
     # (wedged-dispatch retry, margin-forced blocking resolve, on_write
@@ -256,9 +276,9 @@ class TickReport:
     patrol_starved_ticks: int = 0
     repaired: Dict[str, torch.Tensor] = dataclasses.field(default_factory=dict)
     unrecoverable: Tuple[Any, ...] = ()
-    # The active shard rebuild's repro_torch.scrub.RebuildStatus (None = no
-    # rebuild running).  The reference's remesh migration: always None here
-    # (ROADMAP.md, Queue 1 item 11.5).
+    # The active shard rebuild's repro_torch.scrub.RebuildStatus and the
+    # active remesh migration's repro_torch.remesh.RemeshStatus (None = none
+    # running; on the adoption tick the final status, ``done`` True).
     rebuild: Optional[Any] = None
     remesh: Optional[Any] = None
     # Health governor (repro_torch.health.HealthReport; None when off).
@@ -352,10 +372,17 @@ class ProtectedStore:
         # Background duties, built by attach when the policy asks.
         self.patroller = None
         self._health = None
-        # Mesh-geometry epoch (cross-shard parity images carry the epoch
-        # they were folded under); a remesh would bump it (ROADMAP.md,
-        # Queue 1 item 11.5), so it stays 0 here.
+        # Elastic remesh (repro_torch.remesh): a queued geometry change,
+        # the active migration, and the mesh-geometry epoch, bumped at every
+        # adoption (cross-shard parity images carry the epoch they were
+        # folded under).
+        self._remesh_request: Optional[Tuple[Any, Dict[str, Any]]] = None
+        self._remesh = None
         self.geometry_version = 0
+        # The declared leaves (global shapes) and their specs: a remesh
+        # builds its new engines from them.
+        self._structs: Dict[str, ShapeDtype] = {}
+        self._specs: Dict[str, Any] = {}
         # Leaves pasted by a settle/flush-time rebuild drain: callers adopt
         # them via ``take_repaired``.  The paste is in place, so these are
         # the caller's own tensors: held weakly, they pin no memory the
@@ -410,6 +437,8 @@ class ProtectedStore:
             if torch.device(dev) != self.device:
                 raise ValueError(f"leaf {name!r} lies on {dev}, the store on "
                                  f"{self.device}")
+        self._structs = {n: ShapeDtype(tuple(v.shape), v.dtype) for n, v in flat.items()}
+        self._specs = specs
         by_policy: Dict[LeafPolicy, List[str]] = {}
         for name in flat:
             by_policy.setdefault(self.policy.leaf_policy(name), []).append(name)
@@ -937,7 +966,12 @@ class ProtectedStore:
         hg = self._health
         if hg is not None:
             hg.begin_tick(step, now)
-        for g in self._protected():
+        # During a remesh migration the group loop is skipped: the old
+        # redundancy stays frozen (the truth a crash restores) while writes
+        # keep marking it through on_write, and the migrator recomputes the
+        # new geometry's redundancy from the data window by window; an
+        # update of the old geometry would race the migration for nothing.
+        for g in (() if self._remesh is not None else self._protected()):
             lp = g.policy
             if step < g.last_update_step:
                 # The step counter restarted: rebase so deadlines keep meaning.
@@ -1053,14 +1087,61 @@ class ProtectedStore:
         report.deadline_fired = tuple(deadline)
         report.coalesced = tuple(coalesced)
         report.overflowed = tuple(overflowed)
-        if self.patroller is not None:
+        # The remesh slot, between rebuild and patrol on the ladder: a
+        # queued request starts once no rebuild is active or pending (loss
+        # recovery first); while it migrates the patroller, whose parity is
+        # the old mesh's, is skipped (a fresh one is built at adoption).
+        ran_remesh = False
+        if (self._remesh is None and self._remesh_request is not None
+                and (self.patroller is None
+                     or (self.patroller.rebuild is None
+                         and not self.patroller._pending_loss))):
+            self._remesh_start(get_leaves(), out, step, report)
+        if self._remesh is not None:
+            lv = dict(get_leaves())
+            lv.update(report.repaired)
+            self._remesh_step(lv, out, report, step)
+            ran_remesh = True
+        if hg is not None and ran_remesh:
+            # The group loop was skipped this tick, the one window the
+            # ladder above cannot cover.  A group whose freshness margin
+            # expired mid-migration drains the remaining windows at once
+            # (remesh_drain, rung 2) and then runs a blocking update on the
+            # new geometry; with remesh_drain off the migration keeps its
+            # bound and end_tick reports the violation.
+            forced = hg.remesh_overdue(step, now)
+            if forced and self._remesh is not None and hg.hp.remesh_drain:
+                lv = dict(get_leaves())
+                lv.update(report.repaired)
+                while self._remesh is not None:
+                    self._remesh_step(lv, out, report, step)
+            if forced and self._remesh is None:
+                lv = dict(get_leaves())
+                lv.update(report.repaired)
+                extra = []
+                for g in self._protected():
+                    if g.policy.mode != "vilamb" or g.label not in forced:
+                        continue
+                    out.update(self._dispatch_blocking(
+                        g, {n: lv[n] for n in g.names},
+                        {n: out[n] for n in g.names}))
+                    g.last_update_step = step
+                    g.last_update_time = now
+                    extra.append(g.label)
+                    hg.note_remesh_drain(g.label, step)
+                report.updated = report.updated + tuple(extra)
+                report.deadline_fired = report.deadline_fired + tuple(extra)
+                updated.extend(extra)
+        if self.patroller is not None and not ran_remesh:
             # Low-priority background duty, after every foreground decision:
             # the patroller sees the post-dispatch live view (in-flight
             # blocks are shadow-marked, so probes skip them) and dispatches
-            # a probe only on quiet ticks.  Its repairs land in
-            # report.repaired, which callers adopt.
-            self.patroller.on_tick(get_leaves, out, step, report,
-                                   busy=bool(updated))
+            # a probe only on quiet ticks; a queued remesh counts as busy
+            # (it ranks above patrol).  Its repairs land in report.repaired,
+            # which callers adopt.
+            self.patroller.on_tick(
+                get_leaves, out, step, report,
+                busy=bool(updated) or self._remesh_request is not None)
         if hg is not None:
             # Age audit and breaker transitions; attaches report.health and
             # raises FreshnessViolationError only when the ladder is
@@ -1104,17 +1185,89 @@ class ProtectedStore:
             self._phase("flush", red=dict(out), **info)
         return out
 
+    # ------------------------------------------------------------ elastic remesh
+    def remesh(self, new_mesh: Any, specs: Optional[Mapping[str, Any]] = None) -> None:
+        """Queue an elastic geometry change: grow or shrink the mesh by
+        re-striping every protected leaf incrementally
+        (:mod:`repro_torch.remesh`).
+
+        No stop-the-world re-attach: the migration runs over bounded
+        per-tick windows (``RedundancyPolicy.remesh_bytes_per_tick``),
+        starting on the next ``tick`` once no shard rebuild is active or
+        pending, and reports a ``RemeshStatus`` on ``TickReport.remesh``;
+        it takes ``ceil(n_blocks / window)`` ticks for the largest leaf.
+        ``specs`` overrides leaves' PartitionSpecs on the new mesh (default:
+        the specs given at ``attach``, valid whenever the new mesh keeps the
+        axis names).
+
+        Raises :class:`~repro_torch.remesh.RemeshInProgressError` when a
+        remesh is already queued or migrating, and
+        :class:`~repro_torch.remesh.RemeshGeometryError` when a leaf does
+        not split evenly onto the new mesh or a group's mode (``sync``) has
+        no online migration.
+        """
+        from ..remesh import RemeshInProgressError, validate_remesh
+        if self._remesh is not None or self._remesh_request is not None:
+            raise RemeshInProgressError("a remesh is already queued or in progress")
+        new_specs = dict(self._specs)
+        new_specs.update(specs or {})
+        validate_remesh(self, new_mesh, new_specs)
+        self._remesh_request = (new_mesh, new_specs)
+
+    @property
+    def remeshing(self) -> bool:
+        """True while a remesh is queued or migrating."""
+        return self._remesh is not None or self._remesh_request is not None
+
+    def _remesh_start(self, leaves: Mapping[str, torch.Tensor], out, step: int,
+                      report) -> None:
+        """Begin the queued migration: adopt the in-flight overlapped updates
+        against the OLD geometry (a mispredicted one repaired at once with
+        the full recompute), then build the migrator.  The leaves stay
+        where they are (every shard lies on the one device); they come back
+        on ``report.repaired`` as the reference's moved arrays do."""
+        from ..remesh import RemeshMigrator
+        new_mesh, new_specs = self._remesh_request
+        self._remesh_request = None
+        for g in self._protected():
+            if g.pending is None:
+                continue
+            if self._phase_hooks:
+                self._phase("dispatcher_join", red=dict(out), group=g.label, step=step)
+            red_sub, ovf, _ = self._resolve(g, {n: out[n] for n in g.names}, wait=True)
+            out.update(red_sub)
+            if ovf:
+                repaired, fits = g.engine.redundancy_step_async(
+                    {n: leaves[n] for n in g.names}, {n: out[n] for n in g.names})
+                g.predicted_fits = workqueue.fold_fits_host(fits)
+                out.update(repaired)
+        self._remesh = RemeshMigrator(self, new_mesh, new_specs, leaves, out, step)
+        report.repaired.update(self._remesh.moved)
+        report.remesh = self._remesh.status
+
+    def _remesh_step(self, leaves, out, report, step: Optional[int]) -> None:
+        """One bounded migration window; on the tick the last one lands, the
+        adoption (the new redundancy, engines, groups and mesh, a fresh
+        patroller, ``geometry_version`` bumped)."""
+        m = self._remesh
+        m.step_once(leaves, out, report, step)
+        if m.status.done:
+            m.adopt(out, report)
+            self._remesh = None
+
     def _drain_background(self, leaves: Dict[str, torch.Tensor],
                           out: Dict[str, Any], step: Optional[int] = None
                           ) -> Dict[str, torch.Tensor]:
-        """Run an active shard rebuild to completion, synchronously —
-        settle and flush call this before adopting, so a checkpoint taken
-        mid-rebuild never persists a half-pasted shard.  Mutates ``out``
-        (dirty marks) and returns the leaves; the pasted leaves (the
+        """Run an active shard rebuild, then an active remesh migration, to
+        completion, synchronously — settle and flush call this before
+        adopting, so a checkpoint taken mid-rebuild or mid-migration never
+        persists a half-pasted shard or a half-migrated geometry.  Mutates
+        ``out`` (dirty marks; the new geometry's redundancy wholesale at a
+        remesh adoption) and returns the leaves; the pasted leaves (the
         caller's own tensors, written in place) are also held, weakly, for
-        :meth:`take_repaired`.  ``step`` stays None when the caller gave
-        none (the crash phases then fill in their own).  The reference's
-        remesh half of this drain is ROADMAP.md, Queue 1 item 11.5."""
+        :meth:`take_repaired`.  A remesh still queued behind a rebuild is
+        left queued: it starts on the next tick.  ``step`` stays None when
+        the caller gave none (the crash phases then fill in their own)."""
         pat = self.patroller
         if pat is not None and pat.rebuild is not None:
             rep = TickReport(step=0 if step is None else int(step))
@@ -1122,14 +1275,23 @@ class ProtectedStore:
             leaves.update(rep.repaired)
             self._drained.update(
                 {n: weakref.ref(t) for n, t in rep.repaired.items()})
+        if self._remesh is not None:
+            rep = TickReport(step=0 if step is None else int(step))
+            while self._remesh is not None:
+                self._remesh_step(leaves, out, rep, step)
+            leaves.update(rep.repaired)
+            self._drained.update(
+                {n: weakref.ref(t) for n, t in rep.repaired.items()})
         return leaves
 
     def take_repaired(self) -> Dict[str, torch.Tensor]:
-        """Leaves pasted by a settle/flush-time rebuild drain since the last
-        call.  Callers that settle or flush mid-rebuild adopt these (the
-        port pastes in place, so they are the caller's own tensors, and a
-        leaf the caller has since let go of is left out; the patroller's
-        repairs during ticks come back on ``TickReport.repaired``)."""
+        """Leaves pasted or moved by a settle/flush-time drain (rebuild
+        paste windows, remesh migration windows) since the last call.
+        Callers that settle or flush mid-rebuild or mid-migration adopt
+        these (the port pastes in place and moves nothing, so they are the
+        caller's own tensors, and a leaf the caller has since let go of is
+        left out; the patroller's repairs and a migration's moved leaves
+        during ticks come back on ``TickReport.repaired``)."""
         held, self._drained = self._drained, {}
         out = {n: r() for n, r in held.items()}
         return {n: t for n, t in out.items() if t is not None}
@@ -1227,6 +1389,189 @@ class ProtectedStore:
                 return g.engine.recover_block(leaf, r, name, block_id)
         raise KeyError(f"{name} is not parity-protected")
 
+    def read_verified(self, leaves: Mapping[str, torch.Tensor], red: RedundancyState,
+                      name: str, block_ids) -> Dict[int, np.ndarray]:
+        """Degraded-mode verified read: per requested **global** block, data
+        that is provably current (never stale or in-flight garbage), even
+        while a shard is lost or a remesh migrates.
+
+        Per block, in order: (1) a block inside the vulnerability window
+        (``dirty | shadow``) returns the current data, since writes land in
+        the leaf before its redundancy (unless its write was in flight when
+        its shard was lost to an active rebuild: a named pre-loss
+        casualty); (2) a clean block whose checksum verifies returns the
+        current data; (3) otherwise the block is reconstructed, from the
+        active rebuild's image when its shard is the lost one, else from
+        its XOR stripe (the ``recover_block`` rule: every other member
+        clean), and the reconstruction is admitted only if it verifies
+        against the stored checksum.  Blocks left unverified retry after
+        the ``read_retry_*`` backoff; when the budget is spent
+        :class:`~repro_torch.core.repairs.UnrecoverableReadError` is raised
+        with ``read_timeout`` records at each block's global stripe.
+
+        Returns ``{global_block_id: uint32 lane row (lanes_per_block,)}``.
+        Each attempt gathers on the device and fetches, in turn: the
+        ``dirty | shadow`` bits of the requested blocks' stripes
+        (:meth:`_read_live`); the requested blocks' lane rows, with the
+        stored and fresh checksums of those outside the window, one
+        checksum launch each at its own block offset (:meth:`_read_rows`);
+        and the reconstructions with their checksums
+        (:meth:`_read_candidates`).  The leaf and its bitvectors are never
+        copied whole and never written (a reconstruction is computed
+        beside the leaf).  Any shard split works, a strided one too (the
+        reference reads dim-0 row ranges only).  In-flight updates are
+        waited for on the device first: they rewrite checksums and parity
+        in place.
+        """
+        from ..health.backoff import backoff_schedule
+        from .repairs import UnrecoverableBlock, UnrecoverableReadError
+        group = next((g for g in self._protected() if name in g.names), None)
+        if group is None:
+            raise KeyError(f"{name} is not parity-protected")
+        eng = group.engine
+        meta = eng.metas[name]
+        k, nb = eng.shard_factor(name), meta.n_blocks
+        P = meta.stripe_data_blocks
+        splits = eng.splits(name)
+        want = [int(b) for b in block_ids]
+        for b in want:
+            if not 0 <= b < k * nb:
+                raise IndexError(f"{name}: global block {b} out of range "
+                                 f"(0..{k * nb - 1})")
+        pol = self.policy
+        attempts = max(1, int(pol.read_retry_attempts))
+        delays = backoff_schedule(
+            attempts - 1, float(pol.read_retry_backoff_s),
+            cap=float(pol.read_retry_backoff_cap_s),
+            total=float(pol.read_retry_total_s),
+            jitter_frac=float(pol.read_retry_jitter_frac))
+        results: Dict[int, np.ndarray] = {}
+        for attempt in range(attempts):
+            pending = [b for b in want if b not in results]
+            if not pending:
+                break
+            if attempt and delays[attempt - 1] > 0:
+                time.sleep(delays[attempt - 1])
+            leaf, r = leaves[name], red[name]
+            self._await_update(group)
+            reb = self.patroller.rebuild if self.patroller is not None else None
+            if reb is not None and reb.name != name:
+                reb = None
+            sl = [divmod(b, nb) for b in pending]
+            live, others_live = self._read_live(r, meta, sl)
+            check = [i for i in range(len(sl)) if not live[i]]
+            rows_h, fresh, stored = self._read_rows(leaf, r, meta, splits, pending, sl, check)
+            stored_of = dict(zip((pending[i] for i in check), stored.tolist()))
+            mismatch = []
+            for i, (b, (s, lb)) in enumerate(zip(pending, sl)):
+                on_lost = reb is not None and reb.shard == s
+                if live[i]:
+                    # The leaf holds the newest write, unless that write was
+                    # in flight when the shard was lost (its data died).
+                    if not (on_lost and bool(reb.preloss[lb])):
+                        results[b] = rows_h[i].copy()
+                    continue
+                mismatch.append((b, s, lb, on_lost, others_live[i]))
+            for j, i in enumerate(check):
+                if fresh[j] == stored[j]:
+                    results[pending[i]] = rows_h[i].copy()
+            mismatch = [m for m in mismatch if m[0] not in results]
+            # Reconstruct, and admit only what verifies: the rebuild's image
+            # first (a block of the lost shard its parity row vouches for),
+            # then the XOR stripe.
+            recon = [(b, s, lb) for b, s, lb, on_lost, _ in mismatch
+                     if on_lost and bool(reb.eligible[lb]) and not bool(reb.written[lb])]
+            if recon:
+                cand = reb.recon[torch.as_tensor([lb for _, _, lb in recon],
+                                                 device=leaf.device)]
+                cand_h, ck_h = self._read_candidates(cand, [lb for _, _, lb in recon])
+                for i, (b, _, _) in enumerate(recon):
+                    if ck_h[i] == stored_of[b]:
+                        results[b] = cand_h[i].copy()
+            stripe = [(b, s, lb) for b, s, lb, _, busy in mismatch
+                      if b not in results and not busy]
+            if stripe:
+                cands = []
+                for b, s, lb in stripe:
+                    sid = lb // P
+                    n = min(P, nb - sid * P)
+                    win = blocks.shard_window_lanes(leaf, meta, splits, sid * P, n)[s]
+                    acc = r.parity[s * meta.n_stripes + sid].clone()
+                    for j in range(n):
+                        if sid * P + j != lb:
+                            acc ^= win[j]
+                    cands.append(acc)
+                cand_h, ck_h = self._read_candidates(torch.stack(cands),
+                                                     [lb for _, _, lb in stripe])
+                for i, (b, _, _) in enumerate(stripe):
+                    if ck_h[i] == stored_of[b]:
+                        results[b] = cand_h[i].copy()
+        missing = [b for b in want if b not in results]
+        if missing:
+            recs = tuple(UnrecoverableBlock(name, blocks.global_stripe_id(meta, b), (b,),
+                                            "read_timeout") for b in missing)
+            raise UnrecoverableReadError(name, recs)
+        return {b: results[b] for b in want}
+
+    @staticmethod
+    def _read_live(r: LeafRedundancy, meta: BlockMeta,
+                   sl: List[Tuple[int, int]]) -> Tuple[np.ndarray, np.ndarray]:
+        """For each ``(shard, local block)`` of ``sl``: is it in the window
+        (``dirty | shadow``), and is another member of its stripe?  Only the
+        words holding the stripes' bits are read, on the device; one host
+        copy of ``len(sl) * stripe_data_blocks`` bits."""
+        P, nb = meta.stripe_data_blocks, meta.n_blocks
+        s = np.array([x for x, _ in sl], np.int64)
+        lb = np.array([y for _, y in sl], np.int64)
+        mem = (lb // P * P)[:, None] + np.arange(P)[None]          # (n, P) stripe members
+        valid = mem < nb
+        m = np.minimum(mem, nb - 1)
+        dev = r.dirty.device
+        word = to_device(s[:, None] * meta.n_dirty_words + m // bits.WORD_BITS, dev)
+        shift = to_device((m % bits.WORD_BITS).astype(np.int32), dev)
+        hot = (bits.gather(r.dirty, word, shift)
+               | bits.gather(r.shadow, word, shift)).cpu().numpy() & valid
+        own = mem == lb[:, None]
+        return hot[own], (hot & ~own).any(axis=1)
+
+    @staticmethod
+    def _read_rows(leaf: torch.Tensor, r: LeafRedundancy, meta: BlockMeta, splits,
+                   pending: List[int], sl: List[Tuple[int, int]],
+                   check: List[int]) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """One host copy of the lane rows of the blocks ``pending`` (global
+        ids; ``sl`` their ``(shard, local block)``) and, for the positions
+        ``check`` (the blocks outside the window), their fresh checksums
+        (one checksum launch a block, at its own block offset) and stored
+        ones.  Returns ``(rows, fresh, stored)`` as uint32."""
+        if (not blocks.is_strided(splits)
+                and meta.n_elems == meta.padded_lanes * meta.elems_per_word):
+            # Row-range shards filling their blocks: the whole-shard window
+            # is a view of the leaf, global block g its row g; one gather.
+            lanes = blocks.shard_window_lanes(leaf, meta, splits, 0, meta.n_blocks)
+            rows = lanes.reshape(-1, lanes.shape[-1])[to_device(np.asarray(pending),
+                                                                leaf.device)]
+        else:
+            rows = torch.stack([blocks.shard_window_lanes(leaf, meta, splits, lb, 1)[s, 0]
+                                for s, lb in sl])
+        parts = [rows.reshape(-1)]
+        if check:
+            parts += [checksum.block_checksums(rows[i:i + 1], sl[i][1]) for i in check]
+            parts.append(r.checksums[torch.as_tensor([pending[i] for i in check],
+                                                     device=leaf.device)])
+        both = torch.cat(parts).cpu().numpy().view(np.uint32)
+        n, c = rows.numel(), len(check)
+        return both[:n].reshape(rows.shape), both[n:n + c], both[n + c:]
+
+    @staticmethod
+    def _read_candidates(cand: torch.Tensor,
+                         lbs: List[int]) -> Tuple[np.ndarray, np.ndarray]:
+        """One host copy of reconstructed lane rows and their checksums,
+        each at its own local block offset ``lbs[i]``."""
+        cks = [checksum.block_checksums(cand[i:i + 1], lb) for i, lb in enumerate(lbs)]
+        both = torch.cat([cand.reshape(-1)] + cks).cpu().numpy().view(np.uint32)
+        n = cand.numel()
+        return both[:n].reshape(cand.shape), both[n:]
+
     def repair(self, leaves: Mapping[str, torch.Tensor], red: RedundancyState,
                mismatches: Mapping[str, Any],
                details: Optional[List[Any]] = None) -> Tuple[Dict, int, int]:
@@ -1260,6 +1605,13 @@ class ProtectedStore:
             raise RuntimeError(
                 "declare_shard_lost needs the scrub patroller "
                 "(set RedundancyPolicy.patrol_bytes_per_tick > 0)")
+        if self.remeshing:
+            # The patroller and its cross-shard parity are built fresh at a
+            # remesh adoption: a loss queued now would vanish with them.
+            raise RuntimeError(
+                f"{name}: cannot declare a shard lost while a remesh is "
+                "queued or migrating; re-declare after TickReport.remesh "
+                "reports done")
         self.patroller.declare_shard_lost(name, shard, red)
 
     def inject(self, leaves: Mapping[str, torch.Tensor], red: RedundancyState,

@@ -19,8 +19,10 @@ the port's store:
 
 Sharded stores are covered too: specs, windows and injections in global
 block space, and ``shard_loss`` of a whole shard, which the patroller
-rebuilds from cross-shard parity.  The reference's chaos soak
-(``repro.faults.chaos``) needs remesh: ROADMAP.md, Queue 1 item 11.5.
+rebuilds from cross-shard parity; the crash machine's ``actions`` can
+queue a remesh, whose windows fire ``remesh_migrate``.  The reference's
+chaos soak (``repro.faults.chaos``) is not ported yet: ROADMAP.md, Queue 1
+item 11.5 (c).
 
 ``python -m repro_torch.faults --smoke`` runs the battery (crash sweep,
 crash plus corruption, oracle over several seeds, the scrub patroller's

@@ -26,8 +26,8 @@ cpu`` is given.  Seeded, deterministic passes:
    the port runs the pass in this process (``--no-sharded`` skips it,
    ``--sharded-child`` runs it alone).
 
-The reference's ``--chaos`` soak needs remesh (ROADMAP.md, Queue 1 item
-11.5) and raises.
+The reference's ``--chaos`` soak is not ported yet (ROADMAP.md, Queue 1
+item 11.5 (c), the chaos soak) and raises.
 
 Exit status 1 on any violation.
 """
@@ -57,8 +57,8 @@ REQUIRED_PHASES = ("dispatch", "coalesce", "adopt", "adopt_forced",
                    "dispatcher_enqueue", "dispatcher_join",
                    "on_write", "tick", "flush")
 
-CHAOS_REFUSAL = ("the chaos soak needs remesh, which is not ported yet: "
-                 "ROADMAP.md, Queue 1 item 11.5 (remesh)")
+CHAOS_REFUSAL = ("the chaos soak (repro.faults.chaos) is not ported yet: "
+                 "ROADMAP.md, Queue 1 item 11.5 (c), the chaos soak")
 
 
 def _make_leaves(device):
@@ -367,7 +367,7 @@ def main(argv=None) -> int:
     p.add_argument("--no-sharded", action="store_true",
                    help="skip the sharded battery")
     p.add_argument("--chaos", action="store_true",
-                   help="the reference's chaos soak (needs remesh: raises)")
+                   help="the reference's chaos soak (not ported yet: raises)")
     p.add_argument("--sharded-child", action="store_true",
                    help="run only the sharded battery (seed = --seeds)")
     p.add_argument("--chaos-child", action="store_true",

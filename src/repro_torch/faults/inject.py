@@ -48,6 +48,7 @@ import numpy as np
 import torch
 
 from ..core import blocks as B
+from ..core.bits import bits_to_mask
 from ..core.state import LeafRedundancy
 from ..kernels.common import i32
 
@@ -346,16 +347,3 @@ class FaultInjector:
         for spec in specs:
             leaves, red = self.inject(leaves, red, spec)
         return leaves, red
-
-
-def bits_to_mask(words: np.ndarray, n_bits: int, shards: int = 1) -> np.ndarray:
-    """Host-side unpack of a packed bitvector of uint32 words (numpy mirror
-    of :func:`repro_torch.core.bits.unpack`).  View int32-carried words as
-    ``np.uint32`` first: an arithmetic shift would get bit 31 wrong.
-
-    ``shards > 1``: ``words`` concatenates one bitvector per shard; the
-    result is the global block-space mask of length ``shards * n_bits``.
-    """
-    w = np.ascontiguousarray(np.asarray(words).view(np.uint32), dtype="<u4")
-    m = np.unpackbits(w.reshape(shards, -1).view(np.uint8), axis=1, bitorder="little")
-    return m.view(bool)[:, :n_bits].reshape(-1)

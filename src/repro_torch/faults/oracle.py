@@ -25,7 +25,8 @@ from typing import Dict, List, Mapping, Optional, Sequence, Set, Tuple
 
 import numpy as np
 
-from .inject import FaultSpec, bits_to_mask
+from ..core.bits import bits_to_mask
+from .inject import FaultSpec
 
 # Fault kinds that skew data vs redundancy of specific blocks: the kinds a
 # *scrub* is responsible for catching.  Redundancy-side faults (checksum,

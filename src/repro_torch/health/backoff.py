@@ -3,10 +3,10 @@
 The port of ``repro.health.backoff`` (plain Python; the jitter draws are
 the reference's, call for call: ``random.Random`` seeded the same way).
 One policy for every retry loop in the library — the health governor's
-wedged-dispatch retries draw their delays from here, as the reference's
-``read_verified`` degraded-read retries do (ROADMAP.md, Queue 1 item
-11.5, in the port), so "how long do we wait before trying
-again" is a single auditable knob set rather than N ad-hoc sleeps.
+wedged-dispatch retries and ``ProtectedStore.read_verified``'s
+degraded-read retries draw their delays from here, so "how long do we wait
+before trying again" is a single auditable knob set rather than N ad-hoc
+sleeps.
 
 Semantics (all seconds):
 

@@ -63,11 +63,11 @@ governor raise :class:`FreshnessViolationError`
 (``violation_mode="raise"``) or record it on ``HealthReport.violations``
 (``"report"``) — a deadline miss is *never* silent.
 
-During an elastic remesh the reference's group loop is skipped
-wholesale — the one window where the ladder above cannot run — and
-``remesh_overdue``/``note_remesh_drain`` close it (``remesh_drain``).
-The port has no remesh yet (ROADMAP.md, Queue 1 item 11.5): the two
-hooks are here, and the store calls them once that item lands.
+During an elastic remesh the store's group loop is skipped wholesale —
+the one window where the ladder above cannot run — and the store's tick
+calls ``remesh_overdue`` and, after draining the migration and running a
+blocking update on the new geometry, ``note_remesh_drain``
+(``remesh_drain``, rung 2).
 """
 from __future__ import annotations
 

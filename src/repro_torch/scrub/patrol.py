@@ -58,9 +58,10 @@ import torch
 
 from ..core.repairs import (UnrecoverableBlock, plan_stripe_repairs,
                             repair_blocks, vulnerable_unrecoverable)
+from ..common.device import to_device
+from ..core.bits import bits_to_mask
 from ..core.store import _ready
-from ..faults.inject import bits_to_mask
-from .rebuild import CrossShardParity, ShardRebuilder, to_device, xor_fold
+from .rebuild import CrossShardParity, ShardRebuilder, xor_fold
 
 # A block is only "repaired-for-sure" once a later probe stops flagging it.
 # recover_block can succeed (stripe clean) yet reconstruct garbage if the
@@ -117,9 +118,10 @@ class ScrubPatroller:
     def __init__(self, store):
         self.store = store
         self.patrol_bytes = int(store.policy.patrol_bytes_per_tick)
-        # Mesh-geometry epoch (0 until a remesh exists: ROADMAP.md, Queue 1
-        # item 11.5): every parity image carries the geometry it was folded
-        # under, so stale xpar could never seed a rebuild on a new mesh.
+        # Mesh-geometry epoch (the store's, bumped at every remesh adoption,
+        # which builds a fresh patroller): every parity image carries the
+        # geometry it was folded under, so stale xpar never seeds a rebuild
+        # on a new mesh.
         self.geometry_version = int(getattr(store, "geometry_version", 0))
         # Patrol targets: every vilamb-protected leaf, round-robin.  The
         # probe window is static per leaf.

@@ -54,7 +54,9 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from ..common.device import to_device
 from ..core import blocks
+from ..core.bits import pack_mask_np
 from ..core.repairs import UnrecoverableBlock
 
 
@@ -68,9 +70,10 @@ class CrossShardParity:
     n_blocks: int
     xpar: Optional[torch.Tensor] = None
     xvalid: Optional[np.ndarray] = None
-    # Mesh-geometry epoch this image was folded under; a remesh (ROADMAP.md,
-    # Queue 1 item 11.5) would bump it and discard images of the old
-    # geometry (a row folded across k shards is meaningless once k changes).
+    # Mesh-geometry epoch this image was folded under; a remesh adoption
+    # bumps the store's and builds a fresh patroller, discarding images of
+    # the old geometry (a row folded across k shards is meaningless once k
+    # changes).
     version: int = 0
 
     def __post_init__(self):
@@ -103,25 +106,6 @@ def xor_fold(stack: torch.Tensor) -> torch.Tensor:
     for i in range(2, stack.shape[0]):
         out ^= stack[i]
     return out
-
-
-def pack_mask_np(mask: np.ndarray, n_words: int) -> np.ndarray:
-    """Host-side pack of a bool block mask into uint32 words (bit ``i`` of
-    word ``j`` = block ``j*32+i`` — the :mod:`repro_torch.core.bits`
-    layout)."""
-    padded = np.zeros((n_words * 32,), bool)
-    padded[:mask.size] = mask
-    return np.packbits(padded, bitorder="little").view("<u4").astype(np.uint32)
-
-
-def to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
-    """A small host array on ``device`` without a host wait: on the card it
-    goes through pinned memory with a non-blocking copy, ordered on the
-    current stream."""
-    t = torch.from_numpy(np.ascontiguousarray(a))
-    if device.type != "cuda":
-        return t.to(device)
-    return t.pin_memory().to(device, non_blocking=True)
 
 
 class ShardRebuilder:

@@ -79,12 +79,16 @@ class Server:
         return self.store.init(flatten_dict(caches))
 
     def read_verified(self, caches, red, name: str, blocks):
-        """Degraded-mode read of cache blocks: not ported yet (the remesh
-        item of ROADMAP.md)."""
-        raise NotImplementedError(
-            "Server.read_verified needs the store's degraded reads, which are "
-            "not ported yet: ROADMAP.md, Queue 1 item 11.5 (remesh and "
-            "read_verified)")
+        """Degraded-mode read of cache blocks (flat-key ``name``).
+
+        Delegates to :meth:`ProtectedStore.read_verified`: the verified lane
+        row of each global block, reconstructed from parity or from the
+        active shard rebuild rather than served stale or in flight, or
+        :class:`~repro_torch.core.repairs.UnrecoverableReadError`."""
+        if self.store is None:
+            raise ValueError("Server has no ProtectedStore; "
+                             "read_verified needs protected caches")
+        return self.store.read_verified(flatten_dict(caches), red, name, blocks)
 
     def generate(self, params, batch, n_tokens: int,
                  scrub_every: Optional[int] = None
@@ -98,7 +102,9 @@ class Server:
         straggler governor.  With the store's health governor on,
         ``stats["health"]`` is the last tick's report and
         ``stats["health_actions"]`` counts the ladder's actions over the
-        call; the scrub patroller's repairs are adopted as they land.
+        call; the scrub patroller's repairs and a remesh migration's moved
+        caches are adopted as they land, and ``stats["remesh"]`` is the
+        last ``RemeshStatus`` a tick reported (None if no remesh ran).
         """
         with torch.inference_mode():
             logits, caches, pos = self.prefill(params, batch)
@@ -106,7 +112,7 @@ class Server:
             token = torch.argmax(logits, dim=-1).to(torch.int32)
             out = [token]
             mismatches = 0
-            health, health_actions = None, 0
+            remesh, health, health_actions = None, None, 0
             last = time.perf_counter()
             for t in range(n_tokens - 1):
                 logits, caches, red, token = self.decode(params, caches, red, token,
@@ -119,22 +125,26 @@ class Server:
                         step_time=time.perf_counter() - last,
                         scrub_period=scrub_every)
                     mismatches += report.mismatches
+                    if report.remesh is not None:
+                        remesh = report.remesh
                     if report.health is not None:
                         health = report.health
                         health_actions += len(report.health.actions)
                     if report.repaired:
                         # The patroller repaired cache leaves (in place, or
                         # into a new tensor where the lane view is a padded
-                        # copy): decode continues on the repaired pages.
+                        # copy), or a remesh moved them: decode continues on
+                        # the repaired pages.
                         caches = self._adopt(caches, report.repaired)
                     last = time.perf_counter()
             if self.store is not None:
-                # The last decode tick ran at step n_tokens - 1.
+                # The last decode tick ran at step n_tokens - 1.  The
+                # settle also drains an active rebuild or migration.
                 red = self.store.settle(red, flatten_dict(caches), step=n_tokens - 1)
                 caches = self._adopt(caches, self.store.take_repaired())
             return torch.stack(out, dim=1), {
                 "mismatches": mismatches, "red": red, "caches": caches,
-                "pos": pos + n_tokens - 1, "remesh": None, "health": health,
+                "pos": pos + n_tokens - 1, "remesh": remesh, "health": health,
                 "health_actions": health_actions}
 
     @staticmethod

@@ -736,9 +736,9 @@ def test_battery_patrol_pass_equals_reference(capsys, monkeypatch, seed):
 
 @pytest.mark.parametrize("flag", ["--chaos", "--chaos-child", "--sharded-child"])
 def test_battery_cli_refuses_what_is_not_ported(flag, capsys):
-    """The chaos soak raises, naming the item that owns it (11.5, remesh;
-    shard rebuild, 11.4, is ported); ``--sharded-child``, ported, runs the
-    sharded battery alone and passes."""
+    """The chaos soak raises, naming the item that owns it (11.5 (c); shard
+    rebuild, 11.4, and remesh, 11.5 (b), are ported); ``--sharded-child``,
+    ported, runs the sharded battery alone and passes."""
     if flag == "--sharded-child":
         assert cli.main([flag, "--seeds", "0", "--device", "cpu"]) == 0
         out = capsys.readouterr().out

@@ -282,9 +282,56 @@ def test_generate_with_patrol_and_health_equals_reference(pair, monkeypatch):
 
 
 def test_read_verified_is_not_ported(pair):
-    _, _, tm, _, _ = pair
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue 1 item"):
-        Server(model=tm, max_len=8).read_verified({}, {}, "slot_0/k", [0])
+    """``Server.read_verified`` (ported; the name is kept) equals the
+    reference's on the same caches: a clean block, a block in the window,
+    a flipped block reconstructed from its stripe, and a stripe with two
+    flips raising ``UnrecoverableReadError`` with the same records; with no
+    store both raise ``ValueError``."""
+    from repro.core import UnrecoverableReadError as JUnrecoverable
+    from repro.faults.inject import FaultSpec as JFault, apply_fault as japply
+    from repro_torch.core import UnrecoverableReadError
+    from repro_torch.faults import FaultSpec
+    from repro_torch.faults.inject import apply_fault
+    jm, _, tm, _, _ = pair
+    max_len = 16
+    rng = np.random.default_rng(5)
+    shapes = flatten_dict(tm.cache_shapes(B, max_len))
+    caches = {n: rng.standard_normal(s.shape).astype(np.float32) for n, s in shapes.items()}
+    pol_kw = dict(read_retry_attempts=2)
+    tsrv = Server(model=tm, store=_tstore(tm, _policy(RedundancyPolicy, **pol_kw), max_len),
+                  max_len=max_len)
+    jsrv = JServer(model=jm, store=_jstore(jm, _policy(JPolicy, **pol_kw), max_len),
+                   max_len=max_len)
+    assert all(s.dtype == torch.float32 for s in shapes.values())
+    tc = {n: torch.from_numpy(v.copy()) for n, v in caches.items()}
+    jc = {n: jnp.asarray(v.copy()) for n, v in caches.items()}
+    tred, jred = tsrv.init_redundancy(tc), jsrv.init_redundancy(jc)
+    name = "slot_0/k"
+    ev = np.zeros(tuple(tc[name].shape[:2]), bool)
+    ev[:, 3] = True
+    tred = tsrv.store.on_write(tred, events={name: torch.from_numpy(ev)})
+    jred = jsrv.store.on_write(jred, events={name: jnp.asarray(ev)})
+    faults = [dict(kind="data_bitflip", leaf=name, block=b, lane=1, bit=6) for b in (9, 16, 17)]
+    for f in faults:
+        tc, tred = apply_fault(tsrv.store.metas, tc, tred, FaultSpec(**f))
+        jc, jred = japply(jsrv.store.metas, jc, jred, JFault(**f))
+    window = int(np.flatnonzero(np.asarray(jsrv.store.vulnerable_masks(jred)[name]))[0])
+    got = tsrv.read_verified(tc, tred, name, [0, window, 9])
+    want = jsrv.read_verified(jc, jred, name, [0, window, 9])
+    assert sorted(got) == sorted(want) == sorted({0, window, 9})
+    for b in got:
+        np.testing.assert_array_equal(got[b], np.asarray(want[b]), err_msg=str(b))
+    with pytest.raises(UnrecoverableReadError) as e:
+        tsrv.read_verified(tc, tred, name, [16, 17])
+    with pytest.raises(JUnrecoverable) as je:
+        jsrv.read_verified(jc, jred, name, [16, 17])
+    assert [dataclasses.astuple(r) for r in e.value.records] == \
+        [tuple(int(x) if isinstance(x, (int, np.integer)) else x for x in dataclasses.astuple(r))
+         for r in je.value.records]
+    with pytest.raises(ValueError):
+        Server(model=tm, max_len=8).read_verified({}, {}, name, [0])
+    with pytest.raises(ValueError):
+        JServer(model=jm, max_len=8).read_verified({}, {}, name, [0])
 
 
 def test_launcher_runs_on_the_cpu(capsys):
