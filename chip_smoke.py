@@ -261,8 +261,9 @@ Phases, each of which must pass or the script exits non-zero:
    phase 9's store and determinism settings, a flush and a clean scrub,
    and the same steps with the blocking and no store: losses and final
    params checksums bitwise equal; the median step and the peak;
-19. xLSTM training: xlstm-1.3b at full size (48 layers, 42 mLSTM and 6
-   sLSTM, 1,217,335,488 random bf16 params) through ``Trainer.run`` with
+19. xLSTM training: xlstm-1.3b at full width with its depth cut to 24 of
+   its 48 layers (3 groups: 21 mLSTM and 3 sLSTM, 713,527,392 random bf16
+   params; the script's time limit) through ``Trainer.run`` with
    phase 9's batch, data, schedule, store and determinism settings, each
    chunk of the scans checkpointed inside each slot's checkpoint: 8 steps
    under the overlapped store (the due tick at 8, traced), a flush and a
@@ -270,8 +271,8 @@ Phases, each of which must pass or the script exits non-zero:
    row, one flipped lane in an sLSTM params leaf and one in an mLSTM m/
    leaf found and rebuilt bitwise; K1, K2 and K3 launched, flash never.
    Then the blocking and no store: losses and params checksums bitwise
-   equal to the overlapped run's, over 8 steps, or 3 where the median step
-   exceeds 8 s (the script's time limit).  Timed: the median step, the due tick's host ms, K3 in the
+   equal to the overlapped run's, over 2 steps (the script's time limit).
+   Timed: the median step, the due tick's host ms, K3 in the
    due tick against its bound, the trace of step 8 (device-busy share,
    launches, top kernels), one sLSTM and one mLSTM slot's forward and
    backward alone in turns (each kind's share of the mixers' time), the
@@ -376,7 +377,38 @@ Phases, each of which must pass or the script exits non-zero:
    (back to (2, 2, 2)) drains it.  Timed: each window's K3 (CUDA events)
    against its bound, each window tick's host ms, the adoption ticks' host
    ms with the marks' translation's share, the peak and the wall time.
-   Its launches are the kernel line's "remesh" path.
+   Its launches are the kernel line's "remesh" path;
+25. the chaos soak (``repro_torch.faults.chaos``): the reference's sharded
+   smoke schedule over one fp32 leaf of 1,048,576 x 2,048 (8 GiB, the
+   reference's row width) on a simulated (1, 2, 2) mesh (4 row-range
+   shards) grown to (2, 2, 2), 4,096 random rows written a step and
+   mirrored on the host, the patrol budget scaled from the reference's
+   (256 MiB a shard a tick; rebuild and remesh windows 1 GiB), the
+   reference's policy otherwise (vilamb, T=2, deadline 6, the overlapped
+   tick, its health governor): 8 steps of traffic; 2 bitflips on clean
+   blocks, quiet ticks until the patroller repaired both; traffic; a
+   straggler storm; a crash (the live leaf and redundancy saved by a
+   CheckpointManager in a temporary directory, free space checked first,
+   ``restore_verified`` into a fresh store, the leaf equal to the mirror);
+   traffic; a flush and quiet ticks until cross-shard parity covers the
+   leaf; shard 2 wiped and declared lost, rebuilt under writes; a remesh to
+   (2, 2, 2) queued mid-rebuild; traffic; the drain.  Every tick audited
+   for a deadline excursion nothing reported, every fifth a
+   ``read_verified`` of 2 random blocks against the mirror; blocks the
+   rebuild names lost are rewritten from the mirror.  Checked: the soak's
+   ``ok()``, every phase run, both bitflips repaired, one crash restore,
+   the rebuild and the migration done, reads checked and none stale, no
+   silent excursion, a clean final scrub, the leaf bitwise the mirror,
+   verify_meta clean and no mark left after the final flush,
+   ``geometry_version`` 1 and 8 shards, K1 and K2 over the final leaf's 8
+   shards against a chunked plain recompute and the store's checksums and
+   parity.  Timed: each storm phase's wall time and its ticks' median and
+   largest host ms, the crash's save and ``restore_verified``, the rebuild's
+   and the remesh's ticks, the peak and the phase's wall time; printed:
+   the detection latencies and ``mttdl_live_s``.  Its launches are the
+   kernel line's "chaos" path.  (Phase 13 also runs ``python -m
+   repro_torch.faults --chaos --smoke`` in a process of its own: the
+   reference's 512 KiB leaf, exit 0 and the OK summary.)
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 the per-kernel JSON record.  All data comes from ``--seed``.
@@ -521,13 +553,15 @@ ENCDEC_CORRUPT = ("slot_0/k", "slot_0/ck")      # a self and a cross cache
 ENCDEC_TRAIN_STEPS = 4
 
 # Phases 19-20, training through the recurrent mixers: xlstm-1.3b at full
-# size with phase 9's batch, data, schedule and store, XLSTM_TRAIN_STEPS
-# with the overlapped store (the due tick at 8), then as many with the
-# blocking and with no store, or XLSTM_SHORT_STEPS each where the median
-# step exceeds XLSTM_LONG_STEP_MS; jamba's Mamba mixer at full width (slot
+# width with phase 9's batch, data, schedule and store, XLSTM_TRAIN_STEPS
+# with the overlapped store (the due tick at 8), then XLSTM_SHORT_STEPS
+# each with the blocking and with no store; jamba's Mamba mixer at full width (slot
 # 0 of hybrid_config()) on (1, MAMBA_SEQ, 8,192) bf16, with and without the
 # per-chunk checkpoint; jamba's smoke config trained through Trainer.run.
-XLSTM_TRAIN_STEPS, XLSTM_SHORT_STEPS, XLSTM_LONG_STEP_MS = 8, 3, 8000.0
+XLSTM_TRAIN_STEPS, XLSTM_SHORT_STEPS = 8, 2
+# Phase 19's depth: 3 of xlstm-1.3b's 6 groups of 8 layers (the script's
+# time limit; a full-depth step took 10-16 s of host).
+XLSTM_TRAIN_LAYERS, XLSTM_TRAIN_PARAMS = 24, 713_527_392
 XLSTM_TRAIN_CORRUPT = ("params/stack/slot_7/slstm/wq", "m/stack/slot_0/mlstm/wq")
 MAMBA_SEQ = 4096
 HYBRID_SMOKE_STEPS, HYBRID_SMOKE_SEQ, HYBRID_SMOKE_BATCH = 8, 256, 2
@@ -554,6 +588,17 @@ SHARD_ORACLE_FAULTS, SHARD_WINDOW_STEPS = 64, 4
 # SHRINK_SHAPE, at REMESH_BUDGET a shard a window.
 READ_RETRY_ATTEMPTS, READ_BLOCKS, READ_PENDING, READ_FRESH = 2, 64, 16, 64
 GROW_SHAPE, SHRINK_SHAPE, REMESH_BUDGET = (2, 2, 4), (1, 2, 2), 64 << 20
+
+# Phase 25, the chaos soak (repro_torch.faults.chaos): the reference's
+# sharded smoke schedule over one fp32 leaf of CHAOS_ROWS rows of the
+# reference's width (2,048 words: 16 blocks of 128 lanes a row; 8 GiB) in 4
+# row-range shards grown to 8, the patrol budget scaled with the leaf (256
+# MiB a shard a tick; rebuild and remesh windows 1 GiB).  The one cut:
+# CHAOS_ROWS_PER_STEP rows written a step (the reference's 3 of 64 rows
+# would be 49,152 rows of host-drawn normals a step).  The crash's
+# checkpoint is the leaf and its redundancy, 10.8 GB on disk.
+CHAOS_ROWS, CHAOS_ROWS_PER_STEP = 1 << 20, 4096
+CHAOS_DISK_GB = 16
 
 SPIN_CYCLES = 20_000_000               # about 10 ms of one SM's clock
 
@@ -1940,7 +1985,7 @@ def train_observe(model, data, opt, structs, seed: int, kind: str,
     losses = torch.stack(rec["losses"])
     out = {"losses": losses.tolist(), "loss_bits": losses.view(torch.int32).clone(),
            "step_wall_ms": rec["wall_ms"],
-           "median_step_ms": statistics.median(rec["wall_ms"][2:]),
+           "median_step_ms": statistics.median(rec["wall_ms"][min(2, steps - 1):]),
            "run_s": run_s, "drained_s": drained_s,
            "due_tick_host_ms": [t["ms"] for t in ticks if t["updated"]],
            "checksums": {n: ck_ops.block_checksums(blocks.to_lanes(p, blocks.make_meta(p)))
@@ -3077,6 +3122,19 @@ def phase_faults(seed: int) -> dict:
           and sharded[8].startswith("  sharded shard-loss rebuild seed=0: status=")
           and sharded[8].endswith("clean=True bitwise=True OK"),
           f"the battery's sharded pass printed {sharded}")
+    # The chaos soak's entry point at the reference's size, likewise.
+    t = time.perf_counter()
+    cli = subprocess.run([sys.executable, "-m", "repro_torch.faults", "--chaos", "--smoke"],
+                         capture_output=True, text=True, env=env, timeout=600,
+                         cwd=str(Path(__file__).resolve().parent))
+    lines = cli.stdout.strip().splitlines()
+    rec["chaos_cli"] = {"rc": cli.returncode, "s": time.perf_counter() - t,
+                        "lines": [ln for ln in lines if not ln.startswith("  chaos phase ")]}
+    soak = [ln for ln in lines if ln.startswith("  chaos soak: ")]
+    check(cli.returncode == 0 and len(soak) == 1 and soak[0].endswith(" OK")
+          and lines[-1].startswith("== chaos soak OK in "),
+          f"python -m repro_torch.faults --chaos --smoke exited {cli.returncode}: "
+          f"{cli.stdout[-2000:]} {cli.stderr[-2000:]}")
     rec["wall_s"] = time.perf_counter() - t_phase
     return rec
 
@@ -3106,6 +3164,9 @@ def print_faults(rec: dict) -> None:
           f"corruption {sw['corruption']}; per replay (s) {sw['replay_s']}")
     for line in rec["cli"]["lines"]:
         print(f"faults: cli | {line}")
+    print(f"faults: chaos cli ({rec['chaos_cli']['s']:.1f} s)")
+    for line in rec["chaos_cli"]["lines"]:
+        print(f"faults: chaos cli | {line}")
 
 
 def patrol_plan(g, steps: int) -> tuple:
@@ -4358,11 +4419,12 @@ def slots_alone_ms(cfg, params, slots: dict, g, reps: int = 4) -> dict:
 
 
 def phase_train_xlstm(seed: int) -> dict:
-    """Phase 19: xlstm-1.3b trained at full size through ``Trainer.run``
-    (see the module docstring).  Returns the phase's record."""
+    """Phase 19: xlstm-1.3b trained at full width, XLSTM_TRAIN_LAYERS deep,
+    through ``Trainer.run`` (see the module docstring).  Returns the
+    phase's record."""
     from torch.profiler import ProfilerActivity, profile
     t_phase = time.perf_counter()
-    cfg = xlstm_config()
+    cfg = dataclasses.replace(xlstm_config(), n_layers=XLSTM_TRAIN_LAYERS)
     model = build_model(cfg, DEVICE)
     data = SyntheticPipeline(cfg, ShapeConfig("train_4k_batch1", TRAIN_SEQ, TRAIN_BATCH,
                                               "train"), seed=seed, device=DEVICE)
@@ -4380,7 +4442,7 @@ def phase_train_xlstm(seed: int) -> dict:
         ticks = host_timed_ticks(store)
         state = trainer.init_state(torch.Generator(device=DEVICE).manual_seed(seed))
         n_params = n_params_of(state.params)
-        check(n_params == XLSTM_PARAMS, f"{n_params} params, want {XLSTM_PARAMS}")
+        check(n_params == XLSTM_TRAIN_PARAMS, f"{n_params} params, want {XLSTM_TRAIN_PARAMS}")
         k3_first = len(k3_streams)            # attach's warmup and init before
         rec: dict = {}
         sums: dict = {}
@@ -4470,7 +4532,7 @@ def phase_train_xlstm(seed: int) -> dict:
     del trainer, store, state, leaves, on_step, recorder
     gc.collect()
     torch.cuda.empty_cache()
-    steps = XLSTM_TRAIN_STEPS if median_ms <= XLSTM_LONG_STEP_MS else XLSTM_SHORT_STEPS
+    steps = XLSTM_SHORT_STEPS
     want_bits, want_sums = main["loss_bits"][:steps], sums[steps]
     obs = {}
     for kind in ("blocking", "none"):
@@ -4599,8 +4661,8 @@ def phase_train_hybrid(seed: int) -> dict:
 
 def print_train_xlstm(r: dict) -> None:
     m, tr = r["main"], r["main"]["trace_step_8"]
-    print(f"train xlstm ({r['phase_s']:.1f} s): {XLSTM_ARCH} full size ({m['n_params']} "
-          f"params), batch {TRAIN_BATCH} x {TRAIN_SEQ}, {XLSTM_TRAIN_STEPS} steps under the "
+    print(f"train xlstm ({r['phase_s']:.1f} s): {XLSTM_ARCH} at full width, "
+          f"{XLSTM_TRAIN_LAYERS} of 48 layers ({m['n_params']} params), batch {TRAIN_BATCH} x {TRAIN_SEQ}, {XLSTM_TRAIN_STEPS} steps under the "
           f"overlapped vilamb store over {m['memory_gb']['leaves']} leaves "
           f"({m['memory_gb']['state']:.2f} GB, {m['memory_gb']['parity']:.2f} GB parity); "
           f"launches {m['launches']}; peak {m['peak_mem_gib']:.2f} GiB")
@@ -5973,6 +6035,135 @@ def print_remesh(r: dict) -> None:
               f"{[t['actions'] for t in x['ticks'] if t['actions']]}")
 
 
+def chaos_tick_stats(ticks: list) -> dict:
+    """Median and largest host ms of a list of the soak's ticks."""
+    ms = [t["host_ms"] for t in ticks]
+    return {"ticks": len(ms), "median_ms": statistics.median(ms) if ms else None,
+            "max_ms": max(ms, default=None)}
+
+
+def phase_chaos(g, seed: int) -> dict:
+    """Phase 25: the chaos soak (``repro_torch.faults.chaos``) with the
+    reference's sharded smoke schedule over an 8 GiB leaf on a simulated
+    (1, 2, 2) mesh grown to (2, 2, 2): bitflips repaired by the patroller,
+    a straggler storm, a crash restored by ``restore_verified`` into a fresh
+    store, a shard lost and rebuilt from cross-shard parity under writes, a
+    remesh queued mid-rebuild, the drain; every tick audited for silent
+    deadline excursions, every fifth a ``read_verified`` spot check against
+    the host mirror.  Checked against the invariants, the mirror, and a
+    plain recompute of the final fields from the final leaf.  Returns the
+    phase's record."""
+    import shutil
+    import tempfile
+    from repro_torch.faults import ChaosSchedule
+    from repro_torch.faults.chaos import N_COLS, _ChaosRunner
+    t_phase = time.perf_counter()
+    dev = torch.device(DEVICE)
+    free_gb = shutil.disk_usage(tempfile.gettempdir()).free / 1e9
+    check(free_gb > CHAOS_DISK_GB, f"phase 25 needs {CHAOS_DISK_GB} GB on disk in "
+          f"{tempfile.gettempdir()}; {free_gb:.1f} GB are free")
+    sched = ChaosSchedule.default(seed, sharded=True, smoke=True)
+    t0 = time.perf_counter()
+    initial = np.empty((CHAOS_ROWS, N_COLS), np.float32)
+    buf = torch.empty((CHAOS_ROWS // 32, N_COLS), pin_memory=dev.type == "cuda")
+    for a in range(0, CHAOS_ROWS, len(buf)):      # through pinned memory
+        buf.copy_(torch.randn(buf.shape, generator=g, device=dev))
+        initial[a:a + len(buf)] = buf.numpy()
+    del buf
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    # The runner keeps ``initial`` as its mirror (no second host copy).
+    runner = _ChaosRunner(sched, sharded=True, device=dev, initial=initial,
+                          n_rows=CHAOS_ROWS, rows_per_step=CHAOS_ROWS_PER_STEP)
+    del initial
+    torch.cuda.synchronize()
+    rec: dict = {"setup_s": time.perf_counter() - t0}
+    st = runner.store
+    # The reference's 16 KiB a shard a tick over its 512 KiB leaf, scaled.
+    patrol = (16 << 10) * CHAOS_ROWS // 64
+    check(st.shard_factor("w") == 4 and st.policy.patrol_bytes_per_tick == patrol
+          and st.patroller.window["w"] == patrol // (128 * 4),
+          f"phase 25's store: {st.shard_factor('w')} shards, patrol "
+          f"{st.policy.patrol_bytes_per_tick} B")
+    del st
+    t0 = time.perf_counter()
+    res = runner.run()
+    torch.cuda.synchronize()
+    rec["run_s"] = time.perf_counter() - t0
+    rec["launches"] = read_launches()
+    rec["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 2**30
+    rec["summary"] = res.summary()
+    rec["result"] = dataclasses.asdict(res)
+    kinds = tuple(p.kind for p in sched.phases)
+    check(res.ok() and res.phases_run == kinds, f"the soak: {res.summary()}")
+    check(res.bitflips_injected > 0 and res.bitflips_repaired == res.bitflips_injected
+          and res.crash_restores == 1 and res.rebuild_done and res.remesh_done,
+          f"the storms: {res}")
+    check(res.reads_checked > 0 and res.reads_stale == 0 and res.silent_violations == 0
+          and res.final_clean and res.final_bitwise, f"the invariants: {res}")
+    store, leaves, red = runner.store, runner.leaves, runner.red
+    check(store.geometry_version == 1 and store.shard_factor("w") == 8,
+          f"after the remesh: geometry_version {store.geometry_version}, "
+          f"{store.shard_factor('w')} shards")
+    check(all(bool(v) for v in store.verify_meta(red).values()),
+          "verify_meta after the final flush")
+    check(res.named_lost_rows_restored <= res.named_lost_blocks,
+          f"named losses: {res.named_lost_blocks} blocks, "
+          f"{res.named_lost_rows_restored} rows restored")
+    check(not bool((red["w"].dirty | red["w"].shadow).any()),
+          "marks left after the final flush")
+    rec["full_check"] = sharded_full_check(store, leaves, red, ["w"])
+    for name in ("checksum", "parity", "fused_update"):
+        check(rec["launches"][name] > 0, f"{name} kernel never launched in phase 25")
+    phases = []
+    for p in runner.timings["phases"]:
+        phases.append({"kind": p["kind"], "wall_s": p["wall_s"],
+                       **chaos_tick_stats(p["ticks"])})
+    every = [t for p in runner.timings["phases"] for t in p["ticks"]]
+    rec["phases"] = phases
+    rec["crash"] = runner.timings["crash"]
+    rec["final_check_s"] = runner.timings["final_check_s"]
+    rec["rebuild_ticks"] = chaos_tick_stats([t for t in every if t["rebuild"]])
+    rec["remesh_ticks"] = chaos_tick_stats([t for t in every if t["remesh"]])
+    rec["quiesce_ticks"] = next(p["ticks"] for p in phases if p["kind"] == "quiesce")
+    rec["leaf_gib"] = CHAOS_ROWS * N_COLS * 4 / 2**30
+    del runner, store, leaves, red
+    rec["wall_s"] = time.perf_counter() - t_phase
+    return rec
+
+
+def print_chaos(r: dict) -> None:
+    x = r["result"]
+    print(f"chaos (phase 25, {r['wall_s']:.1f} s: set-up {r['setup_s']:.1f}, soak "
+          f"{r['run_s']:.1f}, of it the final settle, flush, scrub and comparison "
+          f"{r['final_check_s']:.1f}): {r['leaf_gib']:.0f} GiB leaf; launches "
+          f"{r['launches']}; peak {r['peak_mem_gb']:.2f} GiB")
+    print(f"chaos: {r['summary']}")
+    print(f"chaos: bitflips {x['bitflips_injected']} injected, {x['bitflips_repaired']} "
+          f"repaired; crash restores {x['crash_restores']}; named losses "
+          f"{x['named_lost_blocks']} blocks, {x['named_lost_rows_restored']} rows restored "
+          f"from the mirror; reads {x['reads_checked']} (typed {x['reads_typed_errors']}, "
+          f"stale {x['reads_stale']}); detect_latency_stats {x['detect_latency_stats']}; "
+          f"mttdl_live_s {x['mttdl_live_s']:.6g}")
+    for p in r["phases"]:
+        med = "-" if p["median_ms"] is None else f"{p['median_ms']:.3f}"
+        mx = "-" if p["max_ms"] is None else f"{p['max_ms']:.3f}"
+        print(f"chaos phase {p['kind']}: {p['wall_s']:.3f} s, {p['ticks']} ticks, host ms "
+              f"median {med} max {mx}")
+    c = r["crash"]
+    print(f"chaos crash: save {c['save_s']:.2f} s ({c['bytes'] / 1e9:.2f} GB), "
+          f"restore_verified {c['restore_s']:.2f} s ({c['tried']}); quiesce took "
+          f"{r['quiesce_ticks']} ticks; rebuild ticks {r['rebuild_ticks']}; remesh ticks "
+          f"{r['remesh_ticks']}; full check {r['full_check']}")
+
+
+
+def clock(name: str, t_start: float) -> None:
+    """The script's clock at the end of a phase (the time limit is the
+    whole script's)."""
+    print(f"clock: {name} done at {time.perf_counter() - t_start:.1f} s", flush=True)
+
 def smi_line() -> str:
     """The card's name and power limit, as nvidia-smi gives them."""
     smi = subprocess.run(
@@ -6035,12 +6226,14 @@ def main() -> int:
     print("full check: checksums and parity of every block match a chunked plain "
           "recompute")
     print(json.dumps({"main": main_run["timings"]}), flush=True)
+    clock("main", t_start)
     heap_launches = main_run["launches"]
     del main_run
     torch.cuda.empty_cache()
 
     flash_cases = phase_flash_small(g)
     print(json.dumps({"flash_small": flash_cases}))
+    clock("flash_small", t_start)
     print(f"flash == plain at small shapes: max abs err "
           f"{max(c[4] for c in flash_cases)}, max rel L2 err "
           f"{max(c[5] for c in flash_cases)}", flush=True)
@@ -6093,6 +6286,7 @@ def main() -> int:
     print(json.dumps({"flash": flash}))
     print(json.dumps({"serve": tm}))
     print(json.dumps({"serve_launches": serve["launches"]}))
+    clock("serve", t_start)
     serve_launches = serve["launches"]
     patrol_serve = serve["patrolled"]
     serve_tokens, serve_gen_state = serve["tokens"], serve["gen_state"]
@@ -6131,6 +6325,7 @@ def main() -> int:
           f"and no store; lazy embedding rows bit-identical; full check, scrub and "
           f"recovery passed")
     print(json.dumps({"train": train}))
+    clock("train", t_start)
     train_launches = m["launches"]
     del train
     gc.collect()
@@ -6140,6 +6335,7 @@ def main() -> int:
     print_recovery(rec)
     print(smi_line())
     print(json.dumps({"recovery": rec}))
+    clock("recovery", t_start)
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -6150,6 +6346,7 @@ def main() -> int:
     print_train_moe(moe_train)
     print(smi_line())
     print(json.dumps({"train_moe": moe_train}))
+    clock("train_moe", t_start)
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -6157,6 +6354,7 @@ def main() -> int:
     print_faults(fl)
     print(smi_line())
     print(json.dumps({"faults": fl}))
+    clock("faults", t_start)
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -6165,6 +6363,7 @@ def main() -> int:
     print(f"serve with patrol (phase 14d): {patrol_serve}")
     print(smi_line())
     print(json.dumps({"patrol": pt, "serve_patrolled": patrol_serve}))
+    clock("patrol", t_start)
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -6173,6 +6372,7 @@ def main() -> int:
     print_serve_recurrent("serve hybrid", hy)
     print(smi_line())
     print(json.dumps({"serve_hybrid": hy}))
+    clock("serve_hybrid", t_start)
     gc.collect()
     torch.cuda.empty_cache()
     xl = phase_serve_recurrent(g, xlstm_config(), XLSTM_PARAMS, list(XLSTM_CORRUPT),
@@ -6180,38 +6380,45 @@ def main() -> int:
     print_serve_recurrent("serve xlstm", xl)
     print(smi_line())
     print(json.dumps({"serve_xlstm": xl}))
+    clock("serve_xlstm", t_start)
     gc.collect()
     torch.cuda.empty_cache()
     vl = phase_serve_multimodal(g, vlm_config(), VLM_PARAMS, list(VLM_CORRUPT))
     print_serve_multimodal("serve vlm", vl)
     print(json.dumps({"serve_vlm": vl}))
+    clock("serve_vlm", t_start)
     gc.collect()
     torch.cuda.empty_cache()
     ed = phase_serve_multimodal(g, encdec_config(), ENCDEC_PARAMS, list(ENCDEC_CORRUPT))
     print_serve_multimodal("serve enc-dec", ed)
     print(json.dumps({"serve_encdec": ed}))
+    clock("serve_encdec", t_start)
     gc.collect()
     torch.cuda.empty_cache()
     te = phase_train_encdec(args.seed)
     print_train_encdec(te)
     print(smi_line())
     print(json.dumps({"train_encdec": te}))
+    clock("train_encdec", t_start)
     gc.collect()
     torch.cuda.empty_cache()
     tx = phase_train_xlstm(args.seed)
     print_train_xlstm(tx)
     print(smi_line())
     print(json.dumps({"train_xlstm": tx}))
+    clock("train_xlstm", t_start)
     th = phase_train_hybrid(args.seed)
     print_train_hybrid(th)
     print(smi_line())
     print(json.dumps({"train_hybrid": th}))
+    clock("train_hybrid", t_start)
     gc.collect()
     torch.cuda.empty_cache()
     sh = phase_sharded_heap(g)
     print_sharded_heap(sh)
     print(smi_line())
     print(json.dumps({"sharded_heap": sh}))
+    clock("sharded_heap", t_start)
     gc.collect()
     torch.cuda.empty_cache()
     ss = phase_serve_sharded(serve_gen_state, serve_tokens, serve_none_s)
@@ -6219,18 +6426,28 @@ def main() -> int:
     print_serve_sharded_patrolled(ss["patrolled"])
     print(smi_line())
     print(json.dumps({"serve_sharded": ss}))
+    clock("serve_sharded", t_start)
     gc.collect()
     torch.cuda.empty_cache()
     sp = phase_sharded_patrol(g)
     print_sharded_patrol(sp)
     print(smi_line())
     print(json.dumps({"sharded_patrol": sp}))
+    clock("sharded_patrol", t_start)
     gc.collect()
     torch.cuda.empty_cache()
     rm = phase_remesh(g)
     print_remesh(rm)
     print(smi_line())
     print(json.dumps({"remesh": rm}))
+    clock("remesh", t_start)
+    gc.collect()
+    torch.cuda.empty_cache()
+    ch = phase_chaos(g, args.seed)
+    print_chaos(ch)
+    print(smi_line())
+    print(json.dumps({"chaos": ch}))
+    clock("chaos", t_start)
     for row in kernels:
         by_path = {"heap": heap_launches.get(row["name"], 0),
                    "serving": serve_launches[row["name"]],
@@ -6252,7 +6469,8 @@ def main() -> int:
                    "sharded serving": ss["launches"][row["name"]],
                    "sharded patrol": sp["launches"][row["name"]]
                    + ss["patrolled"]["launches"][row["name"]],
-                   "remesh": rm["launches"][row["name"]]}
+                   "remesh": rm["launches"][row["name"]],
+                   "chaos": ch["launches"][row["name"]]}
         row["launches"] = sum(by_path.values())
         row["launches_by_path"] = by_path
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s")

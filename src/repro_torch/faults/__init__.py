@@ -20,24 +20,31 @@ the port's store:
 Sharded stores are covered too: specs, windows and injections in global
 block space, and ``shard_loss`` of a whole shard, which the patroller
 rebuilds from cross-shard parity; the crash machine's ``actions`` can
-queue a remesh, whose windows fire ``remesh_migrate``.  The reference's
-chaos soak (``repro.faults.chaos``) is not ported yet: ROADMAP.md, Queue 1
-item 11.5 (c).
+queue a remesh, whose windows fire ``remesh_migrate``.
+
+* :mod:`.chaos`: the chaos soak, every fault mode at once under live
+  writes (bitflips, a crash, a straggler storm, and on a simulated mesh a
+  shard loss with a remesh queued mid-rebuild), audited every tick for
+  stale verified reads and silent deadline excursions, and bitwise
+  against a host mirror at the end.
 
 ``python -m repro_torch.faults --smoke`` runs the battery (crash sweep,
 crash plus corruption, oracle over several seeds, the scrub patroller's
 detection on a settled store, the sharded oracle, crash subset and shard
-rebuild).
+rebuild); ``python -m repro_torch.faults --chaos --smoke`` runs the chaos
+soak.
 """
 from .inject import FAULT_KINDS, FaultInjector, FaultSpec, apply_fault
 from .crashpoints import (CRASH_PHASES, CrashOutcome, CrashPlan,
                           CrashPointMachine)
 from .oracle import (DetectionRecord, OracleReport, VulnerabilityWindow,
                      check_detection, vulnerability_window)
+from .chaos import ChaosResult, ChaosSchedule, StormPhase, run_chaos_soak
 
 __all__ = [
     "FAULT_KINDS", "FaultInjector", "FaultSpec", "apply_fault",
     "CRASH_PHASES", "CrashOutcome", "CrashPlan", "CrashPointMachine",
     "DetectionRecord", "OracleReport", "VulnerabilityWindow",
     "check_detection", "vulnerability_window",
+    "ChaosResult", "ChaosSchedule", "StormPhase", "run_chaos_soak",
 ]

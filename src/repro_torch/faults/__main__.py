@@ -26,8 +26,11 @@ cpu`` is given.  Seeded, deterministic passes:
    the port runs the pass in this process (``--no-sharded`` skips it,
    ``--sharded-child`` runs it alone).
 
-The reference's ``--chaos`` soak is not ported yet (ROADMAP.md, Queue 1
-item 11.5 (c), the chaos soak) and raises.
+``--chaos`` runs only the chaos soak (:mod:`.chaos`): bitflips, a
+straggler storm, a crash, a shard loss and a remesh queued mid-rebuild,
+under live writes, on a simulated (1, 2, 2) mesh grown to (2, 2, 2) in
+this process (the reference spawns a process with forced host devices);
+``--chaos-child`` runs the soak alone, without the header and footer.
 
 Exit status 1 on any violation.
 """
@@ -56,10 +59,6 @@ from .oracle import check_detection, vulnerability_window
 REQUIRED_PHASES = ("dispatch", "coalesce", "adopt", "adopt_forced",
                    "dispatcher_enqueue", "dispatcher_join",
                    "on_write", "tick", "flush")
-
-CHAOS_REFUSAL = ("the chaos soak (repro.faults.chaos) is not ported yet: "
-                 "ROADMAP.md, Queue 1 item 11.5 (c), the chaos soak")
-
 
 def _make_leaves(device):
     """The reference smoke's leaves (its shapes and dtypes; the values are
@@ -356,6 +355,17 @@ def sharded_rebuild_case(device, seed: int, mesh, specs) -> int:
     return 0 if ok else 1
 
 
+def chaos_child(device, seed: int, smoke: bool) -> int:
+    """The full multi-storm soak (bitflips + straggler storm + crash +
+    shard loss + mid-rebuild remesh under live traffic; see
+    repro_torch.faults.chaos) on a simulated mesh on ``device``."""
+    from .chaos import run_chaos_soak
+    r = run_chaos_soak(seed, sharded=True, smoke=smoke, verbose=print,
+                       device=device)
+    print(f"  chaos soak: {r.summary()}")
+    return 0 if r.ok() else 1
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--smoke", action="store_true",
@@ -367,19 +377,30 @@ def main(argv=None) -> int:
     p.add_argument("--no-sharded", action="store_true",
                    help="skip the sharded battery")
     p.add_argument("--chaos", action="store_true",
-                   help="the reference's chaos soak (not ported yet: raises)")
+                   help="run ONLY the chaos soak (seeded multi-storm run "
+                        "under live traffic, on a simulated mesh)")
     p.add_argument("--sharded-child", action="store_true",
                    help="run only the sharded battery (seed = --seeds)")
     p.add_argument("--chaos-child", action="store_true",
                    help=argparse.SUPPRESS)
     args = p.parse_args(argv)
-    if args.chaos or args.chaos_child:
-        raise NotImplementedError(CHAOS_REFUSAL)
     device = resolve_device(args.device, "python -m repro_torch.faults")
     if args.sharded_child:
         return 1 if sharded_child(device, args.seeds, args.steps) else 0
+    if args.chaos_child:
+        return chaos_child(device, args.seeds, args.smoke)
     name = (torch.cuda.get_device_name(device) if device.type == "cuda"
             else "cpu")
+    if args.chaos:
+        t0 = time.time()
+        print(f"== chaos soak (multi-storm, live traffic, simulated mesh on "
+              f"{device} ({name})) ==")
+        fails = chaos_child(device, args.seeds if args.seeds != 3 else 0,
+                            args.smoke)
+        dt = time.time() - t0
+        print(f"== chaos soak {'OK' if not fails else 'FAILED'} "
+              f"in {dt:.1f}s ==")
+        return 1 if fails else 0
     print(f"== fault battery on {device} ({name}) ==")
 
     t0 = time.time()

@@ -10,10 +10,11 @@ bit where they are bit patterns.  Readiness is patched in both packages
 alike (``store._ready``; the reference's inline resolution, so no resolver
 thread decides it).  ``backoff_delay``/``backoff_schedule`` give the
 reference's floats exactly, jitter draws included.  Then the machine-local
-tests of tests/test_health.py, ported (the chaos soak is ROADMAP.md,
-Queue 1 item 11.5 (c); ``read_verified``'s retry sleeps and the governor's
-remesh drain are held against the reference in tests/test_torch_remesh.py,
-a live rebuild's ``rebuild_active`` in tests/test_torch_rebuild.py).
+tests of tests/test_health.py, ported (the chaos soak's two tests are
+held against the reference in tests/test_torch_chaos.py;
+``read_verified``'s retry sleeps and the governor's remesh drain in
+tests/test_torch_remesh.py, a live rebuild's ``rebuild_active`` in
+tests/test_torch_rebuild.py).
 """
 import random
 import time
