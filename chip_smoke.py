@@ -71,20 +71,21 @@ Phases, each of which must pass or the script exits non-zero:
 9. training: llama3.2-3b at full width and depth (bf16 params, fp32 Adam
    moments, per-slot remat, random weights and the reference's zipf stream
    from the seed), batch 1 x 4,096 tokens, AdamW(warmup_cosine(1e-3, 10,
-   24)), 24 steps through ``Trainer.run`` with params and both moments
+   24)), 16 steps through ``Trainer.run`` with params and both moments
    (32 GB) under a vilamb store on the overlapped tick (T=8, deadline 16,
-   scrub every 16: due ticks at 8, 16, 24, a scrub at 16).  Checked: finite
+   scrub every 16: due ticks at 8 and 16, a scrub at 16).  Checked: finite
    losses whose last four average below the first; every fused update on
    the store's side stream; the launch counts of this run; untouched
    embedding rows bit-identical in params, m and v, and blocks of only
    untouched rows never marked dirty; after flush every checksum and
    parity row against a chunked plain recompute, a clean scrub, one
    corrupted lane in an m/ and one in a params/ leaf found and rebuilt
-   bitwise; three runs of 8 steps (overlapped store, blocking store, no
+   bitwise; three runs of 6 steps (overlapped store, blocking store, no
    store) with bitwise equal losses and final params checksums.  Timed:
    those three runs' step wall times, each due tick's host ms, a profiler
    trace of steps 7-9 (the fused update's device time, stream and overlap,
-   the device-busy share), peak memory and the model-FLOP share;
+   the device-busy share), peak memory and the model-FLOP share.  Then,
+   untimed, phase 26's counted step (below);
 10. recovery: llama3.2-3b at full width with its depth cut to 2 layers
    (each checkpoint writes the whole state, 7.47 GB), phase 9's batch,
    data and store, a CheckpointManager(keep=2) in a temporary directory
@@ -261,8 +262,8 @@ Phases, each of which must pass or the script exits non-zero:
    phase 9's store and determinism settings, a flush and a clean scrub,
    and the same steps with the blocking and no store: losses and final
    params checksums bitwise equal; the median step and the peak;
-19. xLSTM training: xlstm-1.3b at full width with its depth cut to 24 of
-   its 48 layers (3 groups: 21 mLSTM and 3 sLSTM, 713,527,392 random bf16
+19. xLSTM training: xlstm-1.3b at full width with its depth cut to 16 of
+   its 48 layers (2 groups: 14 mLSTM and 2 sLSTM, 545,591,360 random bf16
    params; the script's time limit) through ``Trainer.run`` with
    phase 9's batch, data, schedule, store and determinism settings, each
    chunk of the scans checkpointed inside each slot's checkpoint: 8 steps
@@ -409,6 +410,25 @@ Phases, each of which must pass or the script exits non-zero:
    kernel line's "chaos" path.  (Phase 13 also runs ``python -m
    repro_torch.faults --chaos --smoke`` in a process of its own: the
    reference's 512 KiB leaf, exit 0 and the OK summary.)
+26. the dry run against the card (``repro_torch.launch``: the cost
+   counter, the meta device, the memory model): (a) phase 7's serving cell
+   (the prefill of batch 8 x 4,096 into caches of 4,161 positions; a
+   vilamb store's init over them, one decode step at 4,096, a redundancy
+   pass) and phase 9's training cell (batch 1 x 4,096: the store's init,
+   one step, a redundancy pass) traced on the meta device under the
+   counter, in a process of their own started after the build; (b) the
+   same parts run once on the card under the counter, untimed, after
+   phases 7's and 9's timed work: each part's FLOPs, bytes and per-kernel
+   launches and work equal the trace's exactly, and each kernel's counted
+   launches equal its wrapper's; (c) the memory model's params, moments,
+   caches and redundancy equal the bytes phases 7 and 9 held, its totals
+   printed beside their peaks, and ``HBM_BUDGET`` equal to the card's
+   ``total_memory``; (d) the training step's roofline beside phase 9's
+   median steps, with the counted-FLOP share, and the Algorithm-1 cell's
+   bound (``run_redundancy_cell``, one card) beside phase 9's K3; (e)
+   arctic-480b cut to 2 layers at phase 11's serving shapes, its itemised
+   memory against the budget.  The counted runs' launches are the kernel
+   line's "dry run check" path.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 the per-kernel JSON record.  All data comes from ``--seed``.
@@ -422,6 +442,7 @@ import gc
 import io
 import json
 import math
+import multiprocessing
 import os
 import statistics
 import subprocess
@@ -450,6 +471,8 @@ from repro_torch.kernels.parity import ops as par_ops, ref as par_ref  # noqa: E
 from repro_torch.kernels.redundancy import ops as fu_ops, ref as fu_ref  # noqa: E402
 from repro_torch.data import SyntheticPipeline  # noqa: E402
 from repro_torch.dist import P, cache_specs  # noqa: E402
+from repro_torch.launch import cost_analysis as CA, dryrun, memory_model  # noqa: E402
+from repro_torch.launch.cost_analysis import bound, due_tick_bound  # noqa: E402
 from repro_torch.launch.mesh import make_mesh  # noqa: E402
 from repro_torch.models.parallel import ParallelCtx  # noqa: E402
 from repro_torch.models import Model, ShapeConfig, attention, build_model, layers  # noqa: E402
@@ -457,17 +480,13 @@ from repro_torch.models import mamba as mamba_mod, transformer as tfm  # noqa: E
 from repro_torch.models.transformer import slot_kinds  # noqa: E402
 from repro_torch.optim import AdamW, warmup_cosine  # noqa: E402
 from repro_torch.serve import Server  # noqa: E402
-from repro_torch.train import Trainer, protected_leaves, protected_structs  # noqa: E402
+from repro_torch.serve import make_decode_step, make_prefill  # noqa: E402
+from repro_torch.train import (Trainer, TrainState, protected_leaves,  # noqa: E402
+                               protected_structs)
 from repro_torch.train.train_loop import deterministic  # noqa: E402
 from torch.utils.checkpoint import checkpoint  # noqa: E402
 
-# H100 SXM peaks at 700 W: the HBM3 rate (NVIDIA data sheet), and the
-# INT32 rate for the kernels' integer operations: 132 SMs x 64 INT32
-# lanes x 1.98 GHz boost.  (The data sheet's 67 TFLOP/s float32 figure
-# counts 128 FP32 lanes and an FMA as two operations.)
-HBM_BYTES_PER_SEC = 3.35e12
-ALU_OPS_PER_SEC = 132 * 64 * 1.98e9
-BF16_FLOPS_PER_SEC = 989e12             # dense bf16 tensor cores (data sheet)
+# The card's peaks, each kernel's work and the bounds: launch/cost_analysis.py.
 
 N_ROWS, ROW = 2_097_152, 1024           # 8 GiB of fp32, one 4 KiB block per row
 STRIPE, PERIOD, DEADLINE = 4, 16, 32
@@ -559,9 +578,9 @@ ENCDEC_TRAIN_STEPS = 4
 # 0 of hybrid_config()) on (1, MAMBA_SEQ, 8,192) bf16, with and without the
 # per-chunk checkpoint; jamba's smoke config trained through Trainer.run.
 XLSTM_TRAIN_STEPS, XLSTM_SHORT_STEPS = 8, 2
-# Phase 19's depth: 3 of xlstm-1.3b's 6 groups of 8 layers (the script's
-# time limit; a full-depth step took 10-16 s of host).
-XLSTM_TRAIN_LAYERS, XLSTM_TRAIN_PARAMS = 24, 713_527_392
+# Phase 19's depth: 2 of xlstm-1.3b's 6 groups of 8 layers (the script's
+# time limit; a full-depth step took 10-16 s of host; 3 groups before phase 26).
+XLSTM_TRAIN_LAYERS, XLSTM_TRAIN_PARAMS = 16, 545_591_360
 XLSTM_TRAIN_CORRUPT = ("params/stack/slot_7/slstm/wq", "m/stack/slot_0/mlstm/wq")
 MAMBA_SEQ = 4096
 HYBRID_SMOKE_STEPS, HYBRID_SMOKE_SEQ, HYBRID_SMOKE_BATCH = 8, 256, 2
@@ -599,6 +618,21 @@ GROW_SHAPE, SHRINK_SHAPE, REMESH_BUDGET = (2, 2, 4), (1, 2, 2), 64 << 20
 # checkpoint is the leaf and its redundancy, 10.8 GB on disk.
 CHAOS_ROWS, CHAOS_ROWS_PER_STEP = 1 << 20, 4096
 CHAOS_DISK_GB = 16
+
+# Phase 26, the dry run against the card: phase 7's serving cell (one
+# prefill of the batch's 4,096-token prompts into caches of max_len, the
+# store's init over them, one decode step at position 4,096 and a
+# redundancy pass) and phase 9's training cell (the store's init, one step,
+# a redundancy pass) traced on the meta device in a process of its own
+# while the phases before run; the same steps counted on the card in
+# phases 7 and 9 after their timed work.  Then arctic-480b cut to
+# ARCTIC_DRY_LAYERS layers at phase 11's serving shapes, on the meta device
+# (item 12 starts from its memory line).
+ARCTIC_ARCH, ARCTIC_DRY_LAYERS = "arctic-480b", 2
+# Phase 9's own run: TRAIN_MAIN_STEPS with the overlapped store (due ticks
+# at 8 and 16), then OBS_TRAIN_STEPS each with the overlapped, blocking and
+# no store (cut from 24 and 8 to make room for phase 26).
+TRAIN_MAIN_STEPS, OBS_TRAIN_STEPS = 16, 6
 
 SPIN_CYCLES = 20_000_000               # about 10 ms of one SM's clock
 
@@ -1142,11 +1176,6 @@ def print_build_log(lib) -> None:
           f"the flash kernel spills: {flash_spills}")
 
 
-def bound(bytes_moved: float, ops: float, ops_per_sec: float = ALU_OPS_PER_SEC):
-    t_bytes, t_ops = bytes_moved / HBM_BYTES_PER_SEC, ops / ops_per_sec
-    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
-
-
 def phase_kernel_times(g, main: dict, err: dict) -> list:
     """Each kernel at the main path's shapes: bitwise against its plain
     version, its time, the plain version's time and the bound."""
@@ -1164,7 +1193,7 @@ def phase_kernel_times(g, main: dict, err: dict) -> list:
     rows.append(("checksum", "checksum.cu", "checksum/checksum.py:49",
                  per_call_ms(lambda: ck_ops.block_checksums(lanes), 10),
                  per_call_ms(lambda: ck_ref.block_checksums(lanes), 2),
-                 *bound(nb * L * 4 + nb * 4, nb * L * 12)))
+                 *bound(*CA.checksum_work(nb, L))))
 
     got, want = par_ops.stripe_parity(lanes, STRIPE), par_ref.stripe_parity(lanes, STRIPE)
     check(torch.equal(got, want), "parity kernel != plain on the 8 GiB heap")
@@ -1173,7 +1202,7 @@ def phase_kernel_times(g, main: dict, err: dict) -> list:
     rows.append(("parity", "parity.cu", "parity/parity.py:29",
                  per_call_ms(lambda: par_ops.stripe_parity(lanes, STRIPE), 10),
                  per_call_ms(lambda: par_ref.stripe_parity(lanes, STRIPE), 2),
-                 *bound(nb * L * 4 + ns * L * 4, nb * L)))
+                 *bound(*CA.parity_work(nb, ns, L))))
 
     # A due tick's queue: 16 steps of 4,096 random rows.
     bd = torch.zeros(nb, dtype=torch.bool, device=DEVICE)
@@ -1200,10 +1229,9 @@ def phase_kernel_times(g, main: dict, err: dict) -> list:
     # The dirty stripes' members (read), their parity rows and the dirty
     # checksums (written), every packed word (read).  PR 20's kernel read
     # the bool masks, the ids and the count instead of the words.
-    fu_bytes = n_stripes * STRIPE * L * 4 + n_stripes * L * 4 + n_dirty * 4
-    new_bytes = fu_bytes + words.numel() * 4
-    old_bytes = fu_bytes + n_stripes * STRIPE + n_stripes * 4 + 4
-    ops = n_stripes * STRIPE * L * 13
+    new_bytes, ops = CA.fused_update_work(n_stripes, STRIPE, L, words.numel(),
+                                          checksums=n_dirty)
+    old_bytes = (new_bytes - words.numel() * 4) + n_stripes * STRIPE + n_stripes * 4 + 4
     rows.append(("fused_update", "redundancy.cu", "redundancy/redundancy.py:93",
                  fu_ms, plain_ms, *bound(new_bytes, ops)))
     del old_c, old_p, got, job
@@ -1444,6 +1472,66 @@ def profile_decode(model, params, batch, store=None, steps=4, first=2,
             "ticks": f"{first + 1}-{first + steps}", **stream_overlap(prof)}
 
 
+def held_bytes(groups: dict, red: dict) -> dict:
+    """Phase 26 (c): the bytes of the tensors a phase holds, by the memory
+    model's terms (``groups`` maps a term to its flat tensors), and of its
+    redundancy arrays (checksums, parity, dirty and shadow words); each
+    leaf's 4-byte meta-checksum apart (``meta_ck``), which the model leaves
+    out, as the reference's does."""
+    def nbytes(ts):
+        return sum(t.numel() * t.element_size() for t in ts)
+    out = {k: nbytes(v.values()) for k, v in groups.items()}
+    out["redundancy"] = sum(nbytes((r.checksums, r.parity, r.dirty, r.shadow))
+                            for r in red.values())
+    out["meta_ck"] = sum(r.meta_ck.numel() * 4 for r in red.values())
+    return out
+
+
+def costs_record(c) -> dict:
+    """What phase 26 compares of a part's counts (picklable)."""
+    return {"key": c.key(), "by_op": c.by_op, "copies": dict(c.copies),
+            "total_flops": c.total_flops, "total_bytes": c.total_bytes, "aten_ops": c.n_ops}
+
+
+def counted_parts(kind: str, step_fn, store, args, redundancy_fn=None) -> dict:
+    """Phase 26 (b): one cell's parts (``dryrun.run_parts``) on the card
+    under the cost counter, untimed, with the kernels' launches read
+    around them; each kernel's counted launches must be its wrapper's
+    (the card's path ran the kernels, not their plain versions)."""
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    parts = dryrun.run_parts(kind, step_fn, store, args, redundancy_fn)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_launches()
+    counted = {}
+    for c in parts.values():
+        for n, k in c.kernels.items():
+            counted[n] = counted.get(n, 0) + k.launches
+    for n in ("checksum", "parity", "fused_update", "flash_attn"):
+        check(counted.get(n, 0) == launches[n],
+              f"{kind}: the counter saw {counted.get(n, 0)} {n} launches, its wrapper "
+              f"launched {launches[n]}")
+    return {"parts": {n: costs_record(c) for n, c in parts.items()}, "launches": launches,
+            "seconds": seconds}
+
+
+def counted_serving(model, params, batch, policy, tokens) -> dict:
+    """Phase 26 (b) of phase 7's cell: the prefill, then a fresh store's
+    init over caches of the same shapes, one decode step at the prompt's
+    end and a redundancy pass, counted on the card."""
+    max_len = PROMPT + GEN + 1
+    pre = counted_parts("prefill", make_prefill(model, max_len), None, (params, batch))
+    store = ProtectedStore(policy, device=DEVICE).attach(model.cache_shapes(SERVE_BATCH, max_len))
+    caches = model.init_caches(SERVE_BATCH, max_len)
+    dec = counted_parts("decode", make_decode_step(model, store), store,
+                        (params, caches, {}, tokens[:, 0].contiguous(), PROMPT))
+    del store, caches
+    torch.cuda.empty_cache()
+    return {"prefill": pre, "decode": dec}
+
+
 def phase_serve(g) -> dict:
     """Serve llama3.2-3b at full width and depth with the KV caches under
     vilamb; check the run and time it.  Returns what phase 8 needs."""
@@ -1564,6 +1652,9 @@ def phase_serve(g) -> dict:
         "parity_gb": sum(r.parity.numel() * 4 for r in stats["red"].values()) / 1e9,
         **checks,
     }
+    out["held"] = held_bytes({"params": flatten_dict(params),
+                              "caches": flatten_dict(stats["caches"])}, stats["red"])
+    out["counted"] = counted_serving(model, params, batch, policy, tokens)
     return out
 
 
@@ -1668,16 +1759,6 @@ def layer0_err(q, k, v, causal=True) -> dict:
                      f"one sequence, Sq={q.shape[1]} Sk={k.shape[1]} causal={causal}")
 
 
-def attention_flops(B: int, Sq: int, Sk: int, H: int, hd: int, causal: bool) -> int:
-    """Both products over the (query, key) pairs the mask keeps: row r sees
-    min(r + 1, Sk) keys when causal, all Sk otherwise."""
-    if not causal:
-        return 4 * B * H * hd * Sq * Sk
-    n = min(Sq, Sk)
-    pairs = n * (n + 1) // 2 + max(0, Sq - Sk) * Sk
-    return 4 * B * H * hd * pairs
-
-
 def flash_times(q, k, v, causal=True) -> dict:
     """The flash kernel at the prefill's shapes (a layer's q, k, v of all 8
     sequences): against its plain version, timed beside it and beside
@@ -1700,11 +1781,8 @@ def flash_times(q, k, v, causal=True) -> dict:
         ms = per_call_ms(lambda: fa_ops.flash_attention(q, k, v, causal=causal), 10)
         plain_ms = per_call_ms(lambda: fa_ref.attention(q, k, v, causal=causal), 2)
         library_ms = per_call_ms(sdpa, 10)
-    # Both products over the pairs the mask keeps; q, k, v read once and
-    # the output written once.
-    flops = attention_flops(B, S, Sk, H, hd, causal)
-    nbytes = sum(t.numel() * t.element_size() for t in (q, k, v, q))
-    bms, by = bound(nbytes, flops, BF16_FLOPS_PER_SEC)
+    flops, nbytes = CA.flash_work(q, k, v, causal)
+    bms, by = bound(nbytes, flops, CA.PEAK_BF16_FLOPS)
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
             "library_ms": library_ms, "shape": [B, S, H, k.shape[2], hd],
             "Sk": Sk, "causal": causal,
@@ -1804,20 +1882,10 @@ def step_recorder(trainer, rec: dict, marked: dict = None):
     return on_step
 
 
-def train_flops(cfg, n_params: int) -> float:
-    """Model FLOPs of one step: 6 N per token, plus causal attention's two
-    products over S (S + 1) / 2 (query, key) pairs a head, three times
-    (forward and backward), in every layer.  Per-slot recomputation is not
-    counted."""
-    tokens = TRAIN_BATCH * TRAIN_SEQ
-    attn = 3 * 4 * TRAIN_BATCH * cfg.n_heads * cfg.hd * TRAIN_SEQ * (TRAIN_SEQ + 1) // 2
-    return 6 * n_params * tokens + attn * cfg.n_layers
-
-
 def phase_train(seed: int) -> dict:
-    """Phase 9's main path (24 steps with the overlapped store, traced at
-    steps 7-9, then flush and a scrub), its checks, and the three
-    observational runs."""
+    """Phase 9's main path (TRAIN_MAIN_STEPS with the overlapped store,
+    traced at steps 7-9, then flush and a scrub), its checks, the three
+    observational runs, and phase 26's counted step and held bytes."""
     from torch.profiler import ProfilerActivity, profile
     model, data, opt, structs = train_setup(seed)
     cfg = model.cfg
@@ -1848,7 +1916,7 @@ def phase_train(seed: int) -> dict:
             torch.cuda.synchronize()
         window_us = (time.perf_counter() - t0) * 1e6
         rec["last"] = time.perf_counter()
-        state = trainer.run(state, data, TRAIN_STEPS - TRAIN_TRACE[1], on_step=on_step)
+        state = trainer.run(state, data, TRAIN_MAIN_STEPS - TRAIN_TRACE[1], on_step=on_step)
         tick_k3 = k3_streams[k3_first:]       # the due ticks' updates
         state, flush_ms = timed(lambda: trainer.flush(state))
         scrub_mm, scrub_ms = timed(lambda: trainer.scrub_check(state))
@@ -1860,13 +1928,13 @@ def phase_train(seed: int) -> dict:
 
     losses = torch.stack(rec["losses"]).float()
     loss_list = losses.tolist()
-    check(len(loss_list) == TRAIN_STEPS and bool(torch.isfinite(losses).all()),
+    check(len(loss_list) == TRAIN_MAIN_STEPS and bool(torch.isfinite(losses).all()),
           f"losses {loss_list}")
     check(sum(loss_list[-4:]) / 4 < loss_list[0],
           f"the mean of the last four losses is not below the first: {loss_list}")
     due = [t["step"] for t in ticks if t["updated"]]
     scrubbed = [t["step"] for t in ticks if t["scrubbed"]]
-    check(due == [8, 16, 24] and scrubbed == [16], f"due ticks {due}, scrubs {scrubbed}")
+    check(due == [8, 16] and scrubbed == [16], f"due ticks {due}, scrubs {scrubbed}")
     check(trainer.corruption_alarms == 0 and scrub_mm == 0,
           f"alarms {trainer.corruption_alarms}, scrub after flush {scrub_mm}")
     side = store._side_stream()
@@ -1880,7 +1948,7 @@ def phase_train(seed: int) -> dict:
     # initial values (moments: zero), and blocks of only such rows were
     # never marked dirty after init.
     rows = torch.zeros(cfg.padded_vocab, dtype=torch.bool, device=DEVICE)
-    for step in range(TRAIN_STEPS):
+    for step in range(TRAIN_MAIN_STEPS):
         rows.index_fill_(0, data.get(step)["tokens"].reshape(-1).long(), True)
     cold = ~rows
     check(torch.equal(state.params["embed"][cold].view(torch.int16),
@@ -1920,6 +1988,9 @@ def phase_train(seed: int) -> dict:
                       "leaves": len(leaves),
                       "blocks": sum(m.n_blocks for m in store.metas.values())},
         "lazy_rows": lazy, "corruption": corrupt, "n_params": n_params,
+        "held": held_bytes({"params": {n: t for n, t in leaves.items() if n.startswith("params/")},
+                            "moments": {n: t for n, t in leaves.items()
+                                        if not n.startswith("params/")}}, state.red),
         "k3_launches_on_side_stream": len({c[3] for c in tick_k3}),
         "k3_leaves_on_side_stream": len(tick_k3),
     }
@@ -1927,11 +1998,11 @@ def phase_train(seed: int) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
 
-    # The store is observational: three runs of OBS_STEPS from the same
-    # seed, one after another, each freeing the last.
+    # The store is observational: three runs of OBS_TRAIN_STEPS from the
+    # same seed, one after another, each freeing the last.
     obs = {}
     for kind in ("async", "blocking", "none"):
-        obs[kind] = train_observe(model, data, opt, structs, seed, kind)
+        obs[kind] = train_observe(model, data, opt, structs, seed, kind, OBS_TRAIN_STEPS)
         gc.collect()
         torch.cuda.empty_cache()
     for kind in ("blocking", "none"):
@@ -1942,11 +2013,11 @@ def phase_train(seed: int) -> dict:
               and all(torch.equal(v, obs["async"]["checksums"][n])
                       for n, v in obs[kind]["checksums"].items()),
               f"final params checksums differ between the overlapped store and {kind}")
-    flops = train_flops(cfg, n_params)
+    flops = CA.train_flops(cfg, n_params, TRAIN_BATCH, TRAIN_SEQ)
     for o in obs.values():
         step_s = o["median_step_ms"] / 1e3
         o["tokens_per_s"] = TRAIN_BATCH * TRAIN_SEQ / step_s
-        o["model_flop_share"] = flops / step_s / BF16_FLOPS_PER_SEC
+        o["model_flop_share"] = flops / step_s / CA.PEAK_BF16_FLOPS
         del o["loss_bits"], o["checksums"]
     none = obs["none"]
     # The profiler's own cost on each of a step's launches stretches the
@@ -1958,7 +2029,16 @@ def phase_train(seed: int) -> dict:
         trace["device_busy_ms_per_step"] = per_step
         trace["device_busy_share_of_untraced_step"] = per_step / none["median_step_ms"]
         trace["launches_per_step"] = trace["kernels"] / (TRAIN_TRACE[1] - TRAIN_TRACE[0] + 1)
-    return {"main": main, "observe": obs, "model_flops_per_step": flops,
+    # Phase 26 (b): one step of this cell counted on the card, untimed.
+    trainer = train_trainer(model, opt, structs, "async")
+    params = model.init(torch.Generator(device=DEVICE).manual_seed(seed))
+    state = TrainState.create(params, opt.init(params))
+    counted = counted_parts("train", trainer.train_step, trainer.store, (state, data.get(0)),
+                            trainer.redundancy_step)
+    del trainer, params, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"main": main, "observe": obs, "model_flops_per_step": flops, "counted": counted,
             "store_overhead": {k: obs[k]["median_step_ms"] / none["median_step_ms"] - 1
                                for k in ("async", "blocking")},
             "store_overhead_drained": {k: obs[k]["drained_s"] / none["drained_s"] - 1
@@ -3288,7 +3368,7 @@ def patrol_run(seed: int, state: dict, budget: int, g) -> dict:
               "the probe window's checksums differ from the plain version's")
         k1_ms = per_call_ms(lambda: ck_ops.block_checksums(win, start), 20)
         plain_ms = per_call_ms(lambda: ck_ref.block_checksums(win, start), 2)
-    k1_bound, k1_by = bound(w * ROW * 4 + w * 4, w * ROW * 12)
+    k1_bound, k1_by = bound(*CA.checksum_work(w, ROW))
     del store, red, aside, saved
     return {"budget_mib": budget >> 20, "window_blocks": w, "sweep_ticks_est": sweep_ticks,
             "tick_budget": budget_ticks, "ticks": len(loop), "probes": probes,
@@ -3668,8 +3748,8 @@ def k3_all_dirty(store, leaves: dict, red: dict, names: list, before_ms: float) 
         plain.append((lanes, red[n].checksums.clone(), red[n].parity.clone(), words))
         # Every stripe's members read, its parity row written, every
         # checksum written, the packed words read.
-        n_bytes += ns * STRIPE * L * 4 + ns * L * 4 + nb * 4 + words.numel() * 4
-        ops += ns * STRIPE * L * 13
+        b, o = CA.fused_update_work(ns, STRIPE, L, words.numel(), checksums=nb)
+        n_bytes, ops = n_bytes + b, ops + o
         stripes += ns
     want = fu_ref.fused_update_many(plain, STRIPE)
     got = fu_ops.fused_update_many(jobs, STRIPE)
@@ -4021,7 +4101,7 @@ def k1_on(store, leaves: dict, name: str) -> dict:
     got, want = ck_ops.block_checksums(lanes), ck_ref.block_checksums(lanes)
     check(torch.equal(got, want), f"checksum kernel != plain over {name}")
     del got, want
-    bms, by = bound(nb * L * 4 + nb * 4, nb * L * 12)
+    bms, by = bound(*CA.checksum_work(nb, L))
     ms = per_call_ms(lambda: ck_ops.block_checksums(lanes), 10)
     return {"leaf": name, "gb": nb * L * 4 / 1e9, "blocks": nb, "ms": ms,
             "plain_ms": per_call_ms(lambda: ck_ref.block_checksums(lanes), 2),
@@ -4358,36 +4438,6 @@ def kernels_summary(kernels: list, window_ms: float) -> dict:
             "top_kernels_ms": dict(sorted(by_kernel.items(), key=lambda kv: -kv[1])[:10])}
 
 
-def due_tick_bound(store, words: dict) -> dict:
-    """K3's bound for a due tick from the snapshot it consumed (``words``,
-    each leaf's packed in-flight bits): every dirty stripe's members read,
-    its parity row and its blocks' checksums written, the words read."""
-    n_bytes = ops = stripes = 0
-    for n, w in words.items():
-        meta = store.metas[n]
-        P, L = meta.stripe_data_blocks, meta.lanes_per_block
-        ns = words_stripes(w, meta.n_blocks, P)
-        n_bytes += ns * P * L * 4 + ns * L * 4 + ns * P * 4 + w.numel() * 4
-        ops += ns * P * L * 13
-        stripes += ns
-    bms, by = bound(n_bytes, ops)
-    return {"stripes": stripes, "gb": n_bytes / 1e9, "bound_ms": bms, "bound_by": by}
-
-
-def xlstm_flops(cfg, n_params: int) -> float:
-    """Model FLOPs of one step: 6 N per token, plus each mLSTM layer's
-    chunkwise products (the intra-chunk q k and scores v over 256 keys,
-    masked half included, and the inter-chunk reads and updates of the
-    hd x hd state), three times (forward and backward).  The per-slot and
-    per-chunk recomputes are not counted."""
-    tokens, d = TRAIN_BATCH * TRAIN_SEQ, cfg.d_model
-    hd = d // cfg.n_heads
-    chunk = min(256, TRAIN_SEQ)
-    per_layer = 2 * 2 * tokens * chunk * d + 2 * 2 * tokens * d * hd
-    n_mlstm = sum(cfg.layer_kind(i) == "mlstm" for i in range(cfg.n_layers))
-    return 6 * n_params * tokens + 3 * per_layer * n_mlstm
-
-
 def slots_alone_ms(cfg, params, slots: dict, g, reps: int = 4) -> dict:
     """Host ms (synchronised) of one slot's forward and backward alone at
     the training batch's shape, as training runs it (the per-slot
@@ -4549,9 +4599,9 @@ def phase_train_xlstm(seed: int) -> dict:
         del o["loss_bits"], o["checksums"]
         obs[kind] = o
     del main["loss_bits"]
-    flops = xlstm_flops(cfg, n_params)
+    flops = CA.xlstm_flops(cfg, n_params, TRAIN_BATCH, TRAIN_SEQ)
     main["model_flops_per_step"] = flops
-    main["model_flop_share"] = flops / (median_ms / 1e3) / BF16_FLOPS_PER_SEC
+    main["model_flop_share"] = flops / (median_ms / 1e3) / CA.PEAK_BF16_FLOPS
     if not isinstance(trace["device_busy_ms"], str):
         trace["device_busy_share_of_untraced_step"] = trace["device_busy_ms"] / median_ms
     return {"main": main, "observe": obs, "compared_steps": steps,
@@ -4863,7 +4913,7 @@ def phase_sharded_heap(g) -> dict:
         check(torch.equal(got, want) and torch.equal(got[~live], red["heap"].checksums[~live]),
               "sharded K1 != plain or the store's clean checksums")
         del got, want
-        k1_bound = bound(N_ROWS * L * 4 + N_ROWS * 4, N_ROWS * L * 12)
+        k1_bound = bound(*CA.checksum_work(N_ROWS, L))
         times["checksum"] = {
             "ms": per_call_ms(lambda: ck_ops.block_checksums(lanes3), 10),
             "one_leaf_ms": per_call_ms(lambda: ck_ops.block_checksums(lanes2), 10),
@@ -4875,7 +4925,7 @@ def phase_sharded_heap(g) -> dict:
               "sharded K2 != plain or the store's clean parity")
         del got, want
         ns_all = N_ROWS // STRIPE
-        k2_bound = bound(N_ROWS * L * 4 + ns_all * L * 4, N_ROWS * L)
+        k2_bound = bound(*CA.parity_work(N_ROWS, ns_all, L))
         times["parity"] = {
             "ms": per_call_ms(lambda: par_ops.stripe_parity(lanes3, STRIPE), 10),
             "one_leaf_ms": per_call_ms(lambda: par_ops.stripe_parity(lanes2, STRIPE), 10),
@@ -4904,9 +4954,8 @@ def phase_sharded_heap(g) -> dict:
               "sharded K3 != plain on the 8 GiB heap")
         del want
         one = [(lanes2, old_c.clone(), old_p.clone(), words_all)]
-        k3_bytes = (n_stripes * STRIPE * L * 4 + n_stripes * L * 4 + n_dirty * 4
-                    + words_all.numel() * 4)
-        k3_bound = bound(k3_bytes, n_stripes * STRIPE * L * 13)
+        k3_bound = bound(*CA.fused_update_work(n_stripes, STRIPE, L, words_all.numel(),
+                                               checksums=n_dirty))
         times["fused_update"] = {
             "ms": per_call_ms(lambda: fu_ops.fused_update_many(jobs, STRIPE), 20),
             "one_leaf_ms": per_call_ms(lambda: fu_ops.fused_update_many(one, STRIPE), 20),
@@ -4944,27 +4993,6 @@ def print_sharded_heap(r: dict) -> None:
         print(f"sharded heap {name}: {t['ms']:.4f} ms over 8 shards in one launch, "
               f"{t['one_leaf_ms']:.4f} ms as one leaf, bound {t['bound_ms']:.4f} ms "
               f"({100 * t['bound_ms'] / t['ms']:.1f}%), plain {t['plain_ms']:.2f} ms")
-
-
-def sharded_due_bound(store, words: dict) -> dict:
-    """K3's bound for a sharded due tick from the snapshot it consumes
-    (``words``, each leaf's packed bits, shard after shard): every dirty
-    stripe's members read, its parity row and its blocks' checksums
-    written, the words read."""
-    n_bytes = ops = stripes = 0
-    for n, w in words.items():
-        meta = store.metas[n]
-        P_, L = meta.stripe_data_blocks, meta.lanes_per_block
-        live = bits.unpack_rows(w, store.shard_factor(n), meta.n_blocks)
-        padded = torch.zeros((live.shape[0], meta.padded_blocks), dtype=torch.bool,
-                             device=live.device)
-        padded[:, :meta.n_blocks] = live
-        ns = int(padded.view(live.shape[0], meta.n_stripes, P_).any(dim=2).sum())
-        n_bytes += ns * P_ * L * 4 + ns * L * 4 + ns * P_ * 4 + w.numel() * 4
-        ops += ns * P_ * L * 13
-        stripes += ns
-    bms, by = bound(n_bytes, ops)
-    return {"stripes": stripes, "gb": n_bytes / 1e9, "bound_ms": bms, "bound_by": by}
 
 
 def sharded_full_check(store, caches: dict, red: dict, names: list) -> dict:
@@ -5130,7 +5158,7 @@ def phase_serve_sharded(gen_state, tokens7, none_s7: list) -> dict:
             ev = model.dirty_events_decode(stats["caches"], pos + t)
             marked = eng.mark_dirty(marked, {n: ev[n] for n in names})
         words = {n: marked[n].dirty | marked[n].shadow for n in names}
-        out["due_bound"] = sharded_due_bound(store, words)
+        out["due_bound"] = due_tick_bound(store, words)
         sub = {n: caches[n] for n in names}
         traced = {n: dataclasses.replace(marked[n], checksums=marked[n].checksums.clone(),
                                          parity=marked[n].parity.clone()) for n in names}
@@ -5197,7 +5225,7 @@ def phase_serve_sharded(gen_state, tokens7, none_s7: list) -> dict:
         out["staging_copy_ms"] = per_call_ms(
             lambda: [eng.lanes_by_shard(caches[n], n) for n in names], 5)
         stage_bytes = sum(2 * caches[n].numel() * caches[n].element_size() for n in names)
-        out["staging_bound_ms"] = stage_bytes / HBM_BYTES_PER_SEC * 1e3
+        out["staging_bound_ms"] = stage_bytes / CA.HBM_BW * 1e3
         jobs_marked = {n: dataclasses.replace(marked[n], checksums=marked[n].checksums.clone(),
                                               parity=marked[n].parity.clone())
                        for n in names}
@@ -5303,7 +5331,7 @@ def serve_sharded_patrolled(model, params, batch, policy, mesh, shapes, specs,
            "probes": len(staged), "window_blocks": w,
            "staged_blocks_max": max(n for n, _ in staged),
            "window_stage_ms": stage_ms,
-           "window_stage_bound_ms": 2 * k * w * meta.bytes_per_block / HBM_BYTES_PER_SEC * 1e3,
+           "window_stage_bound_ms": 2 * k * w * meta.bytes_per_block / CA.HBM_BW * 1e3,
            "kv_read_ms": kv_read_ms, "kv_read_blocks": len(ids), "kv_read_k1": kv_read_k1,
            "launches": launches,
            "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30}
@@ -5727,7 +5755,7 @@ def phase_sharded_patrol(g) -> dict:
     fn = store.engine_for("heap").verify_window_fn("heap", w, want_slab=True)
     start = nb - w
     win = blocks.shard_window_lanes(heap, meta, (8,), start, w)
-    hb = HBM_BYTES_PER_SEC
+    hb = CA.HBM_BW
     with uncounted():
         check(win.data_ptr() == lanes3[0, start].data_ptr() and win.stride(0) == nb * ROW,
               "the probe window is not a view at the shard stride")
@@ -5744,7 +5772,7 @@ def phase_sharded_patrol(g) -> dict:
                     r ^= lanes3[s_]
             return r
         check(torch.equal(recon(), lanes3[2]), "the reconstruction image != shard 2")
-        k1_b = bound(8 * w * ROW * 4 + 8 * w * 4, 8 * w * ROW * 12)
+        k1_b = bound(*CA.checksum_work(8 * w, ROW))
         rec["times"] = {
             "fold_ms": per_call_ms(lambda: rebuild_mod.xor_fold(lanes3), 5),
             "fold_bound_ms": (N_ROWS + nb) * ROW * 4 / hb * 1e3,
@@ -6159,6 +6187,171 @@ def print_chaos(r: dict) -> None:
 
 
 
+def traced_cell(cfg, shape, **kw) -> dict:
+    """One cell traced on the meta device (``dryrun.trace_cell``, one card:
+    no mesh): its parts' counts, the memory model's terms, the seconds."""
+    setup, parts, secs = dryrun.trace_cell(cfg, shape, None, "vilamb", accum=1, **kw)
+    return {"parts": {n: costs_record(c) for n, c in parts.items()}, "seconds": secs,
+            "hbm": memory_model.analytic_hbm(cfg, shape, None, setup, "vilamb", 1)}
+
+
+def dry_run_traces() -> dict:
+    """Phase 26 (a), (d) and (e) on the meta device, in a process of its
+    own (it needs no card): phase 7's serving cell (the prefill into
+    caches of max_len; the store's init, one decode step at the prompt's
+    end, a redundancy pass), phase 9's training cell (the store's init,
+    one step, a redundancy pass), the training step's roofline, the
+    Algorithm-1 cell of llama3.2-3b on one card, and arctic-480b cut to
+    ARCTIC_DRY_LAYERS layers at phase 11's serving shapes."""
+    t0 = time.perf_counter()
+    max_len = PROMPT + GEN + 1
+    serve_cfg, train_cfg = get_arch(SERVE_ARCH), get_arch(TRAIN_ARCH)
+    train_shape = ShapeConfig("train_4k_batch1", TRAIN_SEQ, TRAIN_BATCH, "train")
+    out = {"prefill": traced_cell(serve_cfg, ShapeConfig("serve_prefill", PROMPT, SERVE_BATCH,
+                                                         "prefill"), max_len=max_len),
+           "decode": traced_cell(serve_cfg, ShapeConfig("serve_decode", max_len, SERVE_BATCH,
+                                                        "decode"), pos=PROMPT),
+           "train": traced_cell(train_cfg, train_shape)}
+    step = out["train"]["parts"]["step"]
+    out["train"]["roofline"] = CA.roofline_terms(
+        step["total_flops"], step["total_bytes"], 0.0, 1,
+        dryrun.model_flops(train_cfg, train_shape)).as_dict()
+    red = dryrun.run_redundancy_cell(TRAIN_ARCH, multi_pod=None,
+                                     out_dir=Path(__file__).resolve().parent / "build" / "dryrun")
+    out["redundancy_cell"] = {k: red[k] for k in ("bound_ms", "bound_by", "trace_s",
+                                                  "state_bytes_per_chip", "memory_efficiency")}
+    arctic = dataclasses.replace(get_arch(ARCTIC_ARCH), n_layers=ARCTIC_DRY_LAYERS)
+    out["arctic"] = {
+        "prefill": traced_cell(arctic, ShapeConfig("serve_prefill", PROMPT, SERVE_BATCH,
+                                                   "prefill"), max_len=max_len),
+        "decode": traced_cell(arctic, ShapeConfig("serve_decode", max_len, SERVE_BATCH,
+                                                  "decode"), pos=PROMPT)}
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def op_diff(card: dict, meta: dict) -> dict:
+    """The aten ops whose counts differ between two records' ``by_op``."""
+    return {k: (card.get(k), meta.get(k)) for k in sorted(set(card) | set(meta))
+            if card.get(k) != meta.get(k)}
+
+
+def phase_dry_run(traces: dict, serve: dict, train: dict) -> dict:
+    """Phase 26: the dry run against the card.  (b) each part of phases 7's
+    and 9's counted steps equals its meta trace's FLOPs, bytes and
+    per-kernel launches and work exactly; (c) the memory model's params,
+    moments, caches and redundancy equal the bytes the phases held, its
+    totals beside their peaks, and its budget the card's total memory;
+    (d) the training step's roofline beside phase 9's median step, and the
+    Algorithm-1 cell's bound beside phase 9's K3; (e) arctic-480b's
+    itemised totals against the budget."""
+    t0 = time.perf_counter()
+    rec: dict = {"trace_s": {k: traces[k]["seconds"] for k in ("prefill", "decode", "train")},
+                 "traces_s": traces["seconds"]}
+    cells = {"prefill": serve["counted"]["prefill"], "decode": serve["counted"]["decode"],
+             "train": train["counted"]}
+    rec["counts"] = {}
+    for kind, card in cells.items():
+        meta = traces[kind]["parts"]
+        check(list(card["parts"]) == list(meta), f"{kind}: parts {list(card['parts'])} on the "
+              f"card, {list(meta)} traced")
+        for part, c in card["parts"].items():
+            m = meta[part]
+            check(c["key"] == m["key"], f"{kind} {part}: the card counted {c['key']}, the meta "
+                  f"trace {m['key']}; ops that differ (card, meta): "
+                  f"{op_diff(c['by_op'], m['by_op'])}")
+            rec["counts"][f"{kind}/{part}"] = {
+                "flops": c["key"]["flops"], "bytes": c["key"]["bytes"],
+                "kernels": c["key"]["kernels"], "aten_ops": c["aten_ops"],
+                "card_copies": c["copies"], "meta_copies": m["copies"]}
+    rec["launches"] = {k: v["launches"] for k, v in cells.items()}
+    rec["counted_s"] = {k: v["seconds"] for k, v in cells.items()}
+
+    # (c) memory: the model's terms against the bytes held.
+    want = {("decode", "params"): serve["held"]["params"],
+            ("decode", "caches"): serve["held"]["caches"],
+            ("decode", "redundancy"): serve["held"]["redundancy"],
+            ("train", "params"): train["held"]["params"],
+            ("train", "moments"): train["held"]["moments"],
+            ("train", "redundancy"): train["held"]["redundancy"]}
+    for (cell, term), held in want.items():
+        got = traces[cell]["hbm"][term]
+        check(got == held, f"memory model {cell}/{term} {got} B, the phase held {held} B")
+    total = torch.cuda.get_device_properties(0).total_memory
+    check(total == memory_model.HBM_BUDGET,
+          f"HBM_BUDGET {memory_model.HBM_BUDGET} != the card's total_memory {total}")
+    peak = {"prefill": serve["peak_gb"], "decode": serve["peak_gb"], "train": train["peak_gb"]}
+    rec["memory"] = {
+        "held": {"serving": serve["held"], "training": train["held"]},
+        "model": {k: traces[k]["hbm"] for k in ("prefill", "decode", "train")},
+        "total_vs_peak": {k: {"model_gib": traces[k]["hbm"]["total"] / 2**30,
+                              "peak_gib": peak[k],
+                              "ratio": traces[k]["hbm"]["total"] / 2**30 / peak[k]}
+                          for k in peak},
+        "hbm_budget": memory_model.HBM_BUDGET, "total_memory": total}
+
+    # (d) rooflines against phase 9's times.
+    rl = traces["train"]["roofline"]
+    step_flops = train["counted"]["parts"]["step"]["total_flops"]
+    rec["roofline"] = {
+        "train_step": rl, "roofline_s": max(rl["compute_s"], rl["memory_s"]),
+        "median_step_s": {k: v / 1e3 for k, v in train["median_step_ms"].items()},
+        "counted_flop_share": {k: step_flops / (v / 1e3) / CA.PEAK_BF16_FLOPS
+                               for k, v in train["median_step_ms"].items()},
+        "model_flop_share": train["model_flop_share"],
+        "redundancy_cell": traces["redundancy_cell"], "k3_due_tick_ms": train["k3_ms"]}
+
+    # (e) arctic-480b at ARCTIC_DRY_LAYERS layers on one card.
+    rec["arctic"] = {kind: {"hbm": c["hbm"], "trace_s": c["seconds"],
+                            "fits": c["hbm"]["fits_hbm_analytic"],
+                            "budget": memory_model.HBM_BUDGET * memory_model.HEADROOM,
+                            "kernels": {p: v["key"]["kernels"] for p, v in c["parts"].items()}}
+                     for kind, c in traces["arctic"].items()}
+    rec["phase_s"] = time.perf_counter() - t0
+    return rec
+
+
+def print_dry_run(r: dict) -> None:
+    for name, c in r["counts"].items():
+        k = ", ".join(f"{n} {v[0]}" for n, v in c["kernels"].items()) or "no kernel"
+        print(f"dry run {name}: card == meta trace: {c['flops']} FLOP, {c['bytes']} B, "
+              f"{c['aten_ops']} aten ops, launches {k}; named copies card "
+              f"{c['card_copies']} meta {c['meta_copies']}")
+    print(f"dry run: meta traces {r['trace_s']} s (all traces {r['traces_s']:.1f} s, in a "
+          f"process of their own); the counted runs on the card {r['counted_s']} s (inside "
+          f"phases 7 and 9); phase 26 itself {r['phase_s']:.2f} s")
+    m = r["memory"]
+    print(f"dry run memory: the model's params, moments, caches and redundancy equal the "
+          f"bytes held: serving {m['held']['serving']}, training {m['held']['training']}; "
+          f"HBM_BUDGET {m['hbm_budget']} == total_memory {m['total_memory']}")
+    for k, v in m["total_vs_peak"].items():
+        print(f"dry run memory {k}: model total {v['model_gib']:.2f} GiB, the phase's peak "
+              f"{v['peak_gib']:.2f} GiB, ratio {v['ratio']:.3f} ({m['model'][k]})")
+    rl = r["roofline"]
+    print(f"dry run roofline: training step {rl['roofline_s'] * 1e3:.1f} ms (compute "
+          f"{rl['train_step']['compute_s'] * 1e3:.1f} ms, memory "
+          f"{rl['train_step']['memory_s'] * 1e3:.1f} ms) against phase 9's median steps "
+          f"{ {k: round(v * 1e3, 1) for k, v in rl['median_step_s'].items()} } ms; counted-FLOP "
+          f"share { {k: round(100 * v, 2) for k, v in rl['counted_flop_share'].items()} }%, "
+          f"model-FLOP share { {k: round(100 * v, 2) for k, v in rl['model_flop_share'].items()} }%")
+    rc = rl["redundancy_cell"]
+    print(f"dry run Algorithm 1 over llama3.2-3b's params and moments (full pass): bound "
+          f"{rc['bound_ms']:.3f} ms ({rc['bound_by']}) against phase 9's K3 in its traced due "
+          f"tick {rl['k3_due_tick_ms']} ms")
+    for kind, a in r["arctic"].items():
+        print(f"dry run arctic-480b at {ARCTIC_DRY_LAYERS} layers, {kind} (batch {SERVE_BATCH}, "
+              f"prompt {PROMPT}, max_len {PROMPT + GEN + 1}): itemised {a['hbm']} against "
+              f"the budget {a['budget'] / 2**30:.2f} GiB ({memory_model.HBM_BUDGET} x "
+              f"{memory_model.HEADROOM}): fits {a['fits']}")
+
+
+def k3_trace_ms(trace: dict):
+    """K3's device ms in a traced window (``stream_overlap``'s
+    ``fused_update_us``), or "not measured" where the trace has none."""
+    us = trace.get("fused_update_us")
+    return us / 1e3 if isinstance(us, (int, float)) else "not measured"
+
+
 def clock(name: str, t_start: float) -> None:
     """The script's clock at the end of a phase (the time limit is the
     whole script's)."""
@@ -6189,6 +6382,18 @@ def main() -> int:
     print(f"build: {time.perf_counter() - t0:.1f} s")
     count_k3_calls()
     print_build_log(lib)
+    # Phase 26's meta traces need no card: they run in a process of their
+    # own while the phases before them run.
+    pool = multiprocessing.get_context("spawn").Pool(1)
+    try:
+        return run_phases(args, t_start, pool.apply_async(dry_run_traces))
+    finally:
+        pool.terminate()
+        pool.join()
+
+
+def run_phases(args, t_start: float, traces) -> int:
+    """Phases 3-26 (``traces``: phase 26's meta traces, running)."""
 
     # The plain versions' fp32 products stay in full fp32 (torch's default,
     # stated here): no TF32.
@@ -6287,6 +6492,8 @@ def main() -> int:
     print(json.dumps({"serve": tm}))
     print(json.dumps({"serve_launches": serve["launches"]}))
     clock("serve", t_start)
+    serve_dry = {"counted": serve["counted"], "held": serve["held"],
+                 "peak_gb": tm["peak_mem_gb"]}
     serve_launches = serve["launches"]
     patrol_serve = serve["patrolled"]
     serve_tokens, serve_gen_state = serve["tokens"], serve["gen_state"]
@@ -6297,8 +6504,13 @@ def main() -> int:
     t0 = time.perf_counter()
     train = phase_train(args.seed)
     m = train["main"]
+    train_dry = {"counted": train.pop("counted"), "held": m["held"], "peak_gb": m["peak_mem_gb"],
+                 "median_step_ms": {k: o["median_step_ms"] for k, o in train["observe"].items()},
+                 "model_flop_share": {k: o["model_flop_share"]
+                                      for k, o in train["observe"].items()},
+                 "k3_ms": k3_trace_ms(m["trace_steps_7_9"])}
     print(f"train ({time.perf_counter() - t0:.1f} s): {TRAIN_ARCH} full size, batch "
-          f"{TRAIN_BATCH} x {TRAIN_SEQ}, {TRAIN_STEPS} steps under the overlapped vilamb "
+          f"{TRAIN_BATCH} x {TRAIN_SEQ}, {TRAIN_MAIN_STEPS} steps under the overlapped vilamb "
           f"store over {m['memory_gb']['leaves']} leaves ({m['memory_gb']['state']:.2f} GB, "
           f"{m['memory_gb']['blocks']} blocks, {m['memory_gb']['parity']:.2f} GB parity); "
           f"launches {m['launches']}; peak {m['peak_mem_gb']:.2f} GiB")
@@ -6313,8 +6525,8 @@ def main() -> int:
           f"over {tr['fused_update_launches']} launches (PR 20, one launch a leaf: "
           f"{K3_BEFORE['train due tick']} ms over 33 launches)")
     for kind, o in train["observe"].items():
-        print(f"train: {kind} store, {OBS_STEPS} steps: median step {o['median_step_ms']:.2f} "
-              f"ms (steps 3-8), {o['tokens_per_s']:.1f} tokens/s, model-FLOP share "
+        print(f"train: {kind} store, {OBS_TRAIN_STEPS} steps: median step "
+              f"{o['median_step_ms']:.2f} ms (steps 3-{OBS_TRAIN_STEPS}), {o['tokens_per_s']:.1f} tokens/s, model-FLOP share "
               f"{100 * o['model_flop_share']:.2f}%; run {o['run_s']:.3f} s, drained "
               f"{o['drained_s']:.3f} s; due ticks' host ms {o['due_tick_host_ms']}")
     print(f"train: store overhead on a step (median) "
@@ -6448,6 +6660,11 @@ def main() -> int:
     print(smi_line())
     print(json.dumps({"chaos": ch}))
     clock("chaos", t_start)
+    dr = phase_dry_run(traces.get(timeout=900), serve_dry, train_dry)
+    print_dry_run(dr)
+    print(smi_line())
+    print(json.dumps({"dry_run": dr}))
+    clock("dry_run", t_start)
     for row in kernels:
         by_path = {"heap": heap_launches.get(row["name"], 0),
                    "serving": serve_launches[row["name"]],
@@ -6470,7 +6687,11 @@ def main() -> int:
                    "sharded patrol": sp["launches"][row["name"]]
                    + ss["patrolled"]["launches"][row["name"]],
                    "remesh": rm["launches"][row["name"]],
-                   "chaos": ch["launches"][row["name"]]}
+                   "chaos": ch["launches"][row["name"]],
+                   "dry run check": sum(c["launches"][row["name"]]
+                                        for c in (serve_dry["counted"]["prefill"],
+                                                  serve_dry["counted"]["decode"],
+                                                  train_dry["counted"]))}
         row["launches"] = sum(by_path.values())
         row["launches_by_path"] = by_path
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s")

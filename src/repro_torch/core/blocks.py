@@ -182,7 +182,7 @@ def shard_window_lanes(x: torch.Tensor, meta: BlockMeta, splits, start: int,
             out[:, pos:pos + cnt].view(splits + (b - a,) + rest).copy_(src)
             pos += cnt
     if m < hi - lo:
-        out[:, m:] = 0                  # past a shard's end, as to_lanes pads
+        out[:, m:].zero_()              # past a shard's end, as to_lanes pads
     return out.view(torch.int32).view(k, n, L)
 
 
@@ -303,7 +303,7 @@ def shard_lanes(x: torch.Tensor, meta: BlockMeta, splits) -> torch.Tensor:
         out = torch.empty((k, meta.padded_lanes * epw), dtype=x.dtype, device=x.device)
         out[:, :n].view(splits + local).copy_(perm)
     if not exact:
-        out[:, n:] = 0                    # each shard's partial last block
+        out[:, n:].zero_()                # each shard's partial last block
     return out.view(torch.int32).view(k, meta.n_blocks, meta.lanes_per_block)
 
 

@@ -9,7 +9,8 @@ Modes (Table 1 of the paper):
 
 One engine owns the redundancy of a named set of leaves on one device,
 the GPU unless the caller passes ``device="cpu"``; a leaf on another
-device is refused.  On a CUDA device the Algorithm-1 update of all the
+device is refused.  On a CUDA device (and on the ``meta`` device, where
+the dry run traces the card's path) the Algorithm-1 update of all the
 engine's leaves is one launch of the fused kernel (``kernels/redundancy``),
 which reads the packed dirty words itself, so there is no mask, no queue
 and no host-side fit check; on the CPU the plain work queue or full
@@ -126,7 +127,8 @@ class RedundancyEngine:
         if mesh is not None and torch.device(mesh.device) != self.device:
             raise ValueError(f"the mesh lies on {mesh.device}, the engine on "
                              f"{self.device}")
-        self.use_kernels = self.device.type == "cuda"
+        # The meta device (the dry run) takes the card's path.
+        self.use_kernels = self.device.type != "cpu"
         self.mesh = mesh
         self.specs = dict(specs or {})
         # Global leaf shapes (as handed in); the metas are shard-local.

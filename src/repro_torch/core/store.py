@@ -525,6 +525,11 @@ class ProtectedStore:
             out.update(g.engine.red_structs(global_))
         return out
 
+    def red_specs(self) -> Dict[str, LeafRedundancy]:
+        """The redundancy arrays' PartitionSpecs (the reference's
+        ``red_shardings``' specs)."""
+        return {n: g.engine.red_spec(n) for g in self._protected() for n in g.names}
+
     def _protected(self) -> List[_Group]:
         return [g for g in self.groups.values() if g.engine is not None]
 

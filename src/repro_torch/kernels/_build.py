@@ -143,8 +143,9 @@ def require_lanes(lanes: torch.Tensor, kernel: str,
     """Validate a lane view for the kernels' 16-byte loads.  With
     ``strided_shards`` a (shards, n_blocks, L) view need only hold each
     shard's rows contiguous, the shards a multiple of 4 lanes apart (a
-    window of every shard of a leaf, in place)."""
-    if lanes.device.type != "cuda":
+    window of every shard of a leaf, in place).  A ``meta`` view (the dry
+    run) is held to the same rules; its alignment is its offset's."""
+    if lanes.device.type not in ("cuda", "meta"):
         raise ValueError(f"{kernel}: lanes must be a CUDA tensor, got {lanes.device}")
     if lanes.dtype != torch.int32 or lanes.dim() not in (2, 3):
         raise ValueError(f"{kernel}: want an int32 (n_blocks, L) or (shards, "

@@ -1,7 +1,12 @@
 """Wrapper for the flash-attention kernel (``csrc/flash_attn.cu``).
 
 A CUDA tensor launches the kernel (or raises); a CPU tensor runs the plain
-version in ``ref.py``.  ``LAUNCHES`` counts kernel launches.  The kernel
+version in ``ref.py``; ``meta`` tensors run the card's checks and get the
+card's output shape, with nothing launched (the dry run).  ``LAUNCHES``
+counts kernel launches.  On every device the call reports one launch and
+its work to an active cost counter (``launch.cost_analysis``), and a
+copy the card makes of a layout its tensor maps cannot describe is
+counted under its own name.  The kernel
 reads q ``(B, Sq, H, hd)`` and k, v ``(B, Sk, KV, hd)`` in place through TMA
 tensor maps of dims ``(hd, heads, S, B)`` and the byte strides that
 ``tensor_map_layout`` computes: GQA needs no expanded copy and hd no
@@ -16,6 +21,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from ...launch import cost_analysis
 from .. import _build
 from . import ref
 
@@ -54,6 +60,7 @@ def _strided(x: torch.Tensor) -> torch.Tensor:
     """``x`` itself where a tensor map can describe it, else a packed copy."""
     if tensor_map_layout(x) is not None:
         return x
+    cost_analysis.note_copy("flash_attn packed copy", 2 * x.numel() * x.element_size())
     return x.clone(memory_format=torch.contiguous_format)
 
 
@@ -70,6 +77,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (on the CPU too), never returning a result with no graph; training
     takes the tiled differentiable attention instead.
     """
+    with cost_analysis.launch("flash_attn",
+                              lambda: (1, *cost_analysis.flash_work(q, k, v, causal), 0)):
+        return _attention(q, k, v, causal, scale)
+
+
+def _attention(q, k, v, causal: bool, scale: Optional[float]) -> torch.Tensor:
     global LAUNCHES
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         raise RuntimeError("flash_attention is forward-only and was asked for a "
@@ -89,7 +102,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"Sq={S}, Sk={Sk}")
     if q.device.type == "cpu":
         return ref.attention(q, k, v, causal, scale)
-    if q.device.type != "cuda" or k.device != q.device or v.device != q.device:
+    if (q.device.type not in ("cuda", "meta") or k.device != q.device
+            or v.device != q.device):
         raise ValueError(f"flash_attention: q, k, v must share one CUDA device, "
                          f"got {q.device}, {k.device}, {v.device}")
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
@@ -105,6 +119,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         q, scale = -q, -scale
     q, k, v = _strided(q), _strided(k), _strided(v)
     out = torch.empty((B, S, H, hd), dtype=q.dtype, device=q.device)
+    if q.device.type == "meta":
+        return out
     strides = [s for t in (q, k, v, out) for s in tensor_map_layout(t)[1]]
     rc = _build.library().vilamb_flash_attn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),

@@ -14,7 +14,12 @@ runs, are stream-ordered tensors from the caching allocator, zeroed here
 for each call, so launches in flight on two streams never share them.
 
 A CPU tensor runs the plain version in ``ref.py`` and copies its result
-into the same tensors.  ``LAUNCHES`` counts kernel launches.
+into the same tensors; ``meta`` tensors run the card's checks, and nothing
+is launched (the dry run: the results are the jobs' own tensors).
+``LAUNCHES`` counts kernel launches.  On every device the call reports
+the card's launches and their work to an active cost counter
+(``launch.cost_analysis``): the counter reads no data, so the work is the
+full pass's, every stripe of every job dirty.
 """
 from __future__ import annotations
 
@@ -24,11 +29,14 @@ import numpy as np
 import torch
 
 from ...core import bits
+from ...launch import cost_analysis
 from .. import _build
 from . import ref
 
 LAUNCHES = 0
 MAX_STRIPE = 16      # kMaxStripe in csrc/redundancy.cu
+MAX_JOBS = 352       # kMaxJobs in csrc/redundancy.cu (CUDA >= 12.1): what the
+                     # meta and CPU branches count a launch, as the card's
 DESC_WORDS = 11      # kDescWords: int64 words of a leaf's descriptor
 FILL = 4             # stripes a CTA of the persistent grid at least, else they split
 GRABS = 64           # tickets a CTA's share of a launch, about
@@ -67,10 +75,26 @@ def fused_update_many(jobs, stripe_width: int = 4):
     launch's stripes are too few to give every CTA ``FILL`` items (their
     checksum partials then fold through the scratch tensors).
     """
-    global LAUNCHES
     jobs = list(jobs)
     if not jobs:
         return []
+    with cost_analysis.launch("fused_update", lambda: _work(jobs, stripe_width)):
+        return _update_many(jobs, stripe_width)
+
+
+def _work(jobs, stripe_width: int):
+    n_bytes = ops = 0
+    for lanes, _, _, words in jobs:
+        nb, L = lanes.shape
+        b, o = cost_analysis.fused_update_work(-(-nb // stripe_width), stripe_width, L,
+                                               words.numel())
+        n_bytes, ops = n_bytes + b, ops + o
+    cap = max_jobs() if jobs[0][0].device.type == "cuda" else MAX_JOBS
+    return -(-len(jobs) // cap), 0, n_bytes, ops
+
+
+def _update_many(jobs, stripe_width: int):
+    global LAUNCHES
     if all(lanes.device.type == "cpu" for lanes, *_ in jobs):
         for (_, cks, par, _), (c, p) in zip(jobs, ref.fused_update_many(jobs, stripe_width)):
             cks.copy_(c)
@@ -95,6 +119,8 @@ def fused_update_many(jobs, stripe_width: int = 4):
         if ns >= 1 << 31:
             raise ValueError(f"fused_update: {ns} stripes in one leaf (at most 2^31 - 1)")
         geo.append((nb, L // 4, ns))
+    if dev.type == "meta":
+        return [(cks, par) for _, cks, par, _ in jobs]
     cols = tile_cols(stripe_width, max(l4 for _, l4, _ in geo))
     # Split stripes into runs of tiles only where the launch has too few.
     ctas = grid(dev.index, stripe_width, cols)

@@ -139,6 +139,56 @@ class ModelConfig:
                              f"whole number of groups of {self.group_size}")
         return self.n_layers // self.group_size
 
+    @property
+    def sub_quadratic(self) -> bool:
+        """Eligible for the long_500k shape (SSM/hybrid)."""
+        return self.ssm_kind != "" or self.attn_every > 0
+
+    def param_count(self) -> int:
+        """Analytic parameter count (the 6ND roofline's N), the
+        reference's formula."""
+        d, hd = self.d_model, self.hd
+        n_mats = 3 if self.activation == "swiglu" else 2
+        emb = self.vocab_size * d
+        total = emb if self.tie_embeddings else 2 * emb
+        for i in range(self.n_layers):
+            k = self.layer_kind(i)
+            if k == "attn":
+                total += d * self.n_heads * hd * 2          # q, o
+                total += d * self.n_kv_heads * hd * 2       # k, v
+            elif k == "mamba":
+                di, ds, dtr = self.d_inner, self.d_state, self.dt_rank
+                total += d * 2 * di + di * self.d_conv + di
+                total += di * (dtr + 2 * ds) + dtr * di + di
+                total += di * ds + di + di * d
+            elif k in ("mlstm", "slstm"):
+                total += 4 * d * d + 2 * d * self.n_heads + 2 * d
+            f = self.ffn_kind(i)
+            if f == "dense":
+                total += n_mats * d * self.d_ff
+            elif f == "moe":
+                total += self.n_experts * n_mats * d * self.expert_d_ff
+                total += d * self.n_experts                 # router
+                if self.dense_residual:
+                    total += n_mats * d * self.d_ff
+            total += 2 * d if self.norm != "nonparam_ln" else 0
+        if self.enc_dec:  # the encoder stack, and each decoder layer's cross attention
+            for _ in range(self.n_layers):
+                total += d * self.n_heads * hd * 2 + d * self.n_kv_heads * hd * 2
+                total += n_mats * d * self.d_ff
+                total += d * self.n_heads * hd * 2 + d * self.n_kv_heads * hd * 2
+        return total
+
+    def active_param_count(self) -> int:
+        """Parameters a token reads (MoE: top-k experts, not all)."""
+        if not self.n_experts:
+            return self.param_count()
+        n_mats = 3 if self.activation == "swiglu" else 2
+        per_expert = n_mats * self.d_model * self.expert_d_ff
+        n_moe = sum(1 for i in range(self.n_layers) if self.ffn_kind(i) == "moe")
+        return (self.param_count() - n_moe * self.n_experts * per_expert
+                + n_moe * self.top_k * per_expert)
+
 
 @dataclasses.dataclass(frozen=True)
 class ShapeConfig:

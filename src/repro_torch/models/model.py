@@ -45,7 +45,7 @@ def _masked_f32(logits: torch.Tensor, vocab_size: int) -> torch.Tensor:
     lf = logits.float()
     if lf.shape[-1] > vocab_size:
         lf = lf.clone() if lf is logits else lf
-        lf[:, vocab_size:] = -1e30
+        lf[:, vocab_size:].fill_(-1e30)
     return lf
 
 
@@ -314,7 +314,7 @@ class Model:
             if mixer == "attn":
                 G, S_max = c["k"].shape[:2]
                 ev = torch.zeros((G, S_max), dtype=torch.bool, device=c["k"].device)
-                ev[:, pos] = True
+                ev[:, pos].fill_(True)
                 events[f"slot_{s}/k"] = ev
                 events[f"slot_{s}/v"] = ev
             else:
